@@ -1,0 +1,12 @@
+"""Torch-native primitives in catseg_tpu's NHWC layouts."""
+from .conv import avg_pool2d, conv2d, conv_transpose2d_nonoverlap, patchify
+from .norm import group_norm, layer_norm
+from .resize import resize_bicubic, resize_bilinear
+from .unfold import fold_divisor, fold_tiles, unfold_tiles
+from .window import window_partition, window_reverse
+
+__all__ = [
+    "avg_pool2d", "conv2d", "conv_transpose2d_nonoverlap", "patchify",
+    "group_norm", "layer_norm", "resize_bicubic", "resize_bilinear",
+    "fold_divisor", "fold_tiles", "unfold_tiles", "window_partition", "window_reverse",
+]
