@@ -1,17 +1,17 @@
 """Cost-volume aggregation, eval path (catseg_tpu/core/aggregator.py).
 
 Module attribute names follow the keys of
-``catseg_tpu.weights.export.export_aggregator_state_dict`` (the reference
-Aggregator's module tree), so the JAX package's parameters load with
-``strict=True``.  Activations keep the reference's channels-last layouts:
-the class-major (B, T, H, W, C) slab runs through the corr-embed, Swin-pair
-and class-layer kernels; the guidance projections and the plain decoder are
-``F.conv*`` as the reference leaves them to XLA.
+``weights.export.export_aggregator_state_dict`` (the reference Aggregator's
+module tree), so the JAX package's parameters load with ``strict=True``.
+Activations keep the reference's channels-last layouts: the class-major
+(B, T, H, W, C) slab runs through the corr-embed, Swin-pair, class-layer and
+decoder kernels; the guidance projections are ``F.conv*`` as the reference
+leaves them to XLA.  With more classes than ``pad_len`` only the ``pad_len``
+best-scoring classes are aggregated (top-k truncation); the others get -100.
 
-Not ported yet (each raises rather than running something else): top-k class
-truncation (T > pad_len), the fused decoder kernel on CUDA
-(``fused_decoder=True``), and geometries outside the fused stages' gates
-(the reference's fallback window-attention / MLP / linear-attention kernels).
+Not ported yet (each raises rather than running something else): geometries
+outside the fused stages' gates (the reference's fallback window-attention /
+MLP / linear-attention kernels).
 """
 
 from __future__ import annotations
@@ -22,9 +22,9 @@ import torch.nn as nn
 from ..configs import CATSegConfig
 from ..kernels.class_layer import fused_class_layer, pad_contributions
 from ..kernels.corr_embed import corr_embed_applicable, fused_corr_embed, l2_normalize
+from ..kernels.decoder import decoder_kernel_applicable, decoder_plain, fused_decoder
 from ..kernels.swin_block import fused_swin_pair
-from ..ops import (avg_pool2d, conv2d, conv_transpose2d_nonoverlap, group_norm, layer_norm,
-                   resize_bilinear)
+from ..ops import avg_pool2d, conv2d, group_norm, layer_norm, resize_bilinear
 from .clip import LayerNorm, Linear, linear
 
 
@@ -127,6 +127,13 @@ class Up(nn.Module):
         self.conv.double_conv = nn.ModuleDict({"0": Conv(cin, cout, 3, bias=False), "1": GroupNorm(cout),
                                                "3": Conv(cout, cout, 3, bias=False), "4": GroupNorm(cout)})
 
+    def packed(self) -> dict:
+        """Decoder-stage parameters as kernels/decoder.py takes them."""
+        dc = self.conv.double_conv
+        return {"up_w": self.up.weight, "up_b": self.up.bias, "conv1_w": dc["0"].weight,
+                "gn1_g": dc["1"].weight, "gn1_b": dc["1"].bias, "conv2_w": dc["3"].weight,
+                "gn2_g": dc["4"].weight, "gn2_b": dc["4"].bias}
+
 
 class Aggregator(nn.Module):
     def __init__(self, cfg: CATSegConfig):
@@ -154,6 +161,27 @@ def correlation(img_feats: torch.Tensor, text_feats: torch.Tensor) -> torch.Tens
     img = l2_normalize(img_feats)
     txt = l2_normalize(text_feats)
     return torch.einsum("bhwc,btpc->bthwp", img.float(), txt.float()).to(img.dtype)
+
+
+def topk_classes(corr: torch.Tensor, pad_len: int) -> torch.Tensor:
+    """The pad_len classes with the highest max cost over (H, W, P): (B, pad_len)
+    int64.  Ties may order differently from ``jax.lax.top_k``; every later
+    stage is equivariant under a permutation of the kept classes."""
+    scores = corr.float().amax(dim=(2, 3, 4))
+    return torch.topk(scores, pad_len, dim=1).indices
+
+
+def gather_classes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, idx[b]] along the class axis (axis 1)."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+
+def scatter_full_logits(logits: torch.Tensor, idx: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(B, pad_len, H, W) kept-class logits -> (B, T, H, W), -100 elsewhere."""
+    B, _, H, W = logits.shape
+    out = torch.full((B, num_classes, H, W), -100.0, dtype=logits.dtype, device=logits.device)
+    out[torch.arange(B, device=logits.device)[:, None], idx] = logits
+    return out
 
 
 def corr_embed(corr: torch.Tensor, agg: Aggregator) -> torch.Tensor:
@@ -222,59 +250,50 @@ def class_aggregation(x: torch.Tensor, text_guidance, layer: AggregatorLayer,
     return x + out
 
 
-def _double_conv(x: torch.Tensor, up: Up, guidances: tuple) -> torch.Tensor:
-    """conv3x3 -> GN -> ReLU, twice; each per-image guidance's share of the
-    first conv (conv(concat(x, g)) == conv_x(x) + conv_g(g)) runs once per
-    image and broadcasts over the classes."""
-    dc = up.conv.double_conv
-    w1 = dc["0"].weight
-    Cx = x.shape[-1]
-    h = conv2d(x, w1[:, :Cx], None, padding=1)
-    ofs = Cx
-    for g in guidances:
-        Cg = g.shape[-1]
-        hg = conv2d(g.to(x.dtype), w1[:, ofs:ofs + Cg], None, padding=1)
-        h = (h.reshape(hg.shape[0], -1, *h.shape[1:]) + hg[:, None]).reshape(h.shape)
-        ofs += Cg
-    x = torch.relu(dc["1"](h))
-    x = conv2d(x, dc["3"].weight, None, padding=1)
-    return torch.relu(dc["4"](x))
-
-
-def _up_tail(x: torch.Tensor, guidances: tuple, up: Up, head: Conv | None) -> torch.Tensor:
-    x = conv_transpose2d_nonoverlap(x, up.up.weight, up.up.bias, kernel=2)
-    h = _double_conv(x, up, guidances)
-    if head is not None:
-        return conv2d(h, head.weight, head.bias, padding=1)[..., 0].float()
-    return h
-
-
 def conv_decoder(x: torch.Tensor, guidance: list, agg: Aggregator, use_fused: bool) -> torch.Tensor:
-    """(B, T, 24, 24, C) -> (B, T, 96, 96) fp32 per-class logits (plain _up_tail pair)."""
-    if use_fused and x.is_cuda:
-        raise NotImplementedError(
-            "the fused decoder kernel (catseg_tpu/kernels/decoder.py:fused_decoder) is not "
-            "ported yet (ROADMAP); build the config with fused_decoder=False")
+    """(B, T, 24, 24, C) -> (B, T, 96, 96) fp32 per-class logits.
+
+    The decoder kernel where the reference's gate holds (``use_fused``, both
+    decoder guidances, the flagship geometry); the plain _up_tail pair
+    otherwise, as the reference runs off the TPU.  On the CPU the kernel's
+    wrapper runs the same plain pair."""
     B, T, H, W, C = x.shape
     x = x.reshape(B * T, H, W, C)
-    g1 = (guidance[0],) if guidance[0] is not None else ()
-    g2 = (guidance[1],) if guidance[1] is not None else ()
-    x = _up_tail(x, g1, agg.decoder1, None)
-    x = _up_tail(x, g2, agg.decoder2, agg.head)
-    return x.reshape(B, T, x.shape[1], x.shape[2])
+    d1, d2 = agg.decoder1.packed(), agg.decoder2.packed()
+    head = {"w": agg.head.weight, "b": agg.head.bias}
+    if (use_fused and guidance[0] is not None and guidance[1] is not None
+            and decoder_kernel_applicable(x, d1, d2)):
+        out = fused_decoder(x, guidance[0], guidance[1], d1, d2, head)
+    else:
+        out = decoder_plain(x, guidance[0], guidance[1], d1, d2, head)
+    return out.reshape(B, T, out.shape[1], out.shape[2])
 
 
 def aggregator_forward(agg: Aggregator, img_feats: torch.Tensor, text_feats: torch.Tensor,
-                       appearance_guidance: tuple, cfg: CATSegConfig) -> torch.Tensor:
+                       appearance_guidance: tuple, cfg: CATSegConfig, return_classes: bool = False):
     """img_feats (B, 24, 24, E); text_feats (B, T, P, E); appearance_guidance
-    (res3 (B,24,24,Cg), res4 (B,48,48,256), res5 (B,96,96,128)) -> (B, T, 96, 96) fp32."""
+    (res3 (B,24,24,Cg), res4 (B,48,48,256), res5 (B,96,96,128)) -> (B, T, 96, 96)
+    fp32 logits; when T > pad_len only the top-k classes are aggregated and
+    the rest get -100.
+
+    With ``return_classes`` the scatter is left to the caller: returns
+    ``(logits, classes)``, logits over the kept classes only ((B, pad_len, 96,
+    96) and classes (B, pad_len) when truncation fired; otherwise all T and
+    classes None)."""
     T = text_feats.shape[1]
-    if cfg.pad_len > 0 and T > cfg.pad_len:
-        raise NotImplementedError(
-            f"T={T} > pad_len={cfg.pad_len} needs top-k class truncation, which is not "
-            "ported yet (ROADMAP: the top-k path)")
     w_hwio = agg.conv1.weight.permute(2, 3, 1, 0)
-    if corr_embed_applicable(img_feats, text_feats, w_hwio):
+    fused_ok = corr_embed_applicable(img_feats, text_feats, w_hwio)
+    classes = None
+    if cfg.pad_len > 0 and T > cfg.pad_len:
+        corr = correlation(img_feats, text_feats)          # the full-T cost, for top-k only
+        classes = topk_classes(corr, cfg.pad_len)
+        text_feats = gather_classes(l2_normalize(text_feats), classes)
+        if fused_ok:
+            # the kernel recomputes the kept classes' cost from their text
+            x = fused_corr_embed(img_feats, text_feats, w_hwio, agg.conv1.bias)
+        else:
+            x = corr_embed(gather_classes(corr, classes), agg)
+    elif fused_ok:
         x = fused_corr_embed(img_feats, l2_normalize(text_feats), w_hwio, agg.conv1.bias)
     else:
         x = corr_embed(correlation(img_feats, text_feats), agg)
@@ -297,4 +316,9 @@ def aggregator_forward(agg: Aggregator, img_feats: torch.Tensor, text_feats: tor
     for layer in agg.layers:
         x = spatial_aggregation(x, proj_guid, layer, cfg)
         x = class_aggregation(x, text_guid, layer, cfg)
-    return conv_decoder(x, dec_guid, agg, use_fused=cfg.fused_decoder)
+    logits = conv_decoder(x, dec_guid, agg, use_fused=cfg.fused_decoder)
+    if return_classes:
+        return logits, classes
+    if classes is not None:
+        logits = scatter_full_logits(logits, classes, T)
+    return logits

@@ -1,11 +1,12 @@
 """The CAT-Seg model (catseg_tpu/core/catseg.py) as an nn.Module.
 
+``build_catseg(cfg, seed=0)`` gives the model on the card;
 ``CATSeg(cfg)(images, text_feats)`` maps raw (B, H, W, 3) RGB tiles and
 (T, P, E) text features to (B, T, 96, 96) fp32 logits: CLIP normalization,
 resize to clip_resolution, dense CLIP encode with guidance taps, the
 guidance pyramid (upsample1 ConvT k2 width->256, upsample2 ConvT k4
 width->128) and the aggregator.  Attribute names follow
-``catseg_tpu.weights.export.export_catseg_checkpoint`` keys.
+``weights.export.export_catseg_checkpoint`` keys.
 """
 
 from __future__ import annotations
@@ -76,6 +77,34 @@ class CATSeg(nn.Module):
         if text_feats.ndim == 3:
             text_feats = text_feats.expand(images.shape[0], *text_feats.shape)
         return aggregator_forward(self.agg, img_feats, text_feats.to(compute_dtype(cfg)), guidance, cfg)
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another; asking for CUDA without a card raises instead of running on
+    the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on an NVIDIA GPU by default; "
+                           "pass device='cpu' to run its plain PyTorch path")
+    return device
+
+
+def build_catseg(cfg: CATSegConfig, *, seed: int | None = None, params: dict | None = None,
+                 device="cuda") -> CATSeg:
+    """A CATSeg in eval mode on ``device``: seeded random weights
+    (:func:`init_catseg_`) or a catseg_tpu parameter pytree (``params``)."""
+    if (seed is None) == (params is None):
+        raise ValueError("build_catseg takes exactly one of seed= and params=")
+    device = resolve_device(device)
+    model = CATSeg(cfg)
+    if params is not None:
+        from ..weights.from_jax import load_params_
+
+        load_params_(model, params)
+    else:
+        init_catseg_(model, seed)
+    return model.to(device).eval()
 
 
 @torch.no_grad()

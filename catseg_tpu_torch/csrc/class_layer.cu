@@ -15,8 +15,12 @@
 // reference spec does.  Then residual -> LN2 -> ReLU MLP -> residual.
 //
 // bf16 (the serving dtype) runs the qkv and MLP products on tensor cores
-// (wmma bf16 -> fp32; rows padded to 16, T <= 160); fp32 runs CUDA-core FMAs
-// (T <= 176, bounded by shared memory) and stays the oracle-parity path.
+// (wmma bf16 -> fp32; rows padded to 16); fp32 runs CUDA-core FMAs and stays
+// the oracle-parity path.  Both take T <= 256 (pad_len, the count the top-k
+// path hands over): bf16 runs the MLP in passes of at most 128 rows so its
+// fc2 accumulators stay in registers; fp32 writes seq = x + attention straight
+// to out and accumulates the fc2 chunks there, so shared memory holds one
+// (T, C) buffer and the per-head rows.
 //
 // Bound on the card: the qkv / MLP products (~0.18 M multiply-adds per class
 // row) and one CTA per SM; the activation is read and written once.
@@ -30,7 +34,8 @@ constexpr int kC = 128, kHeads = 4, kD = 32, kDP = kD + 1, kHid = 512, kHC = 64;
 constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kLdb = kC + 8;      // bf16 row stride of tensor-core operands (16-byte skew)
 constexpr int kHCt = 128;         // tensor-core MLP hidden chunk
-constexpr int kMaxRowTiles = 10;  // tensor-core kernel: T <= 160
+constexpr int kPassTiles = 8;     // tensor-core MLP: 16-row tiles per pass
+constexpr int kMaxT = 256;        // classes per position (pad_len)
 constexpr size_t kSmemLimit = 232448;
 
 struct ClassParams {
@@ -49,17 +54,18 @@ struct ClassParamsTC {
 
 __device__ __forceinline__ float elu1(float v) { return v > 0.f ? v + 1.f : expf(fminf(v, 0.f)); }
 
-size_t smem_bytes(int nT) {
-  return (size_t)(2 * nT * kC + 2 * nT * kDP + kD * kDP + kD + nT) * sizeof(float);
+constexpr size_t smem_bytes(int nT) {
+  return (size_t)(nT * kC + 2 * nT * kDP + kD * kDP + kD + nT) * sizeof(float);
 }
 
-int padded(int nT) { return (nT + 15) / 16 * 16; }
+constexpr int padded(int nT) { return (nT + 15) / 16 * 16; }
 
-size_t smem_bytes_tc(int nT) {
-  const int tp = padded(nT);
-  return 2 * (size_t)tp * kLdb * sizeof(bf16) + (size_t)(2 * tp * kDP + kD * kDP + kD + tp) * sizeof(float)
+constexpr size_t smem_bytes_tc(int nT) {
+  return (size_t)(padded(nT) + kPassTiles * 16) * kLdb * sizeof(bf16)
+         + (size_t)(2 * padded(nT) * kDP + kD * kDP + kD + padded(nT)) * sizeof(float)
          + (size_t)kWarps * 256 * sizeof(float);
 }
+static_assert(smem_bytes(kMaxT) <= kSmemLimit && smem_bytes_tc(kMaxT) <= kSmemLimit, "shared memory at T = 256");
 
 // KV block (D, DP) and K sum (D) of head hq from K (elu+1) and V/Tp rows
 // (nT, DP), plus the padding rows' constant terms.
@@ -104,9 +110,8 @@ class_layer_kernel(const float* x, float* out, const float* qg, const float* kg,
                    int nT, int HW, int has_guid, float Tp) {
   using T = float;
   extern __shared__ float sm[];
-  float* Y = sm;                 // (T, C): LN1 out, then seq, then MLP accumulator
-  float* A = Y + nT * kC;        // (T, C): attention out, then LN2 out
-  float* R = A + nT * kC;        // 2 x (T, DP) per-head K/V (Q reuses K), then (T, HC) hidden
+  float* Y = sm;                 // (T, C): LN1 out, then LN2 out
+  float* R = Y + nT * kC;        // 2 x (T, DP) per-head K/V (Q reuses K), then (T, HC) hidden
   float* KV = R + 2 * nT * kDP;  // (D, DP)
   float* ks = KV + kD * kDP;     // (D,)
   float* z = ks + kD;            // (T,)
@@ -144,44 +149,36 @@ class_layer_kernel(const float* x, float* out, const float* qg, const float* kg,
       Qh[r * kDP + c] = elu1(q);
     });
     __syncthreads();
-    head_out(Qh, KV, ks, z, nT, Tp, [&](int t, int f, float v) { A[t * kC + hq + f] = v; });
+    // seq = x + attn straight to out (the final residual and the MLP's sum)
+    head_out(Qh, KV, ks, z, nT, Tp, [&](int t, int f, float v) {
+      const size_t gi = row(t) + hq + f;
+      out[gi] = x[gi] + v;
+    });
     __syncthreads();
   }
 
-  // seq = x + attn; kept in Y and, as the final residual, in out
-  for (int i = tid; i < nT * kC; i += blockDim.x) {
-    const int t = i / kC, c = i % kC;
-    const float s = x[row(t) + c] + A[i];
-    Y[i] = s;
-    out[row(t) + c] = s;
-  }
-  __syncthreads();
   for (int t = warp; t < nT; t += kWarps) {
     float v[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = Y[t * kC + lane + 32 * i];
-    ln_row128<T>(v, p.ln2_g, p.ln2_b, A + t * kC, lane);
+    for (int i = 0; i < 4; ++i) v[i] = out[row(t) + lane + 32 * i];
+    ln_row128<T>(v, p.ln2_g, p.ln2_b, Y + t * kC, lane);
   }
   __syncthreads();
-  for (int i = tid; i < nT * kC; i += blockDim.x) Y[i] = 0.f;
-  __syncthreads();
   for (int c0 = 0; c0 < kHid; c0 += kHC) {
-    mm_rows<8>(A, kC, p.m1_w + c0, kHid, nT, kHC, kC,
+    mm_rows<8>(Y, kC, p.m1_w + c0, kHid, nT, kHC, kC,
                [&](int r, int c, float acc) { R[r * kHC + c] = fmaxf(acc + p.m1_b[c0 + c], 0.f); });
     __syncthreads();
     mm_rows<8>(R, kHC, p.m2_w + (size_t)c0 * kC, kC, nT, kC, kHC,
-               [&](int r, int c, float acc) { Y[r * kC + c] += acc; });
+               [&](int r, int c, float acc) { out[row(r) + c] += acc; });
     __syncthreads();
   }
-  for (int i = tid; i < nT * kC; i += blockDim.x) {
-    const int t = i / kC, c = i % kC;
-    out[row(t) + c] += Y[i] + p.m2_b[c];
-  }
+  for (int i = tid; i < nT * kC; i += blockDim.x) out[row(i / kC) + i % kC] += p.m2_b[i % kC];
 }
 
 // bf16 layer: tensor-core qkv / MLP products (mm_tc) on rows padded to a
-// multiple of 16 with zeros; the fc2 accumulators stay in registers across
-// the 128-wide hidden chunks (warp w owns output column tile w).
+// multiple of 16 with zeros; the MLP runs in passes of kPassTiles row tiles,
+// whose fc2 accumulators stay in registers across the 128-wide hidden chunks
+// (warp w owns output column tile w).
 __global__ void __launch_bounds__(kThreads, 1)
 class_layer_tc_kernel(const bf16* x, bf16* out, const bf16* qg, const bf16* kg,
                       const float* __restrict__ pad_kv, const float* __restrict__ pad_ksum, ClassParamsTC p,
@@ -192,8 +189,8 @@ class_layer_tc_kernel(const bf16* x, bf16* out, const bf16* qg, const bf16* kg,
   extern __shared__ __align__(128) unsigned char smraw[];
   const int tp = (nT + 15) / 16 * 16, mt = tp / 16;
   bf16* Ya = reinterpret_cast<bf16*>(smraw);  // (tp, kLdb): LN1 out, then LN2 out; pad rows 0
-  bf16* Hc = Ya + tp * kLdb;                  // (tp, kLdb): MLP hidden chunk
-  float* Kh = reinterpret_cast<float*>(Hc + tp * kLdb);
+  bf16* Hc = Ya + tp * kLdb;                  // (kPassTiles * 16, kLdb): MLP hidden chunk of a pass
+  float* Kh = reinterpret_cast<float*>(Hc + kPassTiles * 16 * kLdb);
   float* Vh = Kh + tp * kDP;
   float* KV = Vh + tp * kDP;
   float* ks = KV + kD * kDP;
@@ -251,54 +248,50 @@ class_layer_tc_kernel(const bf16* x, bf16* out, const bf16* qg, const bf16* kg,
   }
   __syncthreads();
 
-  wm::fragment<wm::accumulator, 16, 16, 16, float> acc[kMaxRowTiles];
-#pragma unroll
-  for (int i = 0; i < kMaxRowTiles; ++i) wm::fill_fragment(acc[i], 0.f);
-  for (int c0 = 0; c0 < kHid; c0 += kHCt) {
-    mm_tc(Ya, kLdb, p.m1_w + c0, kHid, tp, kHCt, kC, stage, [&](int r, int c, float a) {
-      Hc[r * kLdb + c] = from_f<T>(fmaxf(a + p.m1_b[c0 + c], 0.f));
-    });
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kMaxRowTiles; ++i) {
-      if (i < mt) {
-        for (int k = 0; k < kHCt; k += 16) {
-          wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-          wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> bm;
-          wm::load_matrix_sync(a, Hc + i * 16 * kLdb + k, kLdb);
-          wm::load_matrix_sync(bm, p.m2_w + (size_t)(c0 + k) * kC + warp * 16, kC);
-          wm::mma_sync(acc[i], a, bm, acc[i]);
-        }
-      }
-    }
-    __syncthreads();
-  }
   float* st = stage + warp * 256;
+  for (int t0 = 0; t0 < mt; t0 += kPassTiles) {
+    const int pt = min(kPassTiles, mt - t0);
+    wm::fragment<wm::accumulator, 16, 16, 16, float> acc[kPassTiles];
 #pragma unroll
-  for (int i = 0; i < kMaxRowTiles; ++i) {
-    if (i < mt) {
-      wm::store_matrix_sync(st, acc[i], 16, wm::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int t = i * 16 + e / 16, c = warp * 16 + e % 16;
-        if (t < nT) {
-          const size_t gi = row(t) + c;
-          out[gi] = from_f<T>(to_f(out[gi]) + rnd<T>(st[e] + p.m2_b[c]));
+    for (int i = 0; i < kPassTiles; ++i) wm::fill_fragment(acc[i], 0.f);
+    for (int c0 = 0; c0 < kHid; c0 += kHCt) {
+      mm_tc(Ya + t0 * 16 * kLdb, kLdb, p.m1_w + c0, kHid, pt * 16, kHCt, kC, stage, [&](int r, int c, float a) {
+        Hc[r * kLdb + c] = from_f<T>(fmaxf(a + p.m1_b[c0 + c], 0.f));
+      });
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kPassTiles; ++i) {
+        if (i < pt) {
+          for (int k = 0; k < kHCt; k += 16) {
+            wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
+            wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> bm;
+            wm::load_matrix_sync(a, Hc + i * 16 * kLdb + k, kLdb);
+            wm::load_matrix_sync(bm, p.m2_w + (size_t)(c0 + k) * kC + warp * 16, kC);
+            wm::mma_sync(acc[i], a, bm, acc[i]);
+          }
         }
       }
-      __syncwarp();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < kPassTiles; ++i) {
+      if (i < pt) {
+        wm::store_matrix_sync(st, acc[i], 16, wm::mem_row_major);
+        __syncwarp();
+        for (int e = lane; e < 256; e += 32) {
+          const int t = (t0 + i) * 16 + e / 16, c = warp * 16 + e % 16;
+          if (t < nT) {
+            const size_t gi = row(t) + c;
+            out[gi] = from_f<T>(to_f(out[gi]) + rnd<T>(st[e] + p.m2_b[c]));
+          }
+        }
+        __syncwarp();
+      }
     }
   }
 }
 
 }  // namespace
-
-extern "C" int catseg_class_layer_max_classes(int is_bf16) {
-  if (is_bf16) return 16 * kMaxRowTiles;
-  int nT = 1;
-  while (smem_bytes(nT + 1) <= kSmemLimit) ++nT;
-  return nT;
-}
 
 extern "C" int catseg_class_layer(const void* x, void* out, const void* qg, const void* kg,
                                   const void* pad_kv, const void* pad_ksum, const void* ln1_g,
@@ -307,7 +300,7 @@ extern "C" int catseg_class_layer(const void* x, void* out, const void* qg, cons
                                   const void* m1_b, const void* m2_w, const void* m2_b, int B,
                                   int nT, int HW, int has_guid, float Tp, int is_bf16,
                                   void* stream) {
-  if (B <= 0 || nT <= 0 || HW <= 0 || nT > catseg_class_layer_max_classes(is_bf16))
+  if (B <= 0 || nT <= 0 || HW <= 0 || nT > kMaxT)
     return (int)cudaErrorInvalidValue;
   auto f = [](const void* ptr) { return static_cast<const float*>(ptr); };
   auto h = [](const void* ptr) { return static_cast<const bf16*>(ptr); };

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs import CATSegConfig
-from ..core.catseg import CATSeg, compute_dtype
+from ..core.catseg import CATSeg, compute_dtype, resolve_device
 from ..ops import fold_divisor, fold_tiles, resize_bilinear, unfold_tiles
 from ..text.embed import forward_text_embeds
 
@@ -76,14 +76,17 @@ def resize_argmax(probs_cm: torch.Tensor, out_hw, chunk: int = 32) -> torch.Tens
 
 
 class Predictor:
-    """Sliding-window prediction for a list of true-size RGB images."""
+    """Sliding-window prediction for a list of true-size RGB images.
+
+    The model and the text features move to ``device``, the card unless the
+    caller asks for the CPU; without a card the default raises."""
 
     def __init__(self, model: CATSeg, cfg: CATSegConfig, class_names: list[str],
-                 text_feats: torch.Tensor | np.ndarray | None = None):
-        self.model = model
+                 text_feats: torch.Tensor | np.ndarray | None = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
         self.cfg = cfg
         self.class_names = list(class_names)
-        self.device = next(model.parameters()).device
         if text_feats is None:
             with torch.inference_mode():
                 text_feats = forward_text_embeds(model.clip, self.class_names, cfg.prompt_ensemble_type,

@@ -1,8 +1,9 @@
 """Build, load and launch the port's CUDA kernels; count every launch.
 
-All ``catseg_tpu_torch/csrc/*.cu`` files are compiled by ONE ``nvcc`` call
-into a shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds), loaded with ``ctypes``.  The build runs at first use,
+Each ``catseg_tpu_torch/csrc/*.cu`` file is compiled by its own ``nvcc``
+process, all started together, and one more ``nvcc`` links the objects into
+a shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds), loaded with ``ctypes``.  The build runs at first use,
 into ``catseg_tpu_torch/_build/<hash>/`` keyed by a hash of the sources and
 the flags, so an edited source rebuilds and an unchanged one is reused.
 
@@ -30,12 +31,12 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {
     "layer_norm": 0, "dense_attention": 0, "corr_embed": 0,
-    "swin_block": 0, "class_layer": 0,
+    "swin_block": 0, "class_layer": 0, "decoder": 0,
 }
 
 # C entry points and their argument kinds: "p" pointer, "i" int, "f" float.
@@ -45,6 +46,7 @@ _SIGNATURES = {
     "catseg_corr_embed": "pppppiiiiii",
     "catseg_swin_block": "pppp" + "p" * 12 + "iiiiiii",
     "catseg_class_layer": "pppppp" + "p" * 10 + "iiiifi",
+    "catseg_decoder": "ppppp" + "p" * 18 + "iiii",
 }
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -88,12 +90,31 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libcatseg_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-8000:]}")
+    nvcc, tag = _nvcc(), os.getpid()
+    log, objs, procs = [], [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        objs.append(obj)
+    failed = []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out[-8000:])
+    tmp = out_dir / f"libcatseg_kernels.{tag}.so"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr[-8000:])
+    (out_dir / "nvcc.log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)
     return lib
 
@@ -110,8 +131,10 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.catseg_error_string.argtypes = [ctypes.c_int]
             lib.catseg_error_string.restype = ctypes.c_char_p
-            lib.catseg_class_layer_max_classes.argtypes = [ctypes.c_int]
-            lib.catseg_class_layer_max_classes.restype = ctypes.c_int
+            lib.catseg_decoder_blocks.argtypes = [ctypes.c_int]
+            lib.catseg_decoder_blocks.restype = ctypes.c_int
+            lib.catseg_decoder_scratch_elems.argtypes = []
+            lib.catseg_decoder_scratch_elems.restype = ctypes.c_int
             _lib = lib
     return _lib
 

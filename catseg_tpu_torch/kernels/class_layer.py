@@ -75,10 +75,9 @@ def class_layer_plain(x: torch.Tensor, qg, kg, pad_kv, pad_ksum, p: dict, heads:
     return out.reshape(B, H, W, T, C).permute(0, 3, 1, 2, 4)
 
 
-def max_classes(dtype: torch.dtype) -> int:
-    """Largest class count the kernel takes at this dtype (shared memory for
-    fp32, the register-resident MLP accumulators for bf16)."""
-    return _build.library().catseg_class_layer_max_classes(int(dtype == torch.bfloat16))
+# largest class count the kernel takes, in fp32 and bf16: pad_len, the count
+# the top-k path hands it (kMaxT in csrc/class_layer.cu)
+MAX_CLASSES = 256
 
 
 def _class_layer_cuda(x, qg, kg, pad_kv, pad_ksum, p: dict, heads: int, Tp: int) -> torch.Tensor:
@@ -88,9 +87,9 @@ def _class_layer_cuda(x, qg, kg, pad_kv, pad_ksum, p: dict, heads: int, Tp: int)
         raise TypeError(f"class layer kernel takes fp32 or bf16, got {dt}")
     if (C, heads) != (128, 4):
         raise NotImplementedError(f"class layer kernel is built for C=128, 4 heads; got {C}, {heads}")
-    if T > max_classes(dt):
-        raise NotImplementedError(f"class layer kernel takes at most {max_classes(dt)} classes "
-                                  f"per position at {dt}; got T={T}")
+    if T > MAX_CLASSES:
+        raise NotImplementedError(f"class layer kernel takes at most {MAX_CLASSES} classes "
+                                  f"per position; got T={T}")
     # weight matrices travel in the compute dtype (bf16 feeds the tensor
     # cores); LN parameters and biases in fp32, unrounded as in the spec
     w = {"ln1_g": p["ln1_g"].float(), "ln1_b": p["ln1_b"].float(),

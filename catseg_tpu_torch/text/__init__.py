@@ -1,1 +1,2 @@
-"""Class-name -> text-feature pipeline (tokenizer and templates come from catseg_tpu.text)."""
+"""Class-name -> text-feature pipeline, with the port's own copies of the CLIP
+BPE tokenizer, its merge table and the prompt templates."""

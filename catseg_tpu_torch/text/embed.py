@@ -6,10 +6,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from catseg_tpu.text import templates as _templates
-from catseg_tpu.text.tokenizer import ClipBPE, tokenize
-
 from ..core.clip import CLIP, encode_text, truncate_context
+from . import templates as _templates
+from .tokenizer import ClipBPE, tokenize
 
 
 @torch.no_grad()

@@ -1,8 +1,9 @@
 """catseg_tpu parameters -> the port's modules.
 
-``catseg_tpu.weights.export.export_catseg_checkpoint`` (pure numpy) turns a
-JAX parameter pytree into the released checkpoints' torch state dict; the
-port's attribute names are those keys, so loading needs no renaming table.
+``export.export_catseg_checkpoint`` (pure numpy, the port's copy of
+catseg_tpu's exporter) turns a JAX parameter pytree into the released
+checkpoints' torch state dict; the port's attribute names are those keys, so
+loading needs no renaming table.
 """
 
 from __future__ import annotations
@@ -10,9 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from catseg_tpu.weights.export import export_catseg_checkpoint
-
 from ..core.catseg import CATSeg
+from .export import export_catseg_checkpoint
 
 
 def state_dict_from_params(params: dict) -> dict[str, torch.Tensor]:

@@ -15,23 +15,25 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from catseg_tpu.configs import CLIPVariant
+from catseg_tpu import configs as jconfigs
 from catseg_tpu.core import clip as jclip
 from catseg_tpu.text.embed import forward_text_embeds as j_text_embeds
 from catseg_tpu.text.tokenizer import tokenize
 from catseg_tpu.weights.export import export_clip_state_dict
 
+from catseg_tpu_torch import configs as tconfigs
 from catseg_tpu_torch.core import clip as tclip
 from catseg_tpu_torch.text.embed import forward_text_embeds as t_text_embeds
 
-MINI = CLIPVariant("mini-B/16", 16, 128, 3, 2, 64, 224, 128, 2, 2)
+MINI = jconfigs.CLIPVariant("mini-B/16", 16, 128, 3, 2, 64, 224, 128, 2, 2)
+MINI_PORT = tconfigs.CLIPVariant("mini-B/16", 16, 128, 3, 2, 64, 224, 128, 2, 2)
 NAMES = ["wall", "building, edifice", "sky", "floor, flooring", "tree", "ceiling"]
 
 
 @pytest.fixture(scope="module")
 def models():
     params = jclip.init_clip_params(jax.random.PRNGKey(0), MINI)
-    model = tclip.CLIP(MINI)
+    model = tclip.CLIP(MINI_PORT)
     sd = {k: torch.tensor(v) for k, v in export_clip_state_dict(params).items()}
     model.load_state_dict(sd, strict=True)
     return params, model

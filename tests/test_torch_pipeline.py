@@ -9,24 +9,25 @@ near-tie between classes may flip).
 
 import numpy as np
 import pytest
+import torch
 
 from catseg_tpu.infer.pipeline import Predictor as JPredictor
 
-from catseg_tpu_torch.core.catseg import CATSeg
+from catseg_tpu_torch.core.catseg import CATSeg, build_catseg, init_catseg_
 from catseg_tpu_torch.infer.pipeline import Predictor
 from catseg_tpu_torch.weights.from_jax import load_params_
 
-from test_torch_aggregator import mini_cfg, mini_params
+from test_torch_aggregator import mini_cfg, mini_cfg_port, mini_params
 
 NAMES = ["wall", "building, edifice", "sky", "floor, flooring", "tree", "ceiling"]
 
 
 @pytest.fixture(scope="module")
 def predictors():
-    cfg = mini_cfg()
     params = mini_params(seed=1)
-    jp = JPredictor(params, cfg, NAMES, input_canvas=(128, 160))
-    tp = Predictor(load_params_(CATSeg(cfg), params), cfg, NAMES)
+    jp = JPredictor(params, mini_cfg(), NAMES, input_canvas=(128, 160))
+    cfg = mini_cfg_port()
+    tp = Predictor(load_params_(CATSeg(cfg), params), cfg, NAMES, device="cpu")
     return jp, tp
 
 
@@ -55,3 +56,29 @@ def test_sliding_preds_match_jax(predictors, images):
     assert got.shape == want.shape == (2, 120, 160) and got.dtype == np.int32
     assert (got >= 0).all() and (got < 6).all()
     assert (got == want).mean() >= 0.999
+
+
+def test_entry_points_default_to_the_card():
+    """The default device is the card; without one the entry points raise
+    instead of running on the CPU."""
+    cfg = mini_cfg_port()
+    if torch.cuda.is_available():
+        assert next(build_catseg(cfg, seed=0).parameters()).is_cuda
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_catseg(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(CATSeg(cfg), cfg, NAMES)
+
+
+def test_build_catseg_seed_and_params(predictors):
+    """build_catseg gives the seeded init or the loaded JAX pytree, in eval mode."""
+    _, tp = predictors
+    cfg = mini_cfg_port()
+    seeded = build_catseg(cfg, seed=3, device="cpu")
+    want = init_catseg_(CATSeg(cfg), 3).state_dict()
+    assert not seeded.training and all(torch.equal(v, want[k]) for k, v in seeded.state_dict().items())
+    loaded = build_catseg(cfg, params=mini_params(seed=1), device="cpu")
+    assert all(torch.equal(v, tp.model.state_dict()[k]) for k, v in loaded.state_dict().items())
+    with pytest.raises(ValueError, match="exactly one"):
+        build_catseg(cfg, device="cpu")
