@@ -1,12 +1,14 @@
-"""Cost-volume aggregation, eval path (catseg_tpu/core/aggregator.py).
+"""Cost-volume aggregation (catseg_tpu/core/aggregator.py), eval and train.
 
 Module attribute names follow the keys of
 ``weights.export.export_aggregator_state_dict`` (the reference Aggregator's
 module tree), so the JAX package's parameters load with ``strict=True``.
 Activations keep the reference's channels-last layouts: the class-major
 (B, T, H, W, C) slab runs through the corr-embed, Swin-pair, class-layer and
-decoder kernels; the guidance projections are ``F.conv*`` as the reference
-leaves them to XLA.  With more classes than ``pad_len`` only the ``pad_len``
+decoder kernels, each inside its ``torch.autograd.Function`` (at the train
+pooling (2,2) the class layer runs on the avg-pooled grid and its output is
+upsampled with align_corners); the guidance projections are ``F.conv*`` as
+the reference leaves them to XLA.  With more classes than ``pad_len`` only the ``pad_len``
 best-scoring classes are aggregated (top-k truncation); the others get -100.
 
 Not ported yet (each raises rather than running something else): geometries

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..configs import CATSegConfig, CLIP_PIXEL_MEAN, CLIP_PIXEL_STD
 from ..ops import conv_transpose2d_nonoverlap, resize_bilinear
@@ -77,6 +78,20 @@ class CATSeg(nn.Module):
         if text_feats.ndim == 3:
             text_feats = text_feats.expand(images.shape[0], *text_feats.shape)
         return aggregator_forward(self.agg, img_feats, text_feats.to(compute_dtype(cfg)), guidance, cfg)
+
+
+def bce_loss(logits: torch.Tensor, targets: torch.Tensor, ignore_value: int,
+             out_hw: tuple[int, int]) -> torch.Tensor:
+    """Per-pixel multi-label BCE (catseg_tpu/core/catseg.py bce_loss;
+    cat_seg_model.py:189-203): (B, T, 96, 96) logits upsampled bilinearly to
+    (H, W) in fp32, a one-hot target that is all-negative on ignored pixels,
+    a stable BCE-with-logits averaged over every element."""
+    T = logits.shape[1]
+    x = resize_bilinear(logits.permute(0, 2, 3, 1).float(), out_hw)
+    valid = targets != ignore_value
+    onehot = F.one_hot(torch.where(valid, targets, 0), T).float() * valid[..., None]
+    loss = x.clamp_min(0) - x * onehot + torch.log1p(torch.exp(-x.abs()))
+    return loss.mean()
 
 
 def resolve_device(device) -> torch.device:

@@ -37,7 +37,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict[str, int] = {
     "layer_norm": 0, "dense_attention": 0, "corr_embed": 0,
     "swin_block": 0, "class_layer": 0, "decoder": 0,
+    "swin_block_bwd": 0, "class_layer_bwd": 0, "decoder_bwd": 0,
 }
+FORWARD = ("layer_norm", "dense_attention", "corr_embed", "swin_block", "class_layer", "decoder")
+BACKWARD = ("swin_block_bwd", "class_layer_bwd", "decoder_bwd")
 
 # C entry points and their argument kinds: "p" pointer, "i" int, "f" float.
 # The stream is always the last argument (a pointer).
@@ -47,7 +50,13 @@ _SIGNATURES = {
     "catseg_swin_block": "pppp" + "p" * 12 + "iiiiiii",
     "catseg_class_layer": "pppppp" + "p" * 10 + "iiiifi",
     "catseg_decoder": "ppppp" + "p" * 18 + "iiii",
+    "catseg_swin_block_bwd": "p" * 26 + "iiiiiii",
+    "catseg_class_layer_bwd": "p" * 26 + "iiiifi",
+    "catseg_decoder_bwd": "p" * 39 + "iii",
 }
+# fp32 workspace sizes of the backward entry points (int arguments)
+_WORKSPACE = {"catseg_swin_block_bwd_workspace": 4, "catseg_class_layer_bwd_workspace": 3,
+              "catseg_decoder_bwd_workspace": 1}
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _lib = None
@@ -135,6 +144,10 @@ def library() -> ctypes.CDLL:
             lib.catseg_decoder_blocks.restype = ctypes.c_int
             lib.catseg_decoder_scratch_elems.argtypes = []
             lib.catseg_decoder_scratch_elems.restype = ctypes.c_int
+            for name, n in _WORKSPACE.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_int] * n
+                fn.restype = ctypes.c_longlong
             _lib = lib
     return _lib
 

@@ -5,6 +5,11 @@ Replaces catseg_tpu/kernels/clip_attn.py:fused_dense_attention (Pallas
 _kernel).  The kernel (csrc/clip_attn.cu) keeps the (S, S) fp32 logits out of
 device memory with an online softmax over 32-key tiles; its note there says
 what bounds it on the card.
+
+Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
+backward is the reference's plain fp32 recompute (catseg_tpu/kernels/
+clip_attn.py ``_bwd``), plain PyTorch on every device, as the reference has
+no backward kernel.
 """
 
 from __future__ import annotations
@@ -46,10 +51,39 @@ def _dense_attention_cuda(q, k, v, heads: int) -> torch.Tensor:
     return out
 
 
+def dense_attention_backward(q, k, v, g, heads: int):
+    """(dq, dk, dv): the reference's ``_bwd``, fp32 softmax recomputed."""
+    B, S, W = q.shape
+    D = W // heads
+    scale = D ** -0.5
+    qh, kh, vh, gh = (t.float().reshape(B, S, heads, D) for t in (q, k, v, g))
+    attn = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", attn, gh)
+    dattn = torch.einsum("bqhd,bkhd->bhqk", gh, vh)
+    dlogits = attn * (dattn - (dattn * attn).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", dlogits, kh) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dlogits, qh) * scale
+    return (dq.reshape(B, S, W).to(q.dtype), dk.reshape(B, S, W).to(k.dtype),
+            dv.reshape(B, S, W).to(v.dtype))
+
+
+class _DenseAttentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.heads = heads
+        if q.is_cuda:
+            return _dense_attention_cuda(q, k, v, heads)
+        if q.device.type == "cpu":
+            return dense_attention_plain(q, k, v, heads)
+        raise RuntimeError(f"no dense attention path for device {q.device}")
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*dense_attention_backward(q, k, v, g, ctx.heads), None)
+
+
 def fused_dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
     """Maskless MHA over (B, S, W) sequences; requires W // heads == 64."""
-    if q.is_cuda:
-        return _dense_attention_cuda(q, k, v, heads)
-    if q.device.type == "cpu":
-        return dense_attention_plain(q, k, v, heads)
-    raise RuntimeError(f"no dense attention path for device {q.device}")
+    return _DenseAttentionFn.apply(q, k, v, heads)

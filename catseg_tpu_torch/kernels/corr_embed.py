@@ -5,6 +5,10 @@ Replaces catseg_tpu/kernels/corr_embed.py:fused_corr_embed (Pallas _kernel).
 The kernel (csrc/corr_embed.cu) never writes the (B, T, H, W, P) cost volume;
 its note there says what bounds it on the card.  Weights use the reference's
 HWIO layout so the two packages are called alike.
+
+Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
+backward is autograd through the plain version (catseg_tpu/kernels/
+corr_embed.py ``_bwd``: the vjp of ``_reference``), on every device.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .autograd import plain_vjp
 
 BASE = 24   # feature grid the kernel is written for
 MAX_P = 1   # single prompt per class
@@ -65,12 +70,23 @@ def _corr_embed_cuda(img_feats, text_n, w, b) -> torch.Tensor:
     return out
 
 
+class _CorrEmbedFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, img_feats, text_n, w, b):
+        ctx.save_for_backward(img_feats, text_n, w, b)
+        if img_feats.is_cuda:
+            return _corr_embed_cuda(img_feats, text_n, w, b)
+        if img_feats.device.type == "cpu":
+            return corr_embed_plain(img_feats, text_n, w, b)
+        raise RuntimeError(f"no corr embed path for device {img_feats.device}")
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(plain_vjp(corr_embed_plain, ctx.saved_tensors, g))
+
+
 def fused_corr_embed(img_feats: torch.Tensor, text_n: torch.Tensor, w: torch.Tensor,
                      b: torch.Tensor) -> torch.Tensor:
     """L2-normalized cosine cost volume + 7x7 embedding (B, T, 24, 24, C);
     text_n must already be L2-normalized (the caller normalizes once)."""
-    if img_feats.is_cuda:
-        return _corr_embed_cuda(img_feats, text_n, w, b)
-    if img_feats.device.type == "cpu":
-        return corr_embed_plain(img_feats, text_n, w, b)
-    raise RuntimeError(f"no corr embed path for device {img_feats.device}")
+    return _CorrEmbedFn.apply(img_feats, text_n, w, b)

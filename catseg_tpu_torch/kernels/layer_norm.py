@@ -9,6 +9,11 @@ once per upcast / mean / variance / normalize pass.
 Variance follows the reference's dtype gate: single-pass E[x^2] - mu^2 when
 the input is bf16, two-pass when it is fp32.  The output keeps the input
 dtype; gamma and beta are applied in fp32.
+
+Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
+backward is the reference's analytic formula (catseg_tpu/kernels/
+layer_norm.py ``_bwd``: fp32 statistics recomputed from x), plain PyTorch on
+every device, as the reference has no backward kernel.
 """
 
 from __future__ import annotations
@@ -91,6 +96,40 @@ def _layer_norm_cuda(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: flo
     return out.view(x.shape)
 
 
+def layer_norm_backward(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor, eps: float = 1e-5):
+    """(dx, dg, db) of the LayerNorm: the reference's analytic ``_bwd``."""
+    x32, dy32 = x.float(), dy.float()
+    mean = x32.mean(-1, keepdim=True)
+    if x.dtype == torch.bfloat16:
+        var = (x32 * x32).mean(-1, keepdim=True) - mean * mean
+    else:
+        var = (x32 - mean).square().mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = (x32 - mean) * inv
+    lead = tuple(range(x.ndim - 1))
+    dxhat = dy32 * g.float()
+    dx = inv * (dxhat - dxhat.mean(-1, keepdim=True) - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx.to(x.dtype), (dy32 * xhat).sum(lead).to(g.dtype), dy32.sum(lead).to(g.dtype)
+
+
+class _LayerNormFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, b, eps):
+        ctx.save_for_backward(x, g)
+        ctx.eps = eps
+        if x.is_cuda:
+            return _layer_norm_cuda(x, g, b, eps)
+        if x.device.type == "cpu":
+            return layer_norm_plain(x, g, b, eps)
+        raise RuntimeError(f"no layer_norm path for device {x.device}")
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g = ctx.saved_tensors
+        dx, dg, db = layer_norm_backward(x, g, dy, ctx.eps)
+        return dx, dg, db, None
+
+
 def fused_layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis, fp32 statistics, any leading shape.
 
@@ -98,8 +137,4 @@ def fused_layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: flo
     every device, as the reference does."""
     if not kernel_applicable(x):
         return layer_norm_plain(x, g, b, eps)
-    if x.is_cuda:
-        return _layer_norm_cuda(x, g, b, eps)
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, g, b, eps)
-    raise RuntimeError(f"no layer_norm path for device {x.device}")
+    return _LayerNormFn.apply(x, g, b, eps)

@@ -1,9 +1,12 @@
 """Each kernel against its plain version on the card, with the stated bounds.
 
-``cases(device, dtype, small)`` makes seeded inputs for the six kernels of
-the sliding-window path — at the slice's shapes (2 images = 10 tiles,
-T = 150, pad_len 256, 1500 decoder slabs; plus the class layer at T = 256,
-the count the top-k path hands it) or at small ones — and returns, per case,
+``cases(device, dtype, small)`` makes seeded inputs for the six forward
+kernels of the sliding-window path — at the slice's shapes (2 images = 10
+tiles, T = 150, pad_len 256, 1500 decoder slabs; plus the class layer at
+T = 256, the count the top-k path hands it) — and for the three backward
+kernels of the train step at its shapes (4 images, T = 171, pad_len 256; the
+class layer on the 12x12 pooled grid; 684 decoder slabs), or all at small
+ones, and returns, per case,
 a :class:`Case`: thunks (kernel, plain) that run the same call, the one
 PyTorch call that computes the same function where there is one
 (``library``, a yardstick the port never calls), and the work the call must
@@ -11,13 +14,23 @@ do (``flops`` of the kernel's arithmetic type, ``bytes``: each input read
 once, each output written once), from which a caller bounds its time.
 chip_smoke.py and tests/test_torch_cuda.py both use it.
 
-Bounds are on max|kernel - plain| / max(1, max|plain|).  fp32: 1e-4 (the
-kernels sum in another order, and use expf/erff/rsqrtf where torch has its
-own).  bf16: 2^-5 (four bf16 ulps of the output's largest magnitude): both
-sides round the same fp32 quantities to bf16, but a different fp32
-summation order tips single roundings, and the attention kernel keeps its
-probabilities in fp32 where the plain version rounds them to bf16.
-"""
+A backward case's thunks return a dict of every gradient it produces (dx,
+the guidance or pad cotangents, each parameter's); the plain version there is
+autograd through the plain forward on the same device.
+
+Bounds: a forward output on max|kernel - plain| / max(1, max|plain|); each
+gradient on the relative Frobenius error |kernel - plain| / |plain|.  A
+max-norm says nothing about gradients: where a ReLU's input is within the
+last bits of zero (class-layer MLP, every decoder GroupNorm), the two
+recomputes can put it on opposite sides, and that element's gradient flips
+between 0 and its full value (:func:`max_rel` reads the max-norm error, for
+the log).  Forward fp32: 1e-4 (the kernels sum in another order, and use
+expf/erff/rsqrtf where torch has its own); bf16 2^-5.  Gradients, fp32: one
+bound per kernel, between its sound fp32 reading and its bf16 one at the
+train shapes (chip_smoke.py phase [3], H100 80GB HBM3, 700 W), so that a
+backward that rounded through bf16 or TF32 fails: swin 1e-4 (read 2.1e-6
+fp32, 3.8e-3 bf16), class layer 1e-3 (1.2e-4, 3.2e-3), decoder 3e-3
+(1.2e-3, the ReLU flips; 1.7e-2); bf16 2^-5."""
 
 from __future__ import annotations
 
@@ -36,8 +49,19 @@ KERNELS = (
     ("swin_block", "cuda", "catseg_tpu_torch/csrc/swin_block.cu", "catseg_tpu/kernels/swin_block.py:707"),
     ("class_layer", "cuda", "catseg_tpu_torch/csrc/class_layer.cu", "catseg_tpu/kernels/class_layer.py:906"),
     ("decoder", "cuda", "catseg_tpu_torch/csrc/decoder.cu", "catseg_tpu/kernels/decoder.py:817"),
+    ("swin_block_bwd", "cuda", "catseg_tpu_torch/csrc/swin_block_bwd.cu", "catseg_tpu/kernels/swin_block.py:737"),
+    ("class_layer_bwd", "cuda", "catseg_tpu_torch/csrc/class_layer_bwd.cu", "catseg_tpu/kernels/class_layer.py:924"),
+    ("decoder_bwd", "cuda", "catseg_tpu_torch/csrc/decoder_bwd.cu", "catseg_tpu/kernels/decoder.py:904"),
 )
 BOUND = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
+BOUND_GRAD_FP32 = {"swin_block_bwd": 1e-4, "class_layer_bwd": 1e-3, "decoder_bwd": 3e-3}
+
+
+def bound(name: str, dtype: torch.dtype) -> float:
+    """The stated bound of a case (the backward cases' are on gradients)."""
+    if dtype == torch.float32 and name in BOUND_GRAD_FP32:
+        return BOUND_GRAD_FP32[name]
+    return BOUND[dtype]
 
 # H100 SXM published peaks (dense): device memory, bf16 tensor cores, fp32 CUDA cores
 HBM_BYTES_PER_S = 3.35e12
@@ -64,10 +88,33 @@ def _nbytes(*ts) -> float:
     return float(sum(t.numel() * t.element_size() for t in ts if t is not None))
 
 
-def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
-    """(max abs error, max abs error / max(1, max |want|))."""
+def rel_err(got, want) -> tuple[float, float]:
+    """(max abs error, max abs error / max(1, max |want|)) of a tensor; of a
+    dict of gradients, (the largest max abs error, the largest relative
+    Frobenius error |got - want| / |want|) over its entries."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"gradients {sorted(got)} != {sorted(want)}")
+        errs = [((got[k].float() - want[k].float()).abs().max().item(),
+                 ((got[k].float() - want[k].float()).norm() / want[k].float().norm().clamp_min(1e-30)).item())
+                for k in want]
+        return max(e for e, _ in errs), max(r for _, r in errs)
     err = (got.float() - want.float()).abs().max().item()
     return err, err / max(1.0, want.float().abs().max().item())
+
+
+def max_rel(got: dict, want: dict) -> tuple[float, str]:
+    """The largest max|got - want| / max|want| over a dict's gradients, and its key."""
+    return max(((got[k].float() - want[k].float()).abs().max().item()
+                / max(want[k].float().abs().max().item(), 1e-30), k) for k in want)
+
+
+def _grads(names, res) -> dict:
+    """A backward's (tensors..., {param: grad}) as one flat dict, Nones dropped."""
+    *ts, g = res
+    out = {n: t for n, t in zip(names, ts) if t is not None}
+    out.update({f"d{k}": v for k, v in g.items()})
+    return out
 
 
 def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
@@ -161,4 +208,46 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
                           slab_flops * Bd * Td,
                           _nbytes(xd) + Bd * (48 * 48 * 64 + 96 * 96 * 32) * xd.element_size()
                           + Bd * Td * 96 * 96 * 4, mm)
+
+    # backward kernels at the train step's shapes.  Work: the recompute of
+    # the forward plus two products (input and weight gradient) per forward
+    # product, 3x the forward's operations; bytes: inputs and dout read once,
+    # every gradient written once.
+    Bt, Tt = (1, 3) if small else (4, 171)
+    xb = rn(Bt, Tt, 24, 24, 128).to(dtype)
+    gb = tuple(rn(Bt, 24, 24, 128, scale=0.5).to(dtype) for _ in range(2))
+    db = rn(Bt, Tt, 24, 24, 128).to(dtype)
+    pb = swin_params()
+    swin_names = ("dx", "dqg", "dkg")
+    out["swin_block_bwd"] = Case(
+        lambda: _grads(swin_names, swin_block.swin_block_backward(xb, *gb, db, pb, 4, 12, 6)),
+        lambda: _grads(swin_names, swin_block.swin_block_backward_plain(xb, *gb, db, pb, 4, 12, 6)), None,
+        3 * 2.0 * xb.numel() / 128 * (12 * 128 * 128 + 2 * 144 * 128),
+        _nbytes(xb, db, *gb) + _nbytes(xb) + 2 * Bt * 576 * 128 * 4 + 4 * (12 * 128 * 128 + 14 * 128), mm)
+
+    Tpb = 8 if small else 256
+    xc = rn(Bt, Tt, 12, 12, C).to(dtype)
+    qc, kc = rn(Bt, Tt, C, scale=0.3).to(dtype), rn(Bt, Tt, C, scale=0.3).to(dtype)
+    pkv, pks = class_layer.pad_contributions(rn(C), rn(C), cp, Tpb - Tt, Tpb, 4)
+    dc = rn(Bt, Tt, 12, 12, C).to(dtype)
+    kp = class_layer.kernel_params(cp)
+    cl_names = ("dx", "dqg", "dkg", "dpad_kv", "dpad_ksum")
+    out["class_layer_bwd"] = Case(
+        lambda: _grads(cl_names, class_layer.class_layer_backward(xc, qc, kc, pkv, pks, dc, kp, 4, Tpb)),
+        lambda: _grads(cl_names, class_layer.class_layer_backward_plain(xc, qc, kc, pkv, pks, dc, kp, 4, Tpb)),
+        None, 3 * 2.0 * xc.numel() / C * (11 * C * C + 2 * C * 32),
+        _nbytes(xc, dc, qc, kc) + _nbytes(xc) + 2 * qc.numel() * 4 + 4 * (11 * C * C + C * C), mm)
+
+    Nd = Bt * Tt
+    xdb = rn(Nd, 24, 24, 128).to(dtype)
+    dp = dict(zip(decoder._DK, decoder._params(d1, d2, head)))
+    hg1 = decoder._guidance_half(d1, rn(Bt, 48, 48, 32, scale=0.5), 96, dtype)
+    hg2 = decoder._guidance_half(d2, rn(Bt, 96, 96, 16, scale=0.5), 48, dtype)
+    ddb = rn(Nd, 96, 96)
+    dec_names = ("dx", "dhg1", "dhg2")
+    out["decoder_bwd"] = Case(
+        lambda: _grads(dec_names, decoder.decoder_backward(xdb, hg1, hg2, ddb, dp)),
+        lambda: _grads(dec_names, decoder.decoder_backward_plain(xdb, hg1, hg2, ddb, dp)), None,
+        3 * slab_flops * Nd,
+        2 * _nbytes(xdb) + _nbytes(hg1, hg2, ddb) + 4 * (hg1.numel() + hg2.numel()), mm)
     return out

@@ -13,6 +13,12 @@ bf16 takes the reference's fast forms (tanh GELU, single-pass LN variance,
 softmax clamped at 60 with no max pass); fp32 takes exact erf GELU, two-pass
 LN and a max-subtracted softmax.  One predicate, the activation dtype, picks
 the forms in the kernel and in the plain version.
+
+Gradients: each block is a ``torch.autograd.Function``.  Its backward on
+CUDA is csrc/swin_block_bwd.cu (replaces the reference's ``_bwd`` /
+``_pallas_pair_bwd``); on the CPU it is autograd through the plain block, as
+the reference's ``_bwd_xla``.  The pair's backward runs block 2, then block
+1, each from its saved input.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch.nn.functional as F
 
 from ..ops.window import window_partition, window_reverse
 from . import _build
+from .autograd import plain_vjp
 from .layer_norm import layer_norm_fp32
 
 _KEYS = ("ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
@@ -65,8 +72,8 @@ def shift_mask(H: int, W: int, window: int, shift: int, device=None) -> torch.Te
     return torch.where(ids[:, None, :] != ids[:, :, None], -100.0, 0.0).float()
 
 
-def swin_pair_plain(x: torch.Tensor, guid4, p1: dict, p2: dict, heads: int, win: int) -> torch.Tensor:
-    """x (B, T, H, W, C); guid4 None or (qg1, kg1, qg2, kg2) each (B, H, W, C)."""
+def swin_block_plain(x: torch.Tensor, qg, kg, p: dict, heads: int, win: int, shift: int) -> torch.Tensor:
+    """One Swin block on x (B, T, H, W, C); qg / kg None or (B, H, W, C)."""
     B, T, H, W, C = x.shape
     dt = x.dtype
     fast = dt == torch.bfloat16
@@ -76,39 +83,47 @@ def swin_pair_plain(x: torch.Tensor, guid4, p1: dict, p2: dict, heads: int, win:
     def part(a):
         return window_partition(a.reshape(B * T, H, W, C), win).reshape(B * T, nW, win * win, heads, D)
 
-    def block(xf, qg, kg, p, shift):
-        P = {k: p[k].float() if k.startswith("ln") else p[k].to(dt).float() for k in _KEYS}
-        y = layer_norm_fp32(xf.float(), P["ln1_g"], P["ln1_b"], fast).to(dt)
-        qkv = (y.float() @ P["qkv_w"] + P["qkv_b"]).to(dt)
-        q, k, v = (qkv[..., i * C:(i + 1) * C].reshape(B, T, H, W, C) for i in range(3))
-        if qg is not None:
-            q = q + qg[:, None].to(dt)
-            k = k + kg[:, None].to(dt)
-        if shift > 0:
-            q, k, v = (torch.roll(a, (-shift, -shift), dims=(2, 3)) for a in (q, k, v))
-        qh, kh, vh = (part(a).float().permute(0, 1, 3, 2, 4) for a in (q, k, v))
-        logits = torch.matmul(qh, kh.transpose(-1, -2)) * (D ** -0.5)
-        if shift > 0:
-            logits = logits + shift_mask(H, W, win, shift, x.device)[None, :, None]
-        attn = _softmax_rows(logits, fast).to(dt).float()
-        out = torch.matmul(attn, vh).to(dt)                       # (BT, nW, heads, N, D)
-        out = window_reverse(out.permute(0, 1, 3, 2, 4).reshape(B * T * nW, win * win, C), win, H, W)
-        if shift > 0:
-            out = torch.roll(out, (shift, shift), dims=(1, 2))
-        out = out.reshape(B * T, H * W, C).float() @ P["proj_w"] + P["proj_b"]
-        xf2 = xf + out.to(dt)
-        y = layer_norm_fp32(xf2.float(), P["ln2_g"], P["ln2_b"], fast).to(dt)
-        h = gelu(y.float() @ P["fc1_w"] + P["fc1_b"], fast).to(dt)
-        o = h.float() @ P["fc2_w"] + P["fc2_b"]
-        return xf2 + o.to(dt)
-
-    qg1 = kg1 = qg2 = kg2 = None
-    if guid4 is not None:
-        qg1, kg1, qg2, kg2 = guid4
+    P = {k: p[k].float() if k.startswith("ln") else p[k].to(dt).float() for k in _KEYS}
     xf = x.reshape(B * T, H * W, C)
-    xf = block(xf, qg1, kg1, p1, 0)
-    xf = block(xf, qg2, kg2, p2, win // 2)
-    return xf.reshape(B, T, H, W, C)
+    y = layer_norm_fp32(xf.float(), P["ln1_g"], P["ln1_b"], fast).to(dt)
+    qkv = (y.float() @ P["qkv_w"] + P["qkv_b"]).to(dt)
+    q, k, v = (qkv[..., i * C:(i + 1) * C].reshape(B, T, H, W, C) for i in range(3))
+    if qg is not None:
+        q = q + qg[:, None].to(dt)
+        k = k + kg[:, None].to(dt)
+    if shift > 0:
+        q, k, v = (torch.roll(a, (-shift, -shift), dims=(2, 3)) for a in (q, k, v))
+    qh, kh, vh = (part(a).float().permute(0, 1, 3, 2, 4) for a in (q, k, v))
+    logits = torch.matmul(qh, kh.transpose(-1, -2)) * (D ** -0.5)
+    if shift > 0:
+        logits = logits + shift_mask(H, W, win, shift, x.device)[None, :, None]
+    attn = _softmax_rows(logits, fast).to(dt).float()
+    out = torch.matmul(attn, vh).to(dt)                       # (BT, nW, heads, N, D)
+    out = window_reverse(out.permute(0, 1, 3, 2, 4).reshape(B * T * nW, win * win, C), win, H, W)
+    if shift > 0:
+        out = torch.roll(out, (shift, shift), dims=(1, 2))
+    out = out.reshape(B * T, H * W, C).float() @ P["proj_w"] + P["proj_b"]
+    xf2 = xf + out.to(dt)
+    y = layer_norm_fp32(xf2.float(), P["ln2_g"], P["ln2_b"], fast).to(dt)
+    h = gelu(y.float() @ P["fc1_w"] + P["fc1_b"], fast).to(dt)
+    o = h.float() @ P["fc2_w"] + P["fc2_b"]
+    return (xf2 + o.to(dt)).reshape(B, T, H, W, C)
+
+
+def swin_pair_plain(x: torch.Tensor, guid4, p1: dict, p2: dict, heads: int, win: int) -> torch.Tensor:
+    """x (B, T, H, W, C); guid4 None or (qg1, kg1, qg2, kg2) each (B, H, W, C)."""
+    g = guid4 if guid4 is not None else (None,) * 4
+    x = swin_block_plain(x, g[0], g[1], p1, heads, win, 0)
+    return swin_block_plain(x, g[2], g[3], p2, heads, win, win // 2)
+
+
+def _check_cuda(x, heads: int, win: int) -> None:
+    B, T, H, W, C = x.shape
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"swin kernel takes fp32 or bf16, got {x.dtype}")
+    if (C, heads, win) != (128, 4, 12) or H % win or W % win:
+        raise NotImplementedError(f"swin kernel is built for C=128, 4 heads, window 12; "
+                                  f"got C={C}, heads={heads}, window={win}, grid {H}x{W}")
 
 
 def _swin_block_cuda(x, qg, kg, p: dict, shift: int) -> torch.Tensor:
@@ -118,6 +133,7 @@ def _swin_block_cuda(x, qg, kg, p: dict, shift: int) -> torch.Tensor:
     # matrices kept in it (bf16 feeds the tensor cores), biases as fp32
     w = {k: (p[k].float() if k.startswith("ln") else
              p[k].to(dt) if k.endswith("_w") else p[k].to(dt).float()).contiguous() for k in _KEYS}
+    x = x.contiguous()
     out = torch.empty_like(x)
     has_guid = qg is not None
     if has_guid:
@@ -128,22 +144,74 @@ def _swin_block_cuda(x, qg, kg, p: dict, shift: int) -> torch.Tensor:
     return out
 
 
-def _swin_pair_cuda(x, guid4, p1, p2, heads: int, win: int) -> torch.Tensor:
+def _swin_block_bwd_cuda(x, qg, kg, dout, p: dict, shift: int):
     B, T, H, W, C = x.shape
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"swin kernel takes fp32 or bf16, got {x.dtype}")
-    if (C, heads, win) != (128, 4, 12) or H % win or W % win:
-        raise NotImplementedError(f"swin kernel is built for C=128, 4 heads, window 12; "
-                                  f"got C={C}, heads={heads}, window={win}, grid {H}x{W}")
-    g = guid4 if guid4 is not None else (None,) * 4
-    x = _swin_block_cuda(x.contiguous(), g[0], g[1], p1, 0)
-    return _swin_block_cuda(x, g[2], g[3], p2, win // 2)
+    dt = x.dtype
+    f32 = dict(dtype=torch.float32, device=x.device)
+    # every parameter as fp32, rounded through the compute dtype as the forward sees it
+    w = [(p[k].float() if k.startswith("ln") else p[k].to(dt).float()).contiguous() for k in _KEYS]
+    x, dout = x.contiguous(), dout.to(dt).contiguous()
+    has_guid = qg is not None
+    if has_guid:
+        qg, kg = qg.to(dt).contiguous(), kg.to(dt).contiguous()
+    dx = torch.empty_like(x)
+    dqg, dkg = (torch.empty((B, H, W, C), **f32) for _ in range(2)) if has_guid else (None, None)
+    g_ln1, g_ln2 = torch.empty(2 * C, **f32), torch.empty(2 * C, **f32)
+    g_qkv, g_proj = torch.empty(C + 1, 3 * C, **f32), torch.empty(C + 1, C, **f32)
+    g_fc1, g_fc2 = torch.empty(C + 1, 4 * C, **f32), torch.empty(4 * C + 1, C, **f32)
+    ws = torch.empty(_build.library().catseg_swin_block_bwd_workspace(B, T, H, W), **f32)
+    _build.launch("catseg_swin_block_bwd", x, qg, kg, dout, dx, dqg, dkg, g_ln1, g_qkv, g_proj, g_ln2,
+                  g_fc1, g_fc2, *w, ws, B, T, H, W, shift, int(has_guid), int(dt == torch.bfloat16))
+    _build.count("swin_block_bwd")
+    grads = {"ln1_g": g_ln1[:C], "ln1_b": g_ln1[C:], "qkv_w": g_qkv[:C], "qkv_b": g_qkv[C],
+             "proj_w": g_proj[:C], "proj_b": g_proj[C], "ln2_g": g_ln2[:C], "ln2_b": g_ln2[C:],
+             "fc1_w": g_fc1[:C], "fc1_b": g_fc1[C], "fc2_w": g_fc2[:4 * C], "fc2_b": g_fc2[4 * C]}
+    return dx, dqg, dkg, grads
+
+
+def swin_block_backward_plain(x, qg, kg, dout, p: dict, heads: int, win: int, shift: int):
+    """(dx, dqg, dkg, {key: grad}) by autograd through the plain block."""
+    fn = lambda x, qg, kg, *ps: swin_block_plain(x, qg, kg, dict(zip(_KEYS, ps)), heads, win, shift)  # noqa: E731
+    dx, dqg, dkg, *gs = plain_vjp(fn, [x, qg, kg, *(p[k] for k in _KEYS)], dout)
+    return dx, dqg, dkg, dict(zip(_KEYS, gs))
+
+
+def swin_block_backward(x, qg, kg, dout, p: dict, heads: int, win: int, shift: int):
+    """(dx, dqg, dkg, {key: grad}) of one block: the CUDA kernel for CUDA
+    tensors, the plain backward for CPU ones."""
+    if x.is_cuda:
+        _check_cuda(x, heads, win)
+        return _swin_block_bwd_cuda(x, qg, kg, dout, p, shift)
+    if x.device.type != "cpu":
+        raise RuntimeError(f"no swin backward path for device {x.device}")
+    return swin_block_backward_plain(x, qg, kg, dout, p, heads, win, shift)
+
+
+class _SwinBlockFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, qg, kg, heads, win, shift, *params):
+        ctx.save_for_backward(x, qg, kg, *params)
+        ctx.cfg = (heads, win, shift)
+        p = dict(zip(_KEYS, params))
+        if x.is_cuda:
+            return _swin_block_cuda(x, qg, kg, p, shift)
+        if x.device.type == "cpu":
+            return swin_block_plain(x, qg, kg, p, heads, win, shift)
+        raise RuntimeError(f"no swin path for device {x.device}")
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, qg, kg, *params = ctx.saved_tensors
+        dx, dqg, dkg, g = swin_block_backward(x, qg, kg, dout, dict(zip(_KEYS, params)), *ctx.cfg)
+        cast = lambda t, like: None if t is None else t.to(like.dtype)  # noqa: E731
+        return (dx.to(x.dtype), cast(dqg, qg), cast(dkg, kg), None, None, None,
+                *(cast(g[k], pr) for k, pr in zip(_KEYS, params)))
 
 
 def fused_swin_pair(x: torch.Tensor, guid4, p1: dict, p2: dict, heads: int, win: int) -> torch.Tensor:
     """Both Swin blocks of one aggregator layer (shift 0, then win // 2)."""
     if x.is_cuda:
-        return _swin_pair_cuda(x, guid4, p1, p2, heads, win)
-    if x.device.type == "cpu":
-        return swin_pair_plain(x, guid4, p1, p2, heads, win)
-    raise RuntimeError(f"no swin path for device {x.device}")
+        _check_cuda(x, heads, win)
+    g = guid4 if guid4 is not None else (None,) * 4
+    x = _SwinBlockFn.apply(x, g[0], g[1], heads, win, 0, *(p1[k] for k in _KEYS))
+    return _SwinBlockFn.apply(x, g[2], g[3], heads, win, win // 2, *(p2[k] for k in _KEYS))

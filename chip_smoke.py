@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's sliding-window inference path on one NVIDIA GPU.
+"""Drive the PyTorch port's inference and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,12 +8,16 @@ Phases (any failure raises and the script exits non-zero):
 1. torch / CUDA versions and the card's name and power limit (nvidia-smi).
 2. Build the CUDA kernels from catseg_tpu_torch/csrc (one nvcc per source,
    all at once, at first use).
-3. Each of the six kernels of the path against its plain PyTorch version on
-   the card, at the slice's shapes (2 images = 10 tiles, T = 150, 1500
-   decoder slabs; the class layer also at T = 256, the top-k path's count),
-   in fp32 (TF32 off) and bf16: max error against the stated bound, kernel,
-   plain and (where one PyTorch call computes the same function) library
-   times, median of 10 CUDA-event timings after warm-up.
+3. Each of the nine kernels against its plain PyTorch version on the card,
+   in fp32 (TF32 off) and bf16: the six forward kernels at the serving
+   slice's shapes (2 images = 10 tiles, T = 150, 1500 decoder slabs; the
+   class layer also at T = 256, the top-k path's count), the three backward
+   kernels at the train step's (4 images, T = 171, the class layer on the
+   12x12 pooled grid, 684 decoder slabs; every gradient checked by its
+   relative Frobenius error, the worst max-norm error logged beside it):
+   the error against the stated bound, kernel, plain and (where one PyTorch call
+   computes the same function) library times, median of CUDA-event timings
+   after warm-up.
 4. The slice at the default configuration: a Predictor at
    eval_preset(vitb384()) — ViT-B/16 at full depth and width, bf16, the
    fused decoder, random weights from seed 0 — on the 150 ADE-20k class
@@ -34,6 +38,17 @@ Phases (any failure raises and the script exits non-zero):
 7. A ConfusionAccumulator on the card fed phase 4's predictions against a
    seeded synthetic ground truth with ignore pixels: its matrix must equal a
    numpy bincount of the same pairs.
+8. The train step at full width: vitb384() (bf16, pooling 2x2, fused
+   decoder, CLIP q/v finetune, AdamW recipe), seed 0, the 171 COCO-Stuff
+   train prompts, 4 synthetic 384^2 crops with targets in [0, 171) and ~10%
+   ignore: one counted warm-up step (every forward and backward kernel
+   launched, finite loss), 5 timed steps (ms/step, images/s), frozen
+   parameters bit-equal and > 90% of the trainable tensors moved.
+9. fp32 train-step parity, vitb384(compute_dtype="float32"), 1 crop, the
+   first 8 classes (pad terms live), the same weights on the GPU (kernels)
+   and the CPU (the port's plain path): loss within 1e-5 relative, every
+   trainable gradient before the clip within 1e-3 of its largest CPU value,
+   and after one update frozen tensors equal and trainables moved.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and before that a JSON line with one entry
@@ -76,7 +91,9 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def check_kernels(dev, dtype, selfcheck) -> dict:
-    """Phase 3 for one dtype: {case: {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}}."""
+    """Phase 3 for one dtype: {case: {max_abs_err, rel_err (the judged error: a forward output's
+    max relative, a backward's worst relative Frobenius), rel_bound, ms, plain_ms, library_ms,
+    bound_ms, bound_by}}."""
     out, bad = {}, []
     for name, case in selfcheck.cases(dev, dtype).items():
         got = case.kernel()
@@ -84,17 +101,20 @@ def check_kernels(dev, dtype, selfcheck) -> dict:
         want = case.plain()
         torch.cuda.synchronize()
         err, rel = selfcheck.rel_err(got, want)
+        # gradients: the Frobenius error is judged; the max-norm one is read
+        worst = " max-norm {:.1e} ({})".format(*selfcheck.max_rel(got, want)) if isinstance(want, dict) else ""
         del got, want
-        k_ms, p_ms = time_ms(case.kernel), time_ms(case.plain)
+        reps = 3 if name.endswith("_bwd") else 10   # a backward call takes up to a second
+        k_ms, p_ms = time_ms(case.kernel, reps, 1), time_ms(case.plain, reps, 1)
         lib_ms = time_ms(case.library) if case.library is not None else None
         b_ms, b_by = selfcheck.bound_ms(case)
-        bound = selfcheck.BOUND[dtype]
-        log(f"  {name:16s} {str(dtype)[6:]:9s} max_abs_err {err:.3e} rel {rel:.3e} (bound {bound:.1e}) "
+        bound = selfcheck.bound(name, dtype)
+        log(f"  {name:16s} {str(dtype)[6:]:9s} max_abs_err {err:.3e} rel {rel:.3e} (bound {bound:.1e}){worst} "
             f"kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms  library "
             f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'}  bound {b_ms:.4f} ms ({b_by})")
         if not rel <= bound:
             bad.append(name)
-        out[name] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+        out[name] = {"max_abs_err": err, "rel_err": rel, "rel_bound": bound, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
                      "bound_ms": b_ms, "bound_by": b_by}
         torch.cuda.empty_cache()
     if bad:
@@ -138,6 +158,115 @@ def check_probs(probs, n_classes):
         raise AssertionError("probabilities outside [0, 1]")
 
 
+def synthetic_batch(B: int, T: int, seed: int):
+    """B uint8 384^2 crops and int64 targets in [0, T) with ~10% ignore (255)."""
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 256, (B, 384, 384, 3), dtype=np.uint8)
+    targets = rng.randint(0, T, (B, 384, 384)).astype(np.int64)
+    targets[rng.rand(B, 384, 384) < 0.1] = 255
+    return torch.from_numpy(images), torch.from_numpy(targets)
+
+
+def train_step_phase(dev, smi, _build) -> dict:
+    """Phase 8; returns the launch counts of the counted step."""
+    from catseg_tpu_torch.configs import class_names, vitb384
+    from catseg_tpu_torch.train.loop import class_tokens, init_train_state, make_train_step
+
+    log("[8] train step, vitb384() at full width (bf16, pooling 2x2, fused decoder), B=4, T=171, 384^2 crops")
+    cfg = vitb384()
+    names = class_names("coco")
+    state = init_train_state(cfg, seed=SEED)
+    model, opt = state.model, state.optimizer
+    step = make_train_step(cfg, opt, class_tokens(names))
+    images, targets = (t.to(dev) for t in synthetic_batch(4, len(names), SEED))
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loss, counts = run_counted(lambda: step(model, images, targets), _build)
+    log(f"    warm-up step: loss {loss.item():.6f}, launches {counts}")
+    if not torch.isfinite(loss) or min(counts[k] for k in _build.FORWARD + _build.BACKWARD) == 0:
+        raise AssertionError("train step: non-finite loss or a kernel of the path never launched")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        loss = step(model, images, targets)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"    {ms:.1f} ms/step, {4e3 / ms:.3f} images/s (mean of 5 steps after the warm-up) on {smi}; "
+        f"last loss {loss.item():.6f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    frozen = [n for n, lbl in opt.labels.items() if lbl == "frozen"]
+    trainable = [n for n, lbl in opt.labels.items() if lbl != "frozen"]
+    params = dict(model.named_parameters())
+    changed = [n for n in frozen if not torch.equal(params[n], start[n])]
+    moved = sum(not torch.equal(params[n], start[n]) for n in trainable)
+    log(f"    {len(frozen)} frozen tensors, {len(changed)} changed; {moved} of {len(trainable)} trainable moved")
+    if changed or moved <= 0.9 * len(trainable):
+        raise AssertionError(f"train step: frozen changed {changed[:5]} or too few trainables moved")
+    del state, model, opt, start, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_parity_phase(dev) -> None:
+    """Phase 9: fp32 step on the card (kernels) against the port on the CPU."""
+    from catseg_tpu_torch.configs import class_names, vitb384
+    from catseg_tpu_torch.core.clip import truncate_context
+    from catseg_tpu_torch.train.loop import TrainState, class_tokens, init_train_state, train_loss
+    from catseg_tpu_torch.train.optim import TrainOptimizer
+
+    log("[9] fp32 train-step parity: vitb384(compute_dtype='float32'), 1 crop, 8 classes, GPU vs CPU")
+    cfg = vitb384(compute_dtype="float32")
+    cpu = init_train_state(cfg, seed=SEED, device="cpu")
+    gpu_model = copy.deepcopy(cpu.model).to(dev)
+    gpu = TrainState(model=gpu_model, optimizer=TrainOptimizer(cfg, gpu_model))
+    tokens = torch.from_numpy(truncate_context(class_tokens(class_names("coco")[:8])).astype(np.int64))
+    images, targets = synthetic_batch(1, 8, SEED + 3)
+    start = {n: p.detach().clone() for n, p in cpu.model.named_parameters()}
+    loss_g = train_loss(cfg, gpu.model, tokens.to(dev), images.to(dev), targets.to(dev))
+    loss_g.backward()
+    loss_c = train_loss(cfg, cpu.model, tokens, images, targets)
+    loss_c.backward()
+    d_loss = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    worst, worst_name, unused, symmetric = 0.0, None, [], 0.0
+    gp = dict(gpu.model.named_parameters())
+    for n, p in cpu.model.named_parameters():
+        if not p.requires_grad:
+            continue
+        g_cpu, g_gpu = p.grad, gp[n].grad
+        if g_cpu is None and g_gpu is None:
+            unused.append(n)   # the last visual block's q / k: its dense output uses only v
+            continue
+        if g_cpu is None or g_gpu is None:
+            raise AssertionError(f"no gradient for {n} on the {'CPU' if g_cpu is None else 'GPU'}")
+        if ".swin_block." in n and n.endswith(".attn.k.bias"):
+            # zero by symmetry (softmax ignores a per-query constant): both hold rounding noise
+            symmetric = max(symmetric, g_cpu.abs().max().item(), g_gpu.abs().max().item())
+            continue
+        r = (g_gpu.cpu() - g_cpu).abs().max().item() / max(g_cpu.abs().max().item(), 1e-30)
+        if r > worst:
+            worst, worst_name = r, n
+    log(f"    loss GPU {loss_g.item():.8f} CPU {loss_c.item():.8f} (rel {d_loss:.2e}, bound 1e-5); "
+        f"worst gradient max|d|/max|g_cpu| {worst:.2e} at {worst_name} (bound 1e-3); "
+        f"no gradient on either side: {unused}; swin k-bias gradients (zero by symmetry) at most {symmetric:.1e}")
+    gpu.optimizer.step()
+    cpu.optimizer.step()
+    upd, frozen_ok, moved, n_train = 0.0, True, 0, 0
+    for n, p in cpu.model.named_parameters():
+        q = gp[n].detach().cpu()
+        if cpu.optimizer.labels[n] == "frozen":
+            frozen_ok &= torch.equal(p, start[n]) and torch.equal(q, start[n])
+            continue
+        if n in unused:
+            continue
+        n_train += 1
+        moved += int(not torch.equal(p, start[n]) and not torch.equal(q, start[n]))
+        upd = max(upd, ((q - start[n]) - (p.detach() - start[n])).abs().max().item())
+    log(f"    after one update: frozen equal {frozen_ok}, {moved} of {n_train} trainables with a gradient "
+        f"moved on both, largest update difference {upd:.3e}")
+    if not d_loss <= 1e-5 or not worst <= 1e-3 or not frozen_ok or moved <= 0.9 * n_train:
+        raise AssertionError("fp32 train step on the GPU disagrees with the CPU port")
+    del cpu, gpu, gpu_model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -177,7 +306,7 @@ def main() -> int:
     pred.preds_sliding_batch(images, hws, canvas)          # warm-up (Triton JIT, cuDNN plans)
     preds, launches = run_counted(lambda: pred.preds_sliding_batch(images, hws, canvas), _build)
     log(f"    launches in one 2-image run: {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in _build.FORWARD if launches[k] == 0]
     if missing:
         raise AssertionError(f"the main path never launched {missing}")
     preds = check_preds(preds, canvas, len(names))
@@ -194,7 +323,7 @@ def main() -> int:
     pred.preds_sliding_batch(images, hws, canvas)
     preds_plain, plain_launches = run_counted(lambda: pred.preds_sliding_batch(images, hws, canvas), _build)
     log(f"    launches in one 2-image run: {plain_launches}")
-    if plain_launches["decoder"] or not all(n for k, n in plain_launches.items() if k != "decoder"):
+    if plain_launches["decoder"] or not all(plain_launches[k] for k in _build.FORWARD if k != "decoder"):
         raise AssertionError("the plain-decoder path launched the decoder kernel or skipped another one")
     check_preds(preds_plain, canvas, len(names))
     ips_plain, med_plain = images_per_s(pred, images, hws, canvas)
@@ -213,7 +342,7 @@ def main() -> int:
     agree = (p_gpu.argmax(-1) == p_cpu.argmax(-1)).float().mean().item()
     log(f"    max|d prob| {d.max().item():.3e} (bound {PROB_BOUND:.0e})  mean {d.mean().item():.3e}  "
         f"argmax agreement {agree:.5f}  kernel launches {gpu_launches}")
-    if not d.max().item() < PROB_BOUND or min(gpu_launches.values()) == 0:
+    if not d.max().item() < PROB_BOUND or min(gpu_launches[k] for k in _build.FORWARD) == 0:
         raise AssertionError("fp32 GPU slice disagrees with the CPU port, or skipped a kernel")
     del gpu_pred, cpu_model
 
@@ -268,10 +397,14 @@ def main() -> int:
     if acc.cm.device.type != "cuda" or not np.array_equal(got_cm, want_cm):
         raise AssertionError("device confusion matrix differs from the numpy bincount")
 
+    train_launches = train_step_phase(dev, smi, _build)
+    train_parity_phase(dev)
+
     kernels = []
     for name, route, source, replaces in selfcheck.KERNELS:
+        n = launches[name] if name in _build.FORWARD else train_launches[name]
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": launches[name], **checks[torch.bfloat16][name]})
+                        "launches": n, **checks[torch.bfloat16][name]})
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,10 @@ for name in names:
     importlib.import_module(name)
 assert "catseg_tpu_torch.infer.pipeline" in names, names
 assert "catseg_tpu_torch.evaluation.miou" in names, names
+for m in ("train.loop", "train.optim", "train.checkpoint", "utils.events"):
+    assert "catseg_tpu_torch." + m in names and "catseg_tpu_torch." + m in sys.modules, m
+from catseg_tpu_torch.kernels import _build
+assert _build._lib is None   # importing built nothing
 assert "triton" not in sys.modules
 assert not any(m.startswith("catseg_tpu.") for m in sys.modules) and sys.modules["catseg_tpu"] is None
 print(len(names))
