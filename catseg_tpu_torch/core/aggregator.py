@@ -11,9 +11,14 @@ upsampled with align_corners); the guidance projections are ``F.conv*`` as
 the reference leaves them to XLA.  With more classes than ``pad_len`` only the ``pad_len``
 best-scoring classes are aggregated (top-k truncation); the others get -100.
 
-Not ported yet (each raises rather than running something else): geometries
-outside the fused stages' gates (the reference's fallback window-attention /
-MLP / linear-attention kernels).
+Routing, by geometry alone and the same on every device: a stage takes its
+fused kernel where the reference's gate holds and the port's fused kernel
+takes the geometry (:func:`swin_route_fused`, :func:`class_route_fused`);
+otherwise it runs the reference's unfused stage under the reference's names
+(``_swin_block`` with the window-attention and MLP kernels;
+``_class_attention_inner`` with the linear-attention kernel or the plain
+``_full_attention``, then the MLP kernel).  Both routes compute the same
+function; ``attention_type="full"`` always takes the unfused class stage.
 """
 
 from __future__ import annotations
@@ -22,11 +27,15 @@ import torch
 import torch.nn as nn
 
 from ..configs import CATSegConfig
+from ..kernels import class_layer, swin_block
 from ..kernels.class_layer import fused_class_layer, pad_contributions
 from ..kernels.corr_embed import corr_embed_applicable, fused_corr_embed, l2_normalize
 from ..kernels.decoder import decoder_kernel_applicable, decoder_plain, fused_decoder
-from ..kernels.swin_block import fused_swin_pair
-from ..ops import avg_pool2d, conv2d, group_norm, layer_norm, resize_bilinear
+from ..kernels.linear_attn import fused_linear_attention
+from ..kernels.mlp import fused_mlp
+from ..kernels.swin_block import fused_swin_pair, shift_mask
+from ..kernels.window_attn import fused_window_attention
+from ..ops import avg_pool2d, conv2d, group_norm, layer_norm, resize_bilinear, window_partition, window_reverse
 from .clip import LayerNorm, Linear, linear
 
 
@@ -193,39 +202,166 @@ def corr_embed(corr: torch.Tensor, agg: Aggregator) -> torch.Tensor:
     return x.reshape(B, T, H, W, -1)
 
 
+def swin_route_fused(x_shape, cfg: CATSegConfig) -> bool:
+    """The Swin stage takes the fused pair: the reference's gate (C % 128,
+    whole windows, C % heads) holds and the port's kernel takes the geometry."""
+    B, T, H, W, C = x_shape
+    return swin_block.kernel_takes(C, cfg.num_heads, cfg.window_size, H, W)
+
+
+def _swin_block(x: torch.Tensor, guid, blk: SwinBlock, cfg: CATSegConfig, shift: int) -> torch.Tensor:
+    """One unfused Swin block over (B, T, H, W, C), guidance (B, H, W, Cg)
+    normed or None: LN, qkv (the guidance half of q/k once per image), the
+    window-attention kernel, proj, residual, LN, the GELU MLP kernel, residual."""
+    B, T, H, W, C = x.shape
+    win, heads = cfg.window_size, cfg.num_heads
+    N = win * win
+    a = blk.attn
+
+    def shift_part(t):
+        if shift > 0:
+            t = torch.roll(t, (-shift, -shift), dims=(1, 2))
+        return window_partition(t, win).reshape(t.shape[0], -1, N, t.shape[-1])
+
+    y = layer_norm(x, blk.norm1.weight, blk.norm1.bias)
+    xw = shift_part(y.reshape(B * T, H, W, C))                     # (BT, nW, N, C)
+    nW = xw.shape[1]
+    qkv = linear(xw, torch.cat([a.q.weight[:, :C], a.k.weight[:, :C], a.v.weight]),
+                 torch.cat([a.q.bias, a.k.bias, a.v.bias]))
+    q, k, v = qkv.split(C, dim=-1)
+    if guid is not None:
+        gw = shift_part(guid)                                        # (B, nW, N, Cg)
+        qg, kg = linear(gw, a.q.weight[:, C:]), linear(gw, a.k.weight[:, C:])
+        q = (q.reshape(B, T, nW, N, C) + qg[:, None]).reshape(B * T, nW, N, C)
+        k = (k.reshape(B, T, nW, N, C) + kg[:, None]).reshape(B * T, nW, N, C)
+    mask = (shift_mask(H, W, win, shift, x.device) if shift > 0
+            else torch.zeros((nW, N, N), device=x.device))
+    out = fused_window_attention(q.reshape(-1, N, C), k.reshape(-1, N, C), v.reshape(-1, N, C), mask,
+                                 heads, (C // heads) ** -0.5)
+    out = window_reverse(linear(out, a.proj.weight, a.proj.bias), win, H, W)
+    if shift > 0:
+        out = torch.roll(out, (shift, shift), dims=(1, 2))
+    x = x + out.reshape(B, T, H, W, C)
+    y = layer_norm(x, blk.norm2.weight, blk.norm2.bias)
+    m = blk.mlp
+    return x + fused_mlp(y, m.fc1.weight.t(), m.fc1.bias, m.fc2.weight.t(), m.fc2.bias, "gelu")
+
+
+def swin_pair_unfused(x: torch.Tensor, appearance_guidance, layer: AggregatorLayer,
+                      cfg: CATSegConfig) -> torch.Tensor:
+    """The Swin pair as two unfused blocks (shift 0, then window/2)."""
+    sp = layer.swin_block
+    guid = None
+    if appearance_guidance is not None:
+        guid = layer_norm(appearance_guidance, sp.guidance_norm.weight, sp.guidance_norm.bias)
+    x = _swin_block(x, guid, sp.block_1, cfg, 0)
+    return _swin_block(x, guid, sp.block_2, cfg, cfg.window_size // 2)
+
+
 def spatial_aggregation(x: torch.Tensor, appearance_guidance, layer: AggregatorLayer,
                         cfg: CATSegConfig) -> torch.Tensor:
     """Swin pair (shift 0, then window/2) on (B, T, H, W, C); guidance (B, H, W, Cg)."""
+    if not swin_route_fused(x.shape, cfg):
+        return swin_pair_unfused(x, appearance_guidance, layer, cfg)
     sp = layer.swin_block
-    B, T, H, W, C = x.shape
-    win = cfg.window_size
-    if not (C % 128 == 0 and H % win == 0 and W % win == 0 and C % cfg.num_heads == 0):
-        raise NotImplementedError(
-            f"spatial aggregation at C={C}, grid {H}x{W}, window {win} needs the reference's "
-            "fallback window-attention / MLP kernels, which are not ported yet (ROADMAP)")
+    C = x.shape[-1]
     guid4 = None
     if appearance_guidance is not None:
         guid = layer_norm(appearance_guidance, sp.guidance_norm.weight, sp.guidance_norm.bias)
         b1, b2 = sp.block_1.attn, sp.block_2.attn
         guid4 = (linear(guid, b1.q.weight[:, C:]), linear(guid, b1.k.weight[:, C:]),
                  linear(guid, b2.q.weight[:, C:]), linear(guid, b2.k.weight[:, C:]))
-    return fused_swin_pair(x, guid4, sp.block_1.packed(), sp.block_2.packed(), cfg.num_heads, win)
+    return fused_swin_pair(x, guid4, sp.block_1.packed(), sp.block_2.packed(), cfg.num_heads, cfg.window_size)
+
+
+def class_route_fused(x_shape, cfg: CATSegConfig) -> bool:
+    """The class stage takes the fused layer: linear attention, the
+    reference's gate (C % 128, C % heads, a pooling that divides the grid)
+    holds and the port's kernel takes the geometry."""
+    B, T, H, W, C = x_shape
+    ph, pw = cfg.pooling_size
+    return (cfg.attention_type == "linear" and H % ph == 0 and W % pw == 0
+            and class_layer.kernel_takes(C, cfg.num_heads, T))
+
+
+def _full_attention(q, k, v):
+    """Softmax attention over the class axis, q/k/v (N, T, heads, D): fp32
+    logits scaled after the product (in the gemm's epilogue), fp32 softmax,
+    the probabilities cast to q's dtype, then the value product in fp32 (not
+    SDPA, whose bf16 rounding differs)."""
+    N, T, heads, D = q.shape
+    qh, kh, vh = (t.transpose(1, 2).float().reshape(N * heads, T, D) for t in (q, k, v))
+    logits = torch.baddbmm(qh.new_zeros(()), qh, kh.transpose(1, 2), beta=0, alpha=D ** -0.5)
+    attn = torch.softmax(logits, dim=-1).to(q.dtype)
+    del logits
+    out = torch.bmm(attn.float(), vh).to(q.dtype)
+    return out.reshape(N, heads, T, D).transpose(1, 2)
+
+
+def _class_attention_inner(x: torch.Tensor, guidance, cp: ClassLayer, cfg: CATSegConfig,
+                           n_pos: int = 1) -> torch.Tensor:
+    """AttentionLayer on x (N, T, C); guidance (N // n_pos, T, Cg) or None,
+    its share of the q/k projections computed once per (image, class) and
+    broadcast over the n_pos positions."""
+    heads = cfg.num_heads
+    N, T, C = x.shape
+    a = cp.attention
+    q = linear(x, a.q.weight[:, :C], a.q.bias)
+    k = linear(x, a.k.weight[:, :C], a.k.bias)
+    if guidance is not None:
+        g = guidance.to(x.dtype)
+        qg, kg = linear(g, a.q.weight[:, C:]), linear(g, a.k.weight[:, C:])
+        q = (q.reshape(-1, n_pos, T, C) + qg[:, None]).reshape(N, T, C)
+        k = (k.reshape(-1, n_pos, T, C) + kg[:, None]).reshape(N, T, C)
+    v = linear(x, a.v.weight, a.v.bias)
+    if cfg.attention_type == "linear":
+        return fused_linear_attention(q, k, v, heads)
+    if cfg.attention_type == "full":
+        return _full_attention(*(t.reshape(N, T, heads, -1) for t in (q, k, v))).reshape(N, T, C)
+    raise ValueError(f"unknown attention_type {cfg.attention_type!r}")
+
+
+def class_layer_unfused(x: torch.Tensor, text_guidance, layer: AggregatorLayer,
+                        cfg: CATSegConfig) -> torch.Tensor:
+    """The reference's legacy class stage: avg-pool, pad the class axis with
+    the learnable token (and guidance), LN, attention across classes, LN,
+    the ReLU MLP kernel, drop the padding, align-corners upsample, outer
+    residual."""
+    cp = layer.attention
+    B, T, H, W, C = x.shape
+    xp = avg_pool2d(x.reshape(B * T, H, W, C), cfg.pooling_size)
+    Hp, Wp = xp.shape[1], xp.shape[2]
+    xp = xp.reshape(B, T, Hp, Wp, C)
+    pad = cfg.pad_len - T if cfg.pad_len > 0 else 0
+    if pad > 0:
+        xp = torch.cat([xp, cp.padding_tokens.reshape(C).to(xp.dtype).expand(B, pad, Hp, Wp, C)], dim=1)
+        if text_guidance is not None:
+            Cg = text_guidance.shape[-1]
+            pad_guid = cp.padding_guidance.reshape(Cg).to(text_guidance.dtype).expand(B, pad, Cg)
+            text_guidance = torch.cat([text_guidance, pad_guid], dim=1)
+    Tp = xp.shape[1]
+    seq = xp.permute(0, 2, 3, 1, 4).reshape(B * Hp * Wp, Tp, C)
+    normed = layer_norm(seq, cp.norm1.weight, cp.norm1.bias)
+    seq = seq + _class_attention_inner(normed, text_guidance, cp, cfg, n_pos=Hp * Wp)
+    normed = layer_norm(seq, cp.norm2.weight, cp.norm2.bias)
+    m1, m2 = cp.MLP["0"], cp.MLP["2"]
+    seq = seq + fused_mlp(normed, m1.weight.t(), m1.bias, m2.weight.t(), m2.bias, "relu")
+    out = seq.reshape(B, Hp, Wp, Tp, C).permute(0, 3, 1, 2, 4)[:, :T].reshape(B * T, Hp, Wp, C)
+    out = resize_bilinear(out, (H, W), align_corners=True)
+    return x + out.reshape(B, T, H, W, C)
 
 
 def class_aggregation(x: torch.Tensor, text_guidance, layer: AggregatorLayer,
                       cfg: CATSegConfig) -> torch.Tensor:
     """ClassTransformerLayer: x (B, T, H, W, C); text_guidance (B, T, Cg).
 
-    The kernel returns x + attention + MLP; the layer then adds x once more
-    (the reference's outer residual around the pooled stage)."""
+    The fused kernel returns x + attention + MLP; the layer then adds x once
+    more (the reference's outer residual around the pooled stage)."""
+    if not class_route_fused(x.shape, cfg):
+        return class_layer_unfused(x, text_guidance, layer, cfg)
     cp = layer.attention
     B, T, H, W, C = x.shape
     ph, pw = cfg.pooling_size
-    if not (cfg.attention_type == "linear" and C % 128 == 0 and C % cfg.num_heads == 0
-            and H % ph == 0 and W % pw == 0):
-        raise NotImplementedError(
-            f"class aggregation ({cfg.attention_type}, C={C}, pooling {ph}x{pw}) needs the "
-            "reference's legacy class path, which is not ported yet (ROADMAP)")
     Tp = max(cfg.pad_len, T) if cfg.pad_len > 0 else T
     p = cp.packed()
     qg = kg = None

@@ -38,9 +38,15 @@ LAUNCHES: dict[str, int] = {
     "layer_norm": 0, "dense_attention": 0, "corr_embed": 0,
     "swin_block": 0, "class_layer": 0, "decoder": 0,
     "swin_block_bwd": 0, "class_layer_bwd": 0, "decoder_bwd": 0,
+    "window_attention": 0, "mlp": 0, "linear_attention": 0,
 }
+# the default configuration's forward and backward kernels
 FORWARD = ("layer_norm", "dense_attention", "corr_embed", "swin_block", "class_layer", "decoder")
 BACKWARD = ("swin_block_bwd", "class_layer_bwd", "decoder_bwd")
+# the kernels of the aggregator's unfused stages (core/aggregator.py routes a
+# stage there only where its fused kernel does not take the geometry, or with
+# attention_type="full"); the default configuration never launches them
+UNFUSED = ("window_attention", "mlp", "linear_attention")
 
 # C entry points and their argument kinds: "p" pointer, "i" int, "f" float.
 # The stream is always the last argument (a pointer).
@@ -53,6 +59,9 @@ _SIGNATURES = {
     "catseg_swin_block_bwd": "p" * 26 + "iiiiiii",
     "catseg_class_layer_bwd": "p" * 26 + "iiiifi",
     "catseg_decoder_bwd": "p" * 39 + "iii",
+    "catseg_window_attention": "ppppp" + "iiiii" + "fi",
+    "catseg_mlp": "pppppp" + "iiiiii",
+    "catseg_linear_attention": "pppp" + "iiii" + "fi",
 }
 # fp32 workspace sizes of the backward entry points (int arguments)
 _WORKSPACE = {"catseg_swin_block_bwd_workspace": 4, "catseg_class_layer_bwd_workspace": 3,

@@ -107,15 +107,19 @@ def class_layer_plain(x: torch.Tensor, qg, kg, pad_kv, pad_ksum, p: dict, heads:
 MAX_CLASSES = 256
 
 
+def kernel_takes(C: int, heads: int, T: int) -> bool:
+    """The geometries the CUDA kernel is built for: C = 128, 4 heads, at
+    most MAX_CLASSES classes."""
+    return (C, heads) == (128, 4) and T <= MAX_CLASSES
+
+
 def _check_cuda(x, heads: int) -> None:
     B, T, H, W, C = x.shape
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"class layer kernel takes fp32 or bf16, got {x.dtype}")
-    if (C, heads) != (128, 4):
-        raise NotImplementedError(f"class layer kernel is built for C=128, 4 heads; got {C}, {heads}")
-    if T > MAX_CLASSES:
-        raise NotImplementedError(f"class layer kernel takes at most {MAX_CLASSES} classes "
-                                  f"per position; got T={T}")
+    if not kernel_takes(C, heads, T):
+        raise NotImplementedError(f"class layer kernel is built for C=128, 4 heads and at most {MAX_CLASSES} "
+                                  f"classes per position; got C={C}, heads={heads}, T={T}")
 
 
 def _class_layer_cuda(x, qg, kg, pad_kv, pad_ksum, kp: dict, Tp: int) -> torch.Tensor:

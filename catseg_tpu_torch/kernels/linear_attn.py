@@ -1,0 +1,81 @@
+"""elu+1 linear attention across the class axis: CUDA kernel + plain PyTorch
+version.
+
+Replaces catseg_tpu/kernels/linear_attn.py:fused_linear_attention (Pallas
+_kernel), which the unfused linear class stage (core/aggregator.py
+``_class_attention_inner``) runs.  The kernel (csrc/linear_attn.cu) builds
+each sequence's per-head KV and K-sum on chip; its note there says what
+bounds it on the card.
+
+Every call on a CUDA tensor launches the kernel, which takes any S and the
+head dims and widths its wrapper names; it raises outside them.  The
+reference's own gate (C % 128 == 0, S % 8 == 0) is a TPU tiling limit and is
+not repeated here.
+
+Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
+backward is autograd through the plain version on every device, as the
+reference's ``_bwd`` is ``jax.vjp`` of its ``_reference``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .autograd import plain_vjp
+from .class_layer import _elu1
+
+_EPS = 1e-6
+HEAD_DIMS = (8, 16, 32, 64)
+
+
+def linear_attention_plain(q, k, v, heads: int) -> torch.Tensor:
+    """q/k/v (N, S, C) -> (N, S, C): Q = elu(q)+1, K = elu(k)+1, V = v / S in
+    fp32; (Q KV_h) / (Q . Ksum_h + 1e-6) * S per head, in q's dtype."""
+    N, S, C = q.shape
+    D = C // heads
+    Q = _elu1(q.float()).reshape(N, S, heads, D)
+    K = _elu1(k.float()).reshape(N, S, heads, D)
+    V = (v.float() / S).reshape(N, S, heads, D)
+    kv = torch.einsum("nshd,nshe->nhde", K, V)
+    z = 1.0 / (torch.einsum("nlhd,nhd->nlh", Q, K.sum(1)) + _EPS)
+    out = torch.einsum("nlhd,nhde->nlhe", Q, kv) * z[..., None] * S
+    return out.to(q.dtype).reshape(N, S, C)
+
+
+def _linear_attention_cuda(q, k, v, heads: int) -> torch.Tensor:
+    N, S, C = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"linear attention kernel takes fp32 or bf16, got {q.dtype}")
+    if not (k.shape == v.shape == q.shape and k.dtype == v.dtype == q.dtype):
+        raise ValueError("q, k, v must share shape and dtype")
+    if C % heads or C // heads not in HEAD_DIMS or C > 512 or (256 % C and C % 256) or C * (C // heads) > 16384:
+        raise NotImplementedError(f"linear attention kernel takes head dims {HEAD_DIMS}, C dividing 256 or a "
+                                  f"multiple of 256 up to 512, and C * head dim <= 16384; got C={C}, heads={heads}")
+    out = torch.empty_like(q)
+    _build.launch("catseg_linear_attention", q.contiguous(), k.contiguous(), v.contiguous(), out,
+                  N, S, C, heads, _EPS, int(q.dtype == torch.bfloat16))
+    _build.count("linear_attention")
+    return out
+
+
+class _LinearAttentionFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.heads = heads
+        if q.is_cuda:
+            return _linear_attention_cuda(q, k, v, heads)
+        if q.device.type == "cpu":
+            return linear_attention_plain(q, k, v, heads)
+        raise RuntimeError(f"no linear attention path for device {q.device}")
+
+    @staticmethod
+    def backward(ctx, g):
+        heads = ctx.heads
+        return (*plain_vjp(lambda q, k, v: linear_attention_plain(q, k, v, heads), ctx.saved_tensors, g), None)
+
+
+def fused_linear_attention(q, k, v, heads: int) -> torch.Tensor:
+    """elu+1 kernelized attention over the class axis; q/k/v (N, S, C)."""
+    return _LinearAttentionFn.apply(q, k, v, heads)

@@ -1,0 +1,81 @@
+"""Transformer MLP act(x W1 + b1) W2 + b2: CUDA kernel + plain PyTorch version.
+
+Replaces catseg_tpu/kernels/mlp.py:fused_mlp (Pallas _kernel).  The kernel
+(csrc/mlp.cu) walks the hidden width in chunks per row tile, so the 4x
+hidden never reaches device memory; its note there says what bounds it on the
+card.  Weights use the reference's (in, out) layout.  GELU takes the tanh
+form in bf16 and erf in fp32 (the reference's dtype predicate); the hidden is
+rounded to x's dtype before the second product.
+
+Every call on a CUDA tensor launches the kernel, which takes C a multiple of
+16 up to 256, H a multiple of 128 and 32, 64, 128 or 256 outputs, any row
+count; it raises outside them.  The reference's own gate (C and H multiples
+of 128, one 1024-row tile) is a TPU tiling limit and is not repeated here.
+
+Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
+backward is autograd through the plain version on every device, as the
+reference's ``_bwd`` is ``jax.vjp`` of its ``_reference``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .autograd import plain_vjp
+from .swin_block import gelu
+
+_ACT = {"gelu": 0, "relu": 1}
+
+
+def mlp_plain(x: torch.Tensor, w1, b1, w2, b2, act: str) -> torch.Tensor:
+    """act(x @ w1 + b1) @ w2 + b2 over the last axis, fp32 products of
+    dtype-rounded operands, the hidden rounded to x's dtype."""
+    dt = x.dtype
+    h = x.float() @ w1.to(dt).float() + b1.float()
+    h = (gelu(h, dt == torch.bfloat16) if act == "gelu" else torch.relu(h)).to(dt)
+    return (h.float() @ w2.to(dt).float() + b2.float()).to(dt)
+
+
+def _mlp_cuda(x, w1, b1, w2, b2, act: str) -> torch.Tensor:
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"mlp kernel takes fp32 or bf16, got {dt}")
+    C, H = w1.shape
+    Co = w2.shape[1]
+    if C % 16 or C > 256 or H % 128 or Co not in (32, 64, 128, 256) or w2.shape[0] != H:
+        raise NotImplementedError(f"mlp kernel takes C a multiple of 16 up to 256, H a multiple of 128 and "
+                                  f"32, 64, 128 or 256 outputs; got {C}->{H}->{Co}")
+    x2 = x.reshape(-1, C).contiguous()
+    if x2.data_ptr() % 16:
+        raise ValueError("mlp kernel reads x in 16-byte vectors: pass an aligned tensor")
+    out = torch.empty((x2.shape[0], Co), dtype=dt, device=x.device)
+    _build.launch("catseg_mlp", x2, w1.to(dt).contiguous(), b1.float().contiguous(), w2.to(dt).contiguous(),
+                  b2.float().contiguous(), out, x2.shape[0], C, H, Co, _ACT[act], int(dt == torch.bfloat16))
+    _build.count("mlp")
+    return out.view(*x.shape[:-1], Co)
+
+
+class _MLPFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, act):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.act = act
+        if x.is_cuda:
+            return _mlp_cuda(x, w1, b1, w2, b2, act)
+        if x.device.type == "cpu":
+            return mlp_plain(x, w1, b1, w2, b2, act)
+        raise RuntimeError(f"no mlp path for device {x.device}")
+
+    @staticmethod
+    def backward(ctx, g):
+        act = ctx.act
+        return (*plain_vjp(lambda *a: mlp_plain(*a, act), ctx.saved_tensors, g), None)
+
+
+def fused_mlp(x: torch.Tensor, w1, b1, w2, b2, act: str = "gelu") -> torch.Tensor:
+    """act(x @ w1 + b1) @ w2 + b2 over the last axis, any leading shape;
+    ``act`` is "gelu" or "relu"."""
+    if act not in _ACT:
+        raise ValueError(f"act must be 'gelu' or 'relu', got {act!r}")
+    return _MLPFn.apply(x, w1, b1, w2, b2, act)

@@ -3,10 +3,15 @@
 ``cases(device, dtype, small)`` makes seeded inputs for the six forward
 kernels of the sliding-window path — at the slice's shapes (2 images = 10
 tiles, T = 150, pad_len 256, 1500 decoder slabs; plus the class layer at
-T = 256, the count the top-k path hands it) — and for the three backward
+T = 256, the count the top-k path hands it) — for the three backward
 kernels of the train step at its shapes (4 images, T = 171, pad_len 256; the
-class layer on the 12x12 pooled grid; 684 decoder slabs), or all at small
-ones, and returns, per case,
+class layer on the 12x12 pooled grid; 684 decoder slabs), and for the three
+kernels of the aggregator's unfused stages at the serving slab's (window
+attention over its 6000 windows; the ReLU class MLP of
+``attention_type="full"`` at 10 x 576 positions x 256 padded classes, and
+the GELU Swin MLP at its 864,000 tokens as ``mlp@swin``; linear attention
+over 5760 sequences of 256 classes), or all at small ones, and returns, per
+case,
 a :class:`Case`: thunks (kernel, plain) that run the same call, the one
 PyTorch call that computes the same function where there is one
 (``library``, a yardstick the port never calls), and the work the call must
@@ -39,7 +44,7 @@ from typing import Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from . import class_layer, clip_attn, corr_embed, decoder, layer_norm, swin_block
+from . import class_layer, clip_attn, corr_embed, decoder, layer_norm, linear_attn, mlp, swin_block, window_attn
 
 KERNELS = (
     # name, route, source, the TPU kernel it replaces
@@ -52,6 +57,9 @@ KERNELS = (
     ("swin_block_bwd", "cuda", "catseg_tpu_torch/csrc/swin_block_bwd.cu", "catseg_tpu/kernels/swin_block.py:737"),
     ("class_layer_bwd", "cuda", "catseg_tpu_torch/csrc/class_layer_bwd.cu", "catseg_tpu/kernels/class_layer.py:924"),
     ("decoder_bwd", "cuda", "catseg_tpu_torch/csrc/decoder_bwd.cu", "catseg_tpu/kernels/decoder.py:904"),
+    ("window_attention", "cuda", "catseg_tpu_torch/csrc/window_attn.cu", "catseg_tpu/kernels/window_attn.py:96"),
+    ("mlp", "cuda", "catseg_tpu_torch/csrc/mlp.cu", "catseg_tpu/kernels/mlp.py:159"),
+    ("linear_attention", "cuda", "catseg_tpu_torch/csrc/linear_attn.cu", "catseg_tpu/kernels/linear_attn.py:100"),
 )
 BOUND = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
 BOUND_GRAD_FP32 = {"swin_block_bwd": 1e-4, "class_layer_bwd": 1e-3, "decoder_bwd": 3e-3}
@@ -250,4 +258,34 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
         lambda: _grads(dec_names, decoder.decoder_backward_plain(xdb, hg1, hg2, ddb, dp)), None,
         3 * slab_flops * Nd,
         2 * _nbytes(xdb) + _nbytes(hg1, hg2, ddb) + 4 * (hg1.numel() + hg2.numel()), mm)
+
+    # the unfused stages' kernels
+    Bw = 8 if small else B * T * 4
+    qw, kw, vw = (rn(Bw, 144, 128).to(dtype) for _ in range(3))
+    mask = swin_block.shift_mask(24, 24, 12, 6).to(device)
+    lib_mask = mask.to(dtype).repeat(Bw // 4, 1, 1)[:, None]
+    wheads = lambda t: t.view(Bw, 144, 4, 32).transpose(1, 2)  # noqa: E731
+    out["window_attention"] = Case(
+        lambda: window_attn.fused_window_attention(qw, kw, vw, mask, 4, 32 ** -0.5),
+        lambda: window_attn.window_attention_plain(qw, kw, vw, mask, 4, 32 ** -0.5),
+        lambda: F.scaled_dot_product_attention(wheads(qw), wheads(kw), wheads(vw), attn_mask=lib_mask,
+                                               scale=32 ** -0.5),
+        4.0 * Bw * 144 * 144 * 128, 4 * _nbytes(qw) + _nbytes(mask), mm)
+
+    def mlp_case(M, act):
+        xm = rn(M, C).to(dtype)
+        w1, b1, w2, b2 = un(C, 4 * C), un(4 * C), un(4 * C, C), un(C)
+        return Case(lambda: mlp.fused_mlp(xm, w1, b1, w2, b2, act),
+                    lambda: mlp.mlp_plain(xm, w1, b1, w2, b2, act), None,
+                    4.0 * M * C * 4 * C, 2 * _nbytes(xm) + _nbytes(w1, w2) * xm.element_size() / 4, mm)
+
+    out["mlp"] = mlp_case(1324 if small else B * 576 * 256, "relu")   # a ragged last tile when small
+    out["mlp@swin"] = mlp_case(1024 if small else B * T * 576, "gelu")
+
+    Nl, Sl = (16, 16) if small else (B * 576, 256)
+    ql, kl, vl = (rn(Nl, Sl, C).to(dtype) for _ in range(3))
+    # fp32 arithmetic in both dtypes (the spec upcasts): Q.KV and KV, D = 32
+    out["linear_attention"] = Case(lambda: linear_attn.fused_linear_attention(ql, kl, vl, 4),
+                                   lambda: linear_attn.linear_attention_plain(ql, kl, vl, 4), None,
+                                   4.0 * Nl * Sl * C * 32, 4 * _nbytes(ql), "fp32")
     return out

@@ -117,11 +117,17 @@ def swin_pair_plain(x: torch.Tensor, guid4, p1: dict, p2: dict, heads: int, win:
     return swin_block_plain(x, g[2], g[3], p2, heads, win, win // 2)
 
 
+def kernel_takes(C: int, heads: int, win: int, H: int, W: int) -> bool:
+    """The geometries the CUDA kernel is built for: C = 128, 4 heads,
+    window 12, a grid of whole windows."""
+    return (C, heads, win) == (128, 4, 12) and H % win == 0 and W % win == 0
+
+
 def _check_cuda(x, heads: int, win: int) -> None:
     B, T, H, W, C = x.shape
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"swin kernel takes fp32 or bf16, got {x.dtype}")
-    if (C, heads, win) != (128, 4, 12) or H % win or W % win:
+    if not kernel_takes(C, heads, win, H, W):
         raise NotImplementedError(f"swin kernel is built for C=128, 4 heads, window 12; "
                                   f"got C={C}, heads={heads}, window={win}, grid {H}x{W}")
 

@@ -8,22 +8,27 @@ Phases (any failure raises and the script exits non-zero):
 1. torch / CUDA versions and the card's name and power limit (nvidia-smi).
 2. Build the CUDA kernels from catseg_tpu_torch/csrc (one nvcc per source,
    all at once, at first use).
-3. Each of the nine kernels against its plain PyTorch version on the card,
+3. Each of the twelve kernels against its plain PyTorch version on the card,
    in fp32 (TF32 off) and bf16: the six forward kernels at the serving
    slice's shapes (2 images = 10 tiles, T = 150, 1500 decoder slabs; the
    class layer also at T = 256, the top-k path's count), the three backward
    kernels at the train step's (4 images, T = 171, the class layer on the
    12x12 pooled grid, 684 decoder slabs; every gradient checked by its
-   relative Frobenius error, the worst max-norm error logged beside it):
-   the error against the stated bound, kernel, plain and (where one PyTorch call
-   computes the same function) library times, median of CUDA-event timings
-   after warm-up.
+   relative Frobenius error, the worst max-norm error logged beside it),
+   the three kernels of the aggregator's unfused stages at the serving
+   slab's (window attention over 6000 windows of 144 tokens; the class MLP
+   at 1,474,560 rows and the Swin MLP at 864,000; linear attention over 5760
+   sequences of 256 classes): each case's kernel call must raise its
+   kernel's launch count; the error against the stated bound, kernel,
+   plain and (where one PyTorch call computes the same function) library
+   times, median of CUDA-event timings after warm-up.
 4. The slice at the default configuration: a Predictor at
    eval_preset(vitb384()) — ViT-B/16 at full depth and width, bf16, the
    fused decoder, random weights from seed 0 — on the 150 ADE-20k class
    names; preds_sliding_batch on two synthetic uint8 images of different
    sizes.  Checks shapes, finite probabilities, labels in [0, 150), and that
-   every kernel's launch count rose during that one run; reports images/s.
+   every kernel of the default route's launch count rose during that one
+   run and the unfused stages' kernels never launched; reports images/s.
 4b. The same slice with the plain decoder, eval_preset(vitb384(
    fused_decoder=False)) (the path of the first slice): every kernel but
    the decoder launched in one run, the decoder never; images/s.
@@ -42,13 +47,35 @@ Phases (any failure raises and the script exits non-zero):
    decoder, CLIP q/v finetune, AdamW recipe), seed 0, the 171 COCO-Stuff
    train prompts, 4 synthetic 384^2 crops with targets in [0, 171) and ~10%
    ignore: one counted warm-up step (every forward and backward kernel
-   launched, finite loss), 5 timed steps (ms/step, images/s), frozen
-   parameters bit-equal and > 90% of the trainable tensors moved.
+   launched, the unfused stages' never; finite loss), 5 timed steps
+   (ms/step, images/s), frozen parameters bit-equal and > 90% of the
+   trainable tensors moved.
 9. fp32 train-step parity, vitb384(compute_dtype="float32"), 1 crop, the
    first 8 classes (pad terms live), the same weights on the GPU (kernels)
    and the CPU (the port's plain path): loss within 1e-5 relative, every
    trainable gradient before the clip within 1e-3 of its largest CPU value,
    and after one update frozen tensors equal and trainables moved.
+10. Serving with attention_type="full" (the reference's other class
+   aggregation): eval_preset(vitb384(attention_type="full")), bf16, the
+   same two images at T = 150.  Every class layer takes the unfused stage
+   (pad to 256 tokens, LN, fp32 softmax attention, LN, the ReLU MLP kernel
+   at 1,474,560 rows): the mlp count rises, the class-layer kernel's stays
+   0; shapes, probabilities in [0, 1], labels in range; images/s.
+11. Its fp32 parity, GPU against the port on the CPU (1 image, 20 classes):
+   max |d prob| below 5e-4, as [5].
+12. The train step at vitb384(attention_type="full") (pooling 2x2, B = 4,
+   T = 171): the MLP kernel forward at 147,456 rows with the plain
+   backward, the class-layer kernels never; finite loss, ms/step,
+   trainables moved.
+13. The unfused stages against the fused kernels at full width, in fp32 and
+   bf16, as catseg_tpu's own tests hold them equal: the unfused Swin pair
+   (window attention twice, the GELU MLP twice) against fused_swin_pair on
+   the serving slab (10, 150, 24, 24, 128) with appearance guidance; the
+   unfused linear class stage (linear attention, the ReLU MLP) against the
+   class-layer kernel at T = 150, pad_len 256, pooling 1x1, and at the
+   train shapes (4, 171) with pooling 2x2.  Bounds: fp32 2e-4, bf16 2^-5,
+   of max(1, |fused|); the window-attention, MLP and linear-attention
+   counts rise.  Each stage's time on both routes is logged.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and before that a JSON line with one entry
@@ -68,6 +95,7 @@ import numpy as np
 import torch
 
 PROB_BOUND = 5e-4   # fp32 GPU-vs-CPU max |d prob| (the README's oracle bound)
+STAGE_BOUND = {torch.float32: 2e-4, torch.bfloat16: 2.0 ** -5}   # unfused vs fused stage, of max(1, |fused|)
 SEED = 0
 
 
@@ -90,14 +118,16 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def check_kernels(dev, dtype, selfcheck) -> dict:
+def check_kernels(dev, dtype, selfcheck, _build) -> dict:
     """Phase 3 for one dtype: {case: {max_abs_err, rel_err (the judged error: a forward output's
     max relative, a backward's worst relative Frobenius), rel_bound, ms, plain_ms, library_ms,
-    bound_ms, bound_by}}."""
+    bound_ms, bound_by}}.  A case whose kernel call does not raise its kernel's launch count
+    fails (case "mlp@swin" counts as "mlp")."""
     out, bad = {}, []
     for name, case in selfcheck.cases(dev, dtype).items():
-        got = case.kernel()
-        torch.cuda.synchronize()
+        got, counts = run_counted(case.kernel, _build)
+        if counts[name.split("@")[0]] == 0:
+            bad.append(f"{name} (never launched its kernel)")
         want = case.plain()
         torch.cuda.synchronize()
         err, rel = selfcheck.rel_err(got, want)
@@ -118,7 +148,7 @@ def check_kernels(dev, dtype, selfcheck) -> dict:
                      "bound_ms": b_ms, "bound_by": b_by}
         torch.cuda.empty_cache()
     if bad:
-        raise AssertionError(f"kernels disagree with their plain versions in {dtype}: {bad}")
+        raise AssertionError(f"kernels disagree with their plain versions, or never launched, in {dtype}: {bad}")
     return out
 
 
@@ -167,13 +197,12 @@ def synthetic_batch(B: int, T: int, seed: int):
     return torch.from_numpy(images), torch.from_numpy(targets)
 
 
-def train_step_phase(dev, smi, _build) -> dict:
-    """Phase 8; returns the launch counts of the counted step."""
-    from catseg_tpu_torch.configs import class_names, vitb384
+def train_step_phase(dev, smi, _build, cfg, expect, absent) -> dict:
+    """Phases 8 and 12: one counted step (every kernel in ``expect`` launched,
+    none in ``absent``), 5 timed steps; returns the counted step's launches."""
+    from catseg_tpu_torch.configs import class_names
     from catseg_tpu_torch.train.loop import class_tokens, init_train_state, make_train_step
 
-    log("[8] train step, vitb384() at full width (bf16, pooling 2x2, fused decoder), B=4, T=171, 384^2 crops")
-    cfg = vitb384()
     names = class_names("coco")
     state = init_train_state(cfg, seed=SEED)
     model, opt = state.model, state.optimizer
@@ -182,8 +211,9 @@ def train_step_phase(dev, smi, _build) -> dict:
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     loss, counts = run_counted(lambda: step(model, images, targets), _build)
     log(f"    warm-up step: loss {loss.item():.6f}, launches {counts}")
-    if not torch.isfinite(loss) or min(counts[k] for k in _build.FORWARD + _build.BACKWARD) == 0:
-        raise AssertionError("train step: non-finite loss or a kernel of the path never launched")
+    if not torch.isfinite(loss) or min(counts[k] for k in expect) == 0 or any(counts[k] for k in absent):
+        raise AssertionError("train step: non-finite loss, a kernel of the path never launched, or one "
+                             f"of {absent} did")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
@@ -267,6 +297,100 @@ def train_parity_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def full_attention_serving_phase(dev, smi, _build, images, hws, canvas, names):
+    """Phase 10; returns the counted run's launches and the model's aggregator."""
+    from catseg_tpu_torch.configs import eval_preset, vitb384
+    from catseg_tpu_torch.core.catseg import build_catseg
+    from catseg_tpu_torch.infer.pipeline import Predictor
+
+    log("[10] sliding-window Predictor, eval_preset(vitb384(attention_type='full')), bf16, T=150")
+    cfg = eval_preset(vitb384(attention_type="full"))
+    pred = Predictor(build_catseg(cfg, seed=SEED), cfg, names)
+    pred.preds_sliding_batch(images, hws, canvas)
+    preds, launches = run_counted(lambda: pred.preds_sliding_batch(images, hws, canvas), _build)
+    log(f"    launches in one 2-image run: {launches}")
+    if (launches["mlp"] == 0 or launches["class_layer"] or launches["window_attention"]
+            or launches["linear_attention"] or not all(launches[k] for k in ("swin_block", "decoder"))):
+        raise AssertionError("full attention: the class MLP kernel never launched, or the route is wrong")
+    check_preds(preds, canvas, len(names))
+    check_probs(pred.probs_sliding_batch(images), len(names))
+    ips, med = images_per_s(pred, images, hws, canvas)
+    log(f"    {ips:.3f} images/s with full class attention (median of 3 2-image runs, {med * 1e3:.1f} ms) on "
+        f"{smi}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    agg = pred.model.agg
+    del pred
+    torch.cuda.empty_cache()
+    return launches, agg
+
+
+def full_parity_phase(images, names) -> None:
+    """Phase 11: fp32 full-attention slice on the card against the CPU port."""
+    from catseg_tpu_torch.configs import eval_preset, vitb384
+    from catseg_tpu_torch.core.catseg import CATSeg, init_catseg_
+    from catseg_tpu_torch.infer.pipeline import Predictor
+
+    log("[11] fp32 parity with attention_type='full': GPU kernels vs the port on the CPU, 1 image, 20 classes")
+    cfg = eval_preset(vitb384(compute_dtype="float32", attention_type="full"))
+    cpu_model = init_catseg_(CATSeg(cfg), SEED).eval()
+    gpu_pred = Predictor(copy.deepcopy(cpu_model), cfg, names[:20])
+    p_gpu = gpu_pred.probs_sliding_batch(images[1:]).cpu()
+    p_cpu = Predictor(cpu_model, cfg, names[:20], device="cpu").probs_sliding_batch(images[1:])
+    d = (p_gpu - p_cpu).abs()
+    log(f"    max|d prob| {d.max().item():.3e} (bound {PROB_BOUND:.0e})  mean {d.mean().item():.3e}")
+    if not d.max().item() < PROB_BOUND:
+        raise AssertionError("fp32 full-attention slice on the GPU disagrees with the CPU port")
+    del gpu_pred, cpu_model
+    torch.cuda.empty_cache()
+
+
+def stage_phase(dev, agg, _build) -> dict:
+    """Phase 13: the unfused stages against the fused kernels at full width;
+    returns the launches of the bf16 unfused runs."""
+    from catseg_tpu_torch.configs import eval_preset, vitb384
+    from catseg_tpu_torch.core import aggregator as A
+    from catseg_tpu_torch.kernels import selfcheck
+
+    log("[13] unfused stages vs the fused kernels: Swin pair on (10, 150, 24, 24, 128) with guidance; "
+        "linear class stage at T=150 (pad 256, pooling 1x1) and (4, 171) pooling 2x2")
+    serve, train = eval_preset(vitb384()), vitb384()
+    layer = agg.layers[0]
+    g = torch.Generator().manual_seed(SEED + 4)
+    xs, gs = torch.randn(10, 150, 24, 24, 128, generator=g), torch.randn(10, 24, 24, 128, generator=g) * 0.5
+    ts = torch.relu(torch.randn(10, 150, 128, generator=g)) * 0.3
+    xt, tt = torch.randn(4, 171, 24, 24, 128, generator=g), torch.relu(torch.randn(4, 171, 128, generator=g)) * 0.3
+    total = dict.fromkeys(_build.UNFUSED, 0)
+    bad = []
+    for dt in (torch.float32, torch.bfloat16):
+        x, ag, tg, x2, tg2 = (t.to(dev, dt) for t in (xs, gs, ts, xt, tt))
+        stages = {
+            "swin pair": (lambda: A.spatial_aggregation(x, ag, layer, serve),
+                          lambda: A.swin_pair_unfused(x, ag, layer, serve), ("window_attention", "mlp")),
+            "class T=150 1x1": (lambda: A.class_aggregation(x, tg, layer, serve),
+                                lambda: A.class_layer_unfused(x, tg, layer, serve), ("linear_attention", "mlp")),
+            "class T=171 2x2": (lambda: A.class_aggregation(x2, tg2, layer, train),
+                                lambda: A.class_layer_unfused(x2, tg2, layer, train), ("linear_attention", "mlp")),
+        }
+        with torch.no_grad():
+            for name, (fused, unfused, kernels) in stages.items():
+                want = fused()
+                got, counts = run_counted(unfused, _build)
+                err, rel = selfcheck.rel_err(got, want)
+                del got, want
+                ms_f, ms_u = time_ms(fused, 3, 1), time_ms(unfused, 3, 1)
+                log(f"    {name:16s} {str(dt)[6:]:9s} max_abs_err {err:.3e} rel {rel:.3e} "
+                    f"(bound {STAGE_BOUND[dt]:.1e})  fused {ms_f:.3f} ms  unfused {ms_u:.3f} ms  "
+                    f"launches {({k: counts[k] for k in _build.UNFUSED})}")
+                if not rel <= STAGE_BOUND[dt] or min(counts[k] for k in kernels) == 0:
+                    bad.append((name, str(dt)))
+                if dt == torch.bfloat16:
+                    for k in _build.UNFUSED:
+                        total[k] += counts[k]
+                torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"unfused stages disagree with the fused kernels or skipped a kernel: {bad}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -278,6 +402,7 @@ def main() -> int:
     from catseg_tpu_torch.infer.pipeline import Predictor
     from catseg_tpu_torch.kernels import _build, selfcheck
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -292,7 +417,7 @@ def main() -> int:
     log("[3] kernels vs plain versions at the slice's shapes (10 tiles, T=150; class layer also T=256)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    checks = {dt: check_kernels(dev, dt, selfcheck) for dt in (torch.float32, torch.bfloat16)}
+    checks = {dt: check_kernels(dev, dt, selfcheck, _build) for dt in (torch.float32, torch.bfloat16)}
 
     log("[4] sliding-window Predictor, default vitb384 eval preset (fused decoder), bf16, T=150")
     cfg = eval_preset(vitb384())
@@ -307,8 +432,8 @@ def main() -> int:
     preds, launches = run_counted(lambda: pred.preds_sliding_batch(images, hws, canvas), _build)
     log(f"    launches in one 2-image run: {launches}")
     missing = [k for k in _build.FORWARD if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"the main path never launched {missing}")
+    if missing or any(launches[k] for k in _build.UNFUSED):
+        raise AssertionError(f"the main path never launched {missing}, or launched an unfused stage's kernel")
     preds = check_preds(preds, canvas, len(names))
     check_probs(pred.probs_sliding_batch(images), len(names))
     ips, med = images_per_s(pred, images, hws, canvas)
@@ -323,8 +448,10 @@ def main() -> int:
     pred.preds_sliding_batch(images, hws, canvas)
     preds_plain, plain_launches = run_counted(lambda: pred.preds_sliding_batch(images, hws, canvas), _build)
     log(f"    launches in one 2-image run: {plain_launches}")
-    if plain_launches["decoder"] or not all(plain_launches[k] for k in _build.FORWARD if k != "decoder"):
-        raise AssertionError("the plain-decoder path launched the decoder kernel or skipped another one")
+    if (plain_launches["decoder"] or any(plain_launches[k] for k in _build.UNFUSED)
+            or not all(plain_launches[k] for k in _build.FORWARD if k != "decoder")):
+        raise AssertionError("the plain-decoder path launched the decoder kernel or an unfused stage's, "
+                             "or skipped another one")
     check_preds(preds_plain, canvas, len(names))
     ips_plain, med_plain = images_per_s(pred, images, hws, canvas)
     log(f"    {ips_plain:.3f} images/s with the plain decoder (median of 3 2-image runs, "
@@ -352,8 +479,10 @@ def main() -> int:
     pred.preds_sliding_batch(images, hws, canvas)
     preds847, topk_launches = run_counted(lambda: pred.preds_sliding_batch(images, hws, canvas), _build)
     log(f"    launches in one 2-image run: {topk_launches}")
-    if topk_launches["class_layer"] == 0 or topk_launches["decoder"] == 0:
-        raise AssertionError("the top-k path skipped the class-layer or decoder kernel")
+    if (topk_launches["class_layer"] == 0 or topk_launches["decoder"] == 0
+            or any(topk_launches[k] for k in _build.UNFUSED)):
+        raise AssertionError("the top-k path skipped the class-layer or decoder kernel, or launched an "
+                             "unfused stage's")
     check_preds(preds847, canvas, len(names847))
     check_probs(pred.probs_sliding_batch(images), len(names847))
     ips847, med847 = images_per_s(pred, images, hws, canvas)
@@ -397,14 +526,29 @@ def main() -> int:
     if acc.cm.device.type != "cuda" or not np.array_equal(got_cm, want_cm):
         raise AssertionError("device confusion matrix differs from the numpy bincount")
 
-    train_launches = train_step_phase(dev, smi, _build)
+    log("[8] train step, vitb384() at full width (bf16, pooling 2x2, fused decoder), B=4, T=171, 384^2 crops")
+    train_launches = train_step_phase(dev, smi, _build, vitb384(), _build.FORWARD + _build.BACKWARD,
+                                      _build.UNFUSED)
     train_parity_phase(dev)
+
+    full_launches, agg = full_attention_serving_phase(dev, smi, _build, images, hws, canvas, names)
+    full_parity_phase(images, names)
+    log("[12] train step, vitb384(attention_type='full') (bf16, pooling 2x2), B=4, T=171")
+    train_step_phase(dev, smi, _build, vitb384(attention_type="full"),
+                     [k for k in _build.FORWARD if k != "class_layer"] + ["mlp", "swin_block_bwd", "decoder_bwd"],
+                     ("class_layer", "class_layer_bwd", "window_attention", "linear_attention"))
+    stage_launches = stage_phase(dev, agg, _build)
+    del agg
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, route, source, replaces in selfcheck.KERNELS:
-        n = launches[name] if name in _build.FORWARD else train_launches[name]
+        # each kernel's launches in the run of the path that drives it
+        n = (full_launches[name] if name == "mlp" else stage_launches[name] if name in _build.UNFUSED
+             else launches[name] if name in _build.FORWARD else train_launches[name])
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": n, **checks[torch.bfloat16][name]})
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

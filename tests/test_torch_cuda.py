@@ -73,6 +73,7 @@ def test_small_train_step_trains_both_clip_towers(cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
     assert all(_build.LAUNCHES[k] > 0 for k in _build.FORWARD + _build.BACKWARD), dict(_build.LAUNCHES)
+    assert not any(_build.LAUNCHES[k] for k in _build.UNFUSED), dict(_build.LAUNCHES)
     for tower in ("visual.transformer", "transformer"):
         for w in ("q_proj_weight", "v_proj_weight"):
             name = f"sem_seg_head.predictor.clip_model.{tower}.resblocks.0.attn.{w}"
@@ -165,3 +166,95 @@ def test_class_layer_takes_256_and_raises_at_257(cuda, dtype):
         torch.cuda.synchronize()
         want = class_layer.class_layer_plain(x, None, None, pkv, pks, cp, 4, T)
         assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype]
+
+
+def test_full_attention_forward_runs_the_mlp_kernel(cuda):
+    """attention_type="full" takes the unfused class stage on the card: the
+    MLP kernel launches, the class-layer kernel never; the kept logits are
+    finite."""
+    from catseg_tpu_torch.core.aggregator import aggregator_forward
+
+    agg, cfg = _flagship_agg(cuda, attention_type="full")
+    g = torch.Generator().manual_seed(4)
+    img = torch.randn(1, 24, 24, 512, generator=g).to(cuda)
+    txt = torch.randn(1, 6, 1, 512, generator=g).to(cuda)
+    guid = tuple(torch.randn(1, s, s, c, generator=g).to(cuda) for s, c in ((24, 512), (48, 256), (96, 128)))
+    _build.reset_launches()
+    with torch.no_grad():
+        out = aggregator_forward(agg, img, txt, guid, cfg)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 6, 96, 96) and torch.isfinite(out).all()
+    assert _build.LAUNCHES["mlp"] > 0 and _build.LAUNCHES["class_layer"] == 0, dict(_build.LAUNCHES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_window_attention_takes_window_16(cuda, dtype):
+    """256 tokens per window, the most the kernel takes: bf16 leaves the
+    tensor-core path, whose blocks would overflow shared memory, for the
+    CUDA-core one."""
+    from catseg_tpu_torch.kernels import swin_block, window_attn
+
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(8, 256, 128, generator=g).to(cuda, dtype) for _ in range(3))
+    mask = swin_block.shift_mask(32, 32, 16, 8).to(cuda)
+    before = _build.LAUNCHES["window_attention"]
+    got = window_attn.fused_window_attention(q, k, v, mask, 4, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["window_attention"] == before + 1
+    want = window_attn.window_attention_plain(q, k, v, mask, 4, 32 ** -0.5)
+    assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("C", [32, 64])
+def test_mlp_kernel_takes_narrow_widths(cuda, dtype, C):
+    """Hidden widths below the reference's 128-wide gate (its small
+    aggregator configuration runs hidden 32) launch the kernel too, with a
+    ragged last row tile."""
+    from catseg_tpu_torch.kernels import mlp
+
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(333, C, generator=g).to(cuda, dtype)
+    w1, b1 = (torch.randn(C, 4 * C, generator=g) * C ** -0.5).to(cuda), torch.randn(4 * C, generator=g).to(cuda)
+    w2, b2 = (torch.randn(4 * C, C, generator=g) * (4 * C) ** -0.5).to(cuda), torch.randn(C, generator=g).to(cuda)
+    for act in ("gelu", "relu"):
+        before = _build.LAUNCHES["mlp"]
+        got = mlp.fused_mlp(x, w1, b1, w2, b2, act)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["mlp"] == before + 1
+        want = mlp.mlp_plain(x, w1, b1, w2, b2, act)
+        assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype], act
+
+
+@pytest.mark.parametrize("attn", ["linear", "full"])
+def test_small_geometry_runs_the_unfused_kernels(cuda, attn):
+    """catseg_tpu's aggregator parity configuration (hidden 32, window 4, 8x8
+    grid, pool 2, pad_len 8): every stage takes the unfused route, its
+    kernels launch, and the fp32 result matches the port on the CPU within
+    that test's 5e-4 abs and 1e-3 rel."""
+    from catseg_tpu_torch.configs import CATSegConfig
+    from catseg_tpu_torch.core import aggregator as A
+
+    cfg = CATSegConfig(hidden_dim=32, num_heads=4, window_size=4, feature_resolution=(8, 8), pooling_size=(2, 2),
+                       pad_len=8, appearance_guidance_dim=24, appearance_guidance_proj_dim=16, text_guidance_dim=48,
+                       text_guidance_proj_dim=16, decoder_dims=(32, 16), decoder_guidance_dims=(24, 12),
+                       decoder_guidance_proj_dims=(8, 4), num_layers=2, compute_dtype="float32", attention_type=attn)
+    agg = A.Aggregator(cfg)
+    agg.conv1 = A.Conv(2, cfg.hidden_dim, 7)
+    g = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for p in agg.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    agg.eval()
+    img, txt = torch.randn(2, 8, 8, 48, generator=g), torch.randn(2, 5, 2, 48, generator=g)
+    guid = tuple(torch.randn(2, s, s, c, generator=g) for s, c in ((8, 24), (16, 24), (32, 12)))
+    with torch.no_grad():
+        want = A.aggregator_forward(agg, img, txt, guid, cfg)
+        agg.to(cuda)
+        _build.reset_launches()
+        got = A.aggregator_forward(agg, img.to(cuda), txt.to(cuda), tuple(t.to(cuda) for t in guid), cfg)
+        torch.cuda.synchronize()
+    launched = {k for k, n in _build.LAUNCHES.items() if n}
+    assert {"window_attention", "mlp"} <= launched and not launched & {"swin_block", "class_layer"}, launched
+    assert ("linear_attention" in launched) == (attn == "linear"), launched
+    torch.testing.assert_close(got.cpu(), want, atol=5e-4, rtol=1e-3)

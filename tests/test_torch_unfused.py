@@ -1,0 +1,288 @@
+"""The aggregator's unfused stages and their three kernels against catseg_tpu,
+on the CPU.
+
+The window-attention, MLP and linear-attention modules' plain versions (what
+their wrappers run for CPU tensors) take the same numpy inputs as the JAX
+functions, which run as catseg_tpu's own tests run them here: the Pallas body
+in interpret mode where its gate holds (window attention always; the MLP at
+C = 128, H = 512, M >= 1024, with a ragged last tile; linear attention at
+S % 8 == 0), its ``_reference`` elsewhere.  Each Function's gradients are held
+to ``jax.vjp``, and the port's ``aggregator_forward`` to catseg_tpu's at the
+JAX parity test's own small configuration (hidden 32, window 4, 8x8 grid,
+pool 2, pad_len 8; tests/test_aggregator_parity.py), where every stage takes
+the unfused route, and at the mini vitb384 of test_torch_aggregator.py with
+``attention_type="full"``.
+
+Tolerances.  fp32 kernels: 3e-5 abs (summation order; the reference's fp32
+GELU is a 1.5e-5-accurate polynomial, the port uses erf).  bf16: both sides
+round the same fp32 quantities to bf16, so they differ by an ulp where the
+fp32 summation order tips a rounding: 2^-7 of max(1, |out|) covers two ulps
+of the outputs here, and fails if a fast-form gate (tanh GELU) is keyed
+differently.  Gradients (fp32): 1e-4 of max(1, |jax|).  Aggregators: the JAX
+parity test's own 5e-4 abs and 1e-3 rel; the mini model 1e-4 abs, as
+test_torch_aggregator.py.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from catseg_tpu.core import aggregator as jagg
+from catseg_tpu.kernels import linear_attn as jla
+from catseg_tpu.kernels import mlp as jmlp
+from catseg_tpu.kernels import window_attn as jwa
+from catseg_tpu.weights.convert import convert_aggregator_state_dict
+from catseg_tpu.weights.export import export_aggregator_state_dict
+
+from catseg_tpu_torch import configs as tconfigs
+from catseg_tpu_torch.core import aggregator as tagg
+from catseg_tpu_torch.kernels import linear_attn as tla
+from catseg_tpu_torch.kernels import mlp as tmlp
+from catseg_tpu_torch.kernels import window_attn as twa
+
+from test_aggregator_parity import PAD_LEN, P, _agg_state_dict, _cfg, _inputs
+from test_torch_aggregator import mini_cfg, mini_cfg_port, mini_params
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch's small CPU ops on one thread: under the suite's parallel
+    workers its thread pool oversubscribes the cores and stalls."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _pair(a, dt):
+    jdt, tdt = DTYPES[dt]
+    return jnp.asarray(a, jdt), torch.from_numpy(np.asarray(a, np.float32)).to(tdt)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _check(got, want, dt):
+    g, w = _np(got), _np(want)
+    assert g.shape == w.shape
+    bound = 3e-5 if dt == "float32" else 2 ** -7 * max(1.0, float(np.abs(w).max()))
+    err = float(np.abs(g - w).max())
+    assert err <= bound, (err, bound)
+
+
+def _mlp_inputs(M, C, H, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(M, C).astype(np.float32) * 0.5, rng.randn(C, H).astype(np.float32) * 0.1,
+            rng.randn(H).astype(np.float32) * 0.1, rng.randn(H, C).astype(np.float32) * 0.1,
+            rng.randn(C).astype(np.float32) * 0.1)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act,M,C", [("gelu", 1024, 128), ("relu", 1324, 128), ("gelu", 64, 32)],
+                         ids=["gelu-pallas", "relu-pallas-ragged", "gelu-reference"])
+def test_mlp_plain_matches_jax(dt, act, M, C):
+    x, w1, b1, w2, b2 = _mlp_inputs(M, C, 4 * C)
+    jx, tx = _pair(x, dt)
+    w = [jnp.asarray(a) for a in (w1, b1, w2, b2)]
+    want = jmlp.fused_mlp(jx, *w, act)
+    got = tmlp.fused_mlp(tx, *(torch.from_numpy(a) for a in (w1, b1, w2, b2)), act)
+    assert got.dtype == DTYPES[dt][1]
+    _check(got, want, dt)
+
+
+def _window_inputs(H, win, C, seed=1):
+    rng = np.random.RandomState(seed)
+    Bw = 2 * (H // win) ** 2
+    return tuple(rng.randn(Bw, win * win, C).astype(np.float32) for _ in range(3))
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,win,C", [(8, 4, 32), (24, 12, 128)], ids=["win4-C32", "win12-C128"])
+@pytest.mark.parametrize("shifted", [False, True], ids=["plain", "shifted"])
+def test_window_attention_plain_matches_jax(dt, H, win, C, shifted):
+    q, k, v = _window_inputs(H, win, C)
+    N = win * win
+    mask = (np.array(jagg._shift_mask(H, H, win, win // 2)) if shifted
+            else np.zeros(((H // win) ** 2, N, N), np.float32))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dt) for a in (q, k, v))
+    scale = (C // 4) ** -0.5
+    want = jwa.fused_window_attention(jq, jk, jv, jnp.asarray(mask), 4, scale)
+    got = twa.fused_window_attention(tq, tk, tv, torch.from_numpy(mask), 4, scale)
+    _check(got, want, dt)
+
+
+def test_shift_mask_matches_jax():
+    from catseg_tpu_torch.kernels.swin_block import shift_mask
+
+    for H, win in ((8, 4), (24, 12)):
+        np.testing.assert_array_equal(shift_mask(H, H, win, win // 2).numpy(),
+                                      np.asarray(jagg._shift_mask(H, H, win, win // 2)))
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [16, 13], ids=["pallas", "reference"])
+def test_linear_attention_plain_matches_jax(dt, S):
+    rng = np.random.RandomState(2)
+    q, k, v = (rng.randn(6, S, 128).astype(np.float32) for _ in range(3))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dt) for a in (q, k, v))
+    want = jla.fused_linear_attention(jq, jk, jv, 4)
+    got = tla.fused_linear_attention(tq, tk, tv, 4)
+    _check(got, want, dt)
+
+
+def _vjp_cases():
+    """name -> (numpy inputs, jax fn, port fn) over the differentiable inputs."""
+    x, w1, b1, w2, b2 = _mlp_inputs(1024, 128, 512, seed=3)
+    q, k, v = _window_inputs(8, 4, 32, seed=4)
+    mask = np.array(jagg._shift_mask(8, 8, 4, 2))
+    rng = np.random.RandomState(5)
+    ql, kl, vl = (rng.randn(4, 16, 128).astype(np.float32) for _ in range(3))
+    return {
+        "mlp": ((x, w1, b1, w2, b2), lambda *a: jmlp.fused_mlp(*a, "gelu"),
+                lambda *a: tmlp.fused_mlp(*a, "gelu")),
+        "window_attention": ((q, k, v), lambda *a: jwa.fused_window_attention(*a, jnp.asarray(mask), 4, 8 ** -0.5),
+                             lambda *a: twa.fused_window_attention(*a, torch.from_numpy(mask), 4, 8 ** -0.5)),
+        "linear_attention": ((ql, kl, vl), lambda *a: jla.fused_linear_attention(*a, 4),
+                             lambda *a: tla.fused_linear_attention(*a, 4)),
+    }
+
+
+@pytest.mark.parametrize("name", ["mlp", "window_attention", "linear_attention"])
+def test_unfused_kernel_grads_match_jax(name):
+    inputs, jfn, tfn = _vjp_cases()[name]
+    out, vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in inputs))
+    g = np.random.RandomState(6).randn(*out.shape).astype(np.float32)
+    want = vjp(jnp.asarray(g))
+    ts = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    got = tfn(*ts)
+    assert got.grad_fn is not None and type(got.grad_fn).__name__.endswith("FnBackward")
+    got.backward(torch.from_numpy(g))
+    for t, w in zip(ts, want):
+        w = np.asarray(w)
+        err = float(np.abs(t.grad.numpy() - w).max())
+        assert err <= 1e-4 * max(1.0, float(np.abs(w).max())), (name, err)
+
+
+def _port_cfg(jcfg):
+    """The port's config with the JAX one's aggregator fields."""
+    skip = {"clip", "fusion"}
+    return tconfigs.CATSegConfig(**{f.name: getattr(jcfg, f.name)
+                                    for f in dataclasses.fields(tconfigs.CATSegConfig) if f.name not in skip})
+
+
+@pytest.fixture(scope="module")
+def small_sd():
+    return _agg_state_dict()
+
+
+@pytest.mark.parametrize("T,attn", [(5, "linear"), (PAD_LEN, "linear"), (13, "linear"), (5, "full")])
+def test_small_aggregator_matches_jax(small_sd, T, attn):
+    """Every stage of the JAX parity test's small configuration takes the
+    unfused route: hidden 32 is outside the fused kernels, "full" always."""
+    jcfg = _cfg(attention_type=attn)
+    tcfg = _port_cfg(jcfg)
+    params = convert_aggregator_state_dict({k: t.numpy() for k, t in small_sd.items()}, num_layers=2)
+    agg = tagg.Aggregator(tcfg)
+    agg.conv1 = tagg.Conv(P, tcfg.hidden_dim, 7)   # the parity test's P = 2 prompt templates
+    agg.load_state_dict(small_sd, strict=True)
+    img, txt, guid = _inputs(T)
+    want = np.asarray(jagg.aggregator_forward(params, jnp.asarray(img), jnp.asarray(txt),
+                                              tuple(map(jnp.asarray, guid)), jcfg))
+    with torch.no_grad():
+        got = tagg.aggregator_forward(agg, torch.from_numpy(img), torch.from_numpy(txt),
+                                      tuple(map(torch.from_numpy, guid)), tcfg).numpy()
+    assert got.shape == want.shape == (2, T, 32, 32)
+    if T > PAD_LEN:
+        # top-k ties may order differently: compare the kept classes only
+        sel_g, sel_w = got > -100.0, want > -100.0
+        np.testing.assert_array_equal(sel_g, sel_w)
+        got, want = got[sel_g], want[sel_w]
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=1e-3)
+
+
+def test_mini_full_attention_matches_jax():
+    """The mini vitb384 of test_torch_aggregator.py with attention_type="full":
+    the fused Swin pair, then the unfused class stage with the MLP kernel."""
+    params = mini_params()
+    cfg, tcfg = mini_cfg(attention_type="full"), mini_cfg_port(attention_type="full")
+    agg = tagg.Aggregator(tcfg)
+    agg.load_state_dict({k: torch.tensor(v) for k, v in export_aggregator_state_dict(params["agg"]).items()},
+                        strict=True)
+    rng = np.random.RandomState(0)
+    img = rng.randn(1, 24, 24, 64).astype(np.float32)
+    txt = rng.randn(1, 6, 1, 64).astype(np.float32)
+    guid = (rng.randn(1, 24, 24, 64).astype(np.float32), rng.randn(1, 48, 48, 256).astype(np.float32),
+            rng.randn(1, 96, 96, 128).astype(np.float32))
+    want = jagg.aggregator_forward(params["agg"], jnp.asarray(img), jnp.asarray(txt),
+                                   tuple(jnp.asarray(g) for g in guid), cfg)
+    with torch.no_grad():
+        got = tagg.aggregator_forward(agg, torch.from_numpy(img), torch.from_numpy(txt),
+                                      tuple(torch.from_numpy(g) for g in guid), tcfg)
+    assert got.shape == (1, 6, 96, 96)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+
+
+def test_routing_by_geometry(monkeypatch):
+    """Hidden 128 / window 12 / linear takes the fused stages; hidden 32, T
+    past the class kernel and "full" take the unfused ones."""
+    flagship = tconfigs.eval_preset(tconfigs.vitb384())
+    small = _port_cfg(_cfg())
+    slab = (1, 150, 24, 24, 128)
+    assert tagg.swin_route_fused(slab, flagship) and tagg.class_route_fused(slab, flagship)
+    assert tagg.class_route_fused(slab, tconfigs.vitb384())        # train pooling (2, 2)
+    assert not tagg.class_route_fused(slab, flagship.replace(attention_type="full"))
+    assert not tagg.class_route_fused((1, 257, 24, 24, 128), flagship.replace(pad_len=0))
+    assert not tagg.swin_route_fused(slab, flagship.replace(window_size=8))
+    assert not tagg.swin_route_fused((2, 5, 8, 8, 32), small)
+    assert not tagg.class_route_fused((2, 5, 8, 8, 32), small)
+
+    def refuse(*a, **k):
+        raise AssertionError("the fused stage ran")
+
+    monkeypatch.setattr(tagg, "fused_swin_pair", refuse)
+    monkeypatch.setattr(tagg, "fused_class_layer", refuse)
+    agg = tagg.Aggregator(small)
+    agg.conv1 = tagg.Conv(P, small.hidden_dim, 7)
+    agg.load_state_dict(_agg_state_dict(), strict=True)
+    img, txt, guid = _inputs(5)
+    with torch.no_grad():
+        out = tagg.aggregator_forward(agg, torch.from_numpy(img), torch.from_numpy(txt),
+                                      tuple(map(torch.from_numpy, guid)), small)
+    assert out.shape == (2, 5, 32, 32) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("pool", [(1, 1), (2, 2)], ids=["pool1", "pool2"])
+def test_unfused_stages_match_fused_routes(pool):
+    """At the flagship geometry, where both routes run, the unfused Swin pair
+    and linear class stage compute what the fused ones do (catseg_tpu's
+    tests/test_kernels.py holds its own so), fp32, through the plain versions
+    on the CPU; bound 2e-4 of max(1, |fused|), as phase [13] of chip_smoke.py."""
+    cfg = tconfigs.vitb384(pooling_size=pool, pad_len=8, compute_dtype="float32")
+    agg = tagg.Aggregator(cfg)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, p in agg.named_parameters():
+            u = torch.rand(p.shape, generator=g) * 2 - 1
+            p.copy_(1 + 0.1 * u if name.endswith("norm1.weight") or name.endswith("norm2.weight")
+                    else u * (p.shape[1] ** -0.5 if p.ndim == 2 else 0.1))
+    layer = agg.layers[0]
+    x = torch.randn(1, 5, 24, 24, 128, generator=g)
+    ag = torch.randn(1, 24, 24, 128, generator=g) * 0.5
+    tg = torch.relu(torch.randn(1, 5, 128, generator=g)) * 0.3
+    assert tagg.swin_route_fused(x.shape, cfg) and tagg.class_route_fused(x.shape, cfg)
+    with torch.no_grad():
+        pairs = [(tagg.spatial_aggregation(x, ag, layer, cfg), tagg.swin_pair_unfused(x, ag, layer, cfg)),
+                 (tagg.class_aggregation(x, tg, layer, cfg), tagg.class_layer_unfused(x, tg, layer, cfg))]
+    for fused, unfused in pairs:
+        err = (unfused - fused).abs().max().item()
+        assert err <= 2e-4 * max(1.0, fused.abs().max().item()), err
