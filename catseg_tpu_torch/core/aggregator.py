@@ -234,8 +234,9 @@ def _swin_block(x: torch.Tensor, guid, blk: SwinBlock, cfg: CATSegConfig, shift:
         qg, kg = linear(gw, a.q.weight[:, C:]), linear(gw, a.k.weight[:, C:])
         q = (q.reshape(B, T, nW, N, C) + qg[:, None]).reshape(B * T, nW, N, C)
         k = (k.reshape(B, T, nW, N, C) + kg[:, None]).reshape(B * T, nW, N, C)
-    mask = (shift_mask(H, W, win, shift, x.device) if shift > 0
-            else torch.zeros((nW, N, N), device=x.device))
+    mask = shift_mask(H, W, win, shift, x.device) if shift > 0 else None
+    # v (and q, k without guidance) stay views of qkv, rows 3C apart: the
+    # kernel takes row strides, so nothing is copied
     out = fused_window_attention(q.reshape(-1, N, C), k.reshape(-1, N, C), v.reshape(-1, N, C), mask,
                                  heads, (C // heads) ** -0.5)
     out = window_reverse(linear(out, a.proj.weight, a.proj.bias), win, H, W)

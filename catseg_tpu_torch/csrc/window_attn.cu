@@ -2,31 +2,49 @@
 // already-projected q / k / v.
 //
 // Replaces catseg_tpu/kernels/window_attn.py:fused_window_attention
-// (_kernel).  q, k, v, out: (Bw, N, C) row-major in T, windows of one image
-// consecutive; mask (nW, N, N) fp32 additive, window w takes mask row w % nW
-// (zeros when unshifted).  Logits are scaled after the q.k product and the
-// mask added, as the reference's kernel does; the softmax is max-subtracted
-// fp32 in both dtypes (the reference has no fast form here); P is rounded to
-// T before the value product, which accumulates in fp32.
+// (_kernel).  q, k, v: (Bw, N, C) with rows ldq / ldk / ldv elements apart
+// (the unfused Swin block hands in views of its fused qkv projection, rows
+// 3C apart), windows of one image consecutive; out (Bw, N, C) contiguous;
+// mask (nW, N, N) fp32 additive, window w takes mask row w % nW, or null
+// (an unshifted block): then the add is skipped, which is exact.  Logits
+// are scaled after the q.k product and the mask added, as the reference's
+// kernel does; the softmax is exact and max-subtracted in fp32 in both
+// dtypes; P is normalised, then rounded to T before the value product,
+// which accumulates in fp32.  The (N, N) logits never reach device memory.
 //
-// One CTA per (window, head).  bf16 with N and D multiples of 16 whose
-// blocks fit in shared memory (the Swin geometry: 144 tokens, D = 32; not
-// 256 tokens, whose 16 warps' fp32 blocks alone take 266 KB) runs on
-// tensor cores: K and V head slices in shared memory, one warp per
-// 16-query block holding its Q fragments,
-// S = Q K^T by wmma into the warp's fp32 block (16 x N), the softmax row by
-// row (max and sum by shuffles), P written back as bf16 over the rows already
-// read, O = P V by wmma.  Otherwise (fp32, other geometries) CUDA cores: the
-// head's K and V as fp32 rows padded to D + 1 (conflict-free column reads);
-// each warp takes query rows in turn, holds its q row in registers, keeps
-// its N scores spread over the lanes' registers (N <= 256), writes P to a
-// per-warp shared row, and forms P.V with lanes over the head's channels.
-// The (N, N) logits never reach device memory.
+// Bound on the card: bytes in bf16 (0.89 GB at 6000 windows of 144 x 128,
+// 0.26 ms; the 64 GFLOP take 0.06 ms on tensor cores), operations in fp32.
 //
-// Bound on the card: operations in fp32 (4 Bw N^2 C, 64 GFLOP at 6000
-// windows of 144 x 128; every CUDA-core FMA reads one shared word), bytes in
-// bf16 (0.89 GB); the tensor-core path is latency-bound on small tiles and
-// the fp32 softmax.
+// bf16 with N % 16 == 0 and head dims 16, 32, 64, where the window's K and V
+// fit in shared memory (the Swin geometry, 144 tokens x 128, and window 16,
+// 256 tokens): tensor cores, one block per window with all its heads.  The
+// window's whole K and V rows come in by 16-byte cp.async (rows XOR-swizzled
+// in 16-byte chunks, so ldmatrix is conflict-free): 72 KB at 144 x 128, so
+// three 4-warp blocks share an SM and one block's loads overlap another's
+// math (registers allow no more: 155 a thread at D = 32).  A warp takes
+// (16 query rows, head) tasks in turn, the heads of a row block one after
+// another; its Q fragments come straight from device memory, the next
+// task's while this one computes.  S = Q K^T by mma.sync m16n8k16 stays in
+// fp32 registers, 16 x 144 = 72 a thread; logits = S * scale + mask, the
+// task's mask values (L2-resident: shared memory leaves L1 28 KB) all
+// requested into those registers before the products start, so their
+// latency overlaps Q K^T; exponentials on the SFU (ex2.approx) with the
+// log2 e factor folded into one FMA; the row max and sum over the quad;
+// P = e / l rounded to bf16 goes from the accumulators into A fragments;
+// O = P V with V by ldmatrix.trans; O stored as bf16x2.  Rows of more than
+// 144 keys (window 16: 256) do not fit the registers: they run as two
+// 128-key halves in FlashAttention's order (O rescaled when the max moves,
+// P rounded unnormalised, O / l at the end), the dense kernel's trade; a
+// second pass recomputing the logits to normalise P first took 1.8x SDPA's
+// time there (PERF.md).
+//
+// Otherwise (fp32, other geometries) CUDA cores: one block per (window,
+// head), the head's K and V as fp32 rows padded to D + 1 (conflict-free
+// column reads); each warp takes query rows in turn, holds its q row in
+// registers, keeps its N scores spread over the lanes' registers
+// (N <= 256), writes P to a per-warp shared row and forms P.V with lanes
+// over the head's channels.
+#include "attn_common.cuh"
 #include "common.cuh"
 
 using namespace catseg;
@@ -37,6 +55,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN = 256;
 constexpr int kMaxJ = kMaxN / 32;
+constexpr int kMaxPairs = 9;   // 16-key column pairs of S a warp keeps in registers (144 keys)
+// warps of a tensor-core block where three blocks' K and V fit an SM; 8 (two
+// blocks, at most 128 registers a thread) were measured once and lost (PERF.md)
+constexpr int kTcWarps = 4;
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -48,27 +70,31 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                         const float* __restrict__ mask, T* __restrict__ out, int N, int C, int heads, int nW,
-                        float scale) {
+                        int ldq, int ldk, int ldv, float scale) {
   constexpr int ld = D + 1;
   extern __shared__ float sm[];
   float* ks = sm;            // (N, ld)
   float* vs = ks + N * ld;   // (N, ld)
   float* ps = vs + N * ld;   // (kWarps, N)
-  const int win = blockIdx.x / heads, h = blockIdx.x % heads;
-  const size_t base = (size_t)win * N * C + (size_t)h * D;
+  const size_t win = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const T* qw = q + win * N * ldq + h * D;
+  const T* kw = k + win * N * ldk + h * D;
+  const T* vw = v + win * N * ldv + h * D;
+  T* ow = out + win * N * C + h * D;
   for (int e = threadIdx.x; e < N * D; e += kThreads) {
     const int n = e / D, d = e % D;
-    ks[n * ld + d] = to_f(k[base + (size_t)n * C + d]);
-    vs[n * ld + d] = to_f(v[base + (size_t)n * C + d]);
+    ks[n * ld + d] = to_f(kw[(size_t)n * ldk + d]);
+    vs[n * ld + d] = to_f(vw[(size_t)n * ldv + d]);
   }
   __syncthreads();
-  const float* mw = mask + (size_t)(win % nW) * N * N;
+  const float* mw = mask ? mask + (win % nW) * N * N : nullptr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* p = ps + warp * N;
   for (int i = warp; i < N; i += kWarps) {
     float qr[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = to_f(q[base + (size_t)i * C + d]);
+    for (int d = 0; d < D; ++d) qr[d] = to_f(qw[(size_t)i * ldq + d]);
     float s[kMaxJ];
     float mx = -INFINITY;
 #pragma unroll
@@ -79,7 +105,8 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
         float acc = 0.f;
 #pragma unroll
         for (int d = 0; d < D; ++d) acc = fmaf(qr[d], ks[j * ld + d], acc);
-        logit = acc * scale + mw[(size_t)i * N + j];
+        logit = acc * scale;
+        if (mw) logit += mw[(size_t)i * N + j];
       }
       s[jj] = logit;
       mx = fmaxf(mx, logit);
@@ -102,176 +129,305 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
     for (int d = lane; d < D; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < N; ++j) acc = fmaf(p[j], vs[j * ld + d], acc);
-      out[base + (size_t)i * C + d] = from_f<T>(acc);
+      ow[(size_t)i * C + d] = from_f<T>(acc);
     }
     __syncwarp();  // p is rewritten by the warp's next row
   }
 }
 
-// bf16 on tensor cores; N and D multiples of 16, blockDim = 32 N / 16.
-// shared: ks, vs (N, D + 8) bf16 | per warp a (16, N + 4) fp32 block (S, then P as bf16, then O)
+// K / V tile layout of the tensor-core kernel: rows of C bf16 in 16-byte
+// chunks, XOR-swizzled where a row holds a multiple of 8 chunks, else one
+// chunk of padding (either way 8 rows at one chunk hit 8 distinct banks)
+struct TileLayout {
+  int ldc, swm;   // row stride in chunks, swizzle mask
+  __host__ __device__ explicit TileLayout(int C) : ldc((C / 8) % 8 ? C / 8 + 1 : C / 8), swm((C / 8) % 8 ? 0 : 7) {}
+  __device__ __forceinline__ int at(int row, int chunk) const { return row * ldc * 8 + ((chunk ^ (row & swm)) << 3); }
+};
+
+__device__ __forceinline__ unsigned ld32(const bf16* p) { return __ldg(reinterpret_cast<const unsigned*>(p)); }
+
+// the A fragments of 16 query rows (row0..row0+15) of one head, from device memory
 template <int D>
-__global__ void __launch_bounds__(kMaxN / 16 * 32)
+__device__ __forceinline__ void load_q(unsigned (&qa)[D / 16][4], const bf16* qh, int ldq, int row0, int g,
+                                       int t4) {
+  const bf16* p0 = qh + (size_t)(row0 + g) * ldq + 2 * t4;
+  const bf16* p1 = p0 + (size_t)8 * ldq;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    qa[kk][0] = ld32(p0 + 16 * kk);
+    qa[kk][1] = ld32(p1 + 16 * kk);
+    qa[kk][2] = ld32(p0 + 16 * kk + 8);
+    qa[kk][3] = ld32(p1 + 16 * kk + 8);
+  }
+}
+
+// logits of keys 16 p0 .. 16 (p0 + np) - 1 for rows g, g + 8 of a task:
+// S = Q K^T (fp32), times scale, plus the mask rows m0 / m1 (or nothing).
+// The mask values (L2-resident, not L1: shared memory takes the SM) are all
+// requested first, into s itself, so their latency overlaps the products.
+template <int D>
+__device__ __forceinline__ void logits(float (&s)[2 * kMaxPairs][4], const unsigned (&qa)[D / 16][4],
+                                       const bf16* ks, const TileLayout& L, int hc, int p0, int np,
+                                       const float* m0, const float* m1, float scale, int lane) {
+  const int mi = lane >> 3, mr = lane & 7, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2 * kMaxPairs; ++j) {
+    if (j < 2 * np) {
+      float2 a = make_float2(0.f, 0.f), b = a;
+      if (m0) {
+        const int key = 16 * p0 + 8 * j + 2 * t4;
+        a = __ldg(reinterpret_cast<const float2*>(m0 + key));
+        b = __ldg(reinterpret_cast<const float2*>(m1 + key));
+      }
+      s[j][0] = a.x;
+      s[j][1] = a.y;
+      s[j][2] = b.x;
+      s[j][3] = b.y;
+    }
+  }
+#pragma unroll
+  for (int jp = 0; jp < kMaxPairs; ++jp) {
+    if (jp < np) {
+      float acc[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        unsigned b[4];
+        ldmatrix_x4(b, ks + L.at(16 * (p0 + jp) + mr + (mi >> 1) * 8, hc + 2 * kk + (mi & 1)));
+        mma_bf16(acc[0], qa[kk], b[0], b[1]);
+        mma_bf16(acc[1], qa[kk], b[2], b[3]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[2 * jp][e] = m0 ? acc[0][e] * scale + s[2 * jp][e] : acc[0][e] * scale;
+        s[2 * jp + 1][e] = m0 ? acc[1][e] * scale + s[2 * jp + 1][e] : acc[1][e] * scale;
+      }
+    }
+  }
+}
+
+// O += P V over keys 16 p0 .. 16 (p0 + np) - 1, P = e (rows g, g + 8 times
+// f0, f1) rounded to bf16 from the accumulators straight into A fragments
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&s)[2 * kMaxPairs][4], int p0, int np,
+                                   float f0, float f1, const bf16* vs, const TileLayout& L, int hc, int lane) {
+  const int mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < kMaxPairs; ++kk) {
+    if (kk < np) {
+      const float lo[4] = {s[2 * kk][0] * f0, s[2 * kk][1] * f0, s[2 * kk][2] * f1, s[2 * kk][3] * f1};
+      const float hi[4] = {s[2 * kk + 1][0] * f0, s[2 * kk + 1][1] * f0, s[2 * kk + 1][2] * f1,
+                           s[2 * kk + 1][3] * f1};
+      unsigned pa[4];
+      c_to_a(pa, lo, hi);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        unsigned b[4];
+        ldmatrix_x4_trans(b, vs + L.at(16 * (p0 + kk) + mr + (mi & 1) * 8, hc + 2 * dp + (mi >> 1)));
+        mma_bf16(o[2 * dp], pa, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// bf16 on tensor cores; N % 16 == 0, one block per window, blockDim a multiple of 32
+template <int D>
+__global__ void __launch_bounds__(kThreads)
 window_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                            const float* __restrict__ mask, bf16* __restrict__ out, int N, int C, int heads,
-                           int nW, float scale) {
-  namespace wm = nvcuda::wmma;
-  constexpr int ldk = D + 8;
+                           int nW, int ldq, int ldk, int ldv, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
+  const TileLayout L(C);
   bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + N * ldk;
-  const int lds = N + 4, ldp = N + 8;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nthreads = blockDim.x;
-  float* sb = reinterpret_cast<float*>(vs + N * ldk) + warp * 16 * lds;
-  bf16* pb = reinterpret_cast<bf16*>(sb);
-  const int win = blockIdx.x / heads, h = blockIdx.x % heads;
-  const size_t base = (size_t)win * N * C + (size_t)h * D;
-  for (int e = threadIdx.x; e < N * (D / 8); e += nthreads) {
-    const int n = e / (D / 8), d = (e % (D / 8)) * 8;
-    *reinterpret_cast<uint4*>(ks + n * ldk + d) = *reinterpret_cast<const uint4*>(k + base + (size_t)n * C + d);
-    *reinterpret_cast<uint4*>(vs + n * ldk + d) = *reinterpret_cast<const uint4*>(v + base + (size_t)n * C + d);
+  bf16* vs = ks + (size_t)N * L.ldc * 8;
+  const int tid = threadIdx.x, nthreads = blockDim.x, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3, mi = lane >> 3, mr = lane & 7;
+  const size_t win = blockIdx.x;
+  const bf16* qw = q + win * N * ldq;
+  const bf16* kw = k + win * N * ldk;
+  const bf16* vw = v + win * N * ldv;
+  bf16* ow = out + win * N * C;
+  const int CH = C / 8;
+  for (int e = tid; e < N * CH; e += nthreads) {
+    const int r = e / CH, c = e - r * CH;
+    cp_async16(ks + L.at(r, c), kw + (size_t)r * ldk + c * 8);
+    cp_async16(vs + L.at(r, c), vw + (size_t)r * ldv + c * 8);
   }
-  const int r0 = warp * 16;  // this warp's query rows
-  wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> qa[D / 16];
-#pragma unroll
-  for (int d = 0; d < D / 16; ++d) wm::load_matrix_sync(qa[d], q + base + (size_t)r0 * C + d * 16, C);
+  cp_async_commit();
+
+  const int npairs = N / 16, tasks = npairs * heads;
+  const int per = (tasks + nwarps - 1) / nwarps;
+  const int first = warp * per, last = min(tasks, first + per);
+  const int nchunk = (npairs + kMaxPairs - 1) / kMaxPairs;
+  const int cpairs = (npairs + nchunk - 1) / nchunk;   // pairs per chunk, the last may hold fewer
+  const float* mw = mask ? mask + (win % nW) * N * N : nullptr;
+
+  unsigned qa[D / 16][4], qn[D / 16][4];
+  if (first < last) load_q<D>(qn, qw + (first % heads) * D, ldq, (first / heads) * 16, g, t4);
+  cp_async_wait<0>();
   __syncthreads();
 
-  for (int jt = 0; jt < N / 16; ++jt) {
-    wm::fragment<wm::accumulator, 16, 16, 16, float> s;
-    wm::fill_fragment(s, 0.f);
+  for (int task = first; task < last; ++task) {
+    const int rb = task / heads, h = task - rb * heads, hc = h * D / 8;
 #pragma unroll
-    for (int d = 0; d < D / 16; ++d) {
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major> kb;   // K^T
-      wm::load_matrix_sync(kb, ks + jt * 16 * ldk + d * 16, ldk);
-      wm::mma_sync(s, qa[d], kb, s);
-    }
-    wm::store_matrix_sync(sb + jt * 16, s, lds, wm::mem_row_major);
-  }
-  __syncwarp();
-  const float* mw = mask + (size_t)(win % nW) * N * N;
-  for (int r = 0; r < 16; ++r) {
-    float e[kMaxJ];
-    float mx = -INFINITY;
+    for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
-    for (int jj = 0; jj < kMaxJ; ++jj) {
-      const int j = lane + 32 * jj;
-      e[jj] = j < N ? sb[r * lds + j] * scale + mw[(size_t)(r0 + r) * N + j] : -INFINITY;
-      mx = fmaxf(mx, e[jj]);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < kMaxJ; ++jj) {
-      e[jj] = lane + 32 * jj < N ? expf(e[jj] - mx) : 0.f;
-      sum += e[jj];
-    }
-    sum = warp_sum(sum);
-    __syncwarp();  // P row r overlays S rows <= r, all read by now
-#pragma unroll
-    for (int jj = 0; jj < kMaxJ; ++jj) {
-      const int j = lane + 32 * jj;
-      if (j < N) pb[r * ldp + j] = __float2bfloat16(e[jj] / sum);
-    }
-    __syncwarp();
-  }
+      for (int e = 0; e < 4; ++e) qa[kk][e] = qn[kk][e];
+    if (task + 1 < last) load_q<D>(qn, qw + ((task + 1) % heads) * D, ldq, ((task + 1) / heads) * 16, g, t4);
+    const float* m0 = mw ? mw + (size_t)(rb * 16 + g) * N : nullptr;
+    const float* m1 = mw ? m0 + (size_t)8 * N : nullptr;
 
-  wm::fragment<wm::accumulator, 16, 16, 16, float> o[D / 16];
+    // one pass over the key chunks: logits, the running row max and sum.  A
+    // row in one chunk (N <= 144) is normalised before P is rounded, the
+    // reference's order; a longer row takes FlashAttention's, chunk by
+    // chunk: O rescaled as the max moves, P = e rounded unnormalised, O / l
+    // at the end
+    float s[2 * kMaxPairs][4], o[D / 8][4];
 #pragma unroll
-  for (int d = 0; d < D / 16; ++d) wm::fill_fragment(o[d], 0.f);
-  for (int j = 0; j < N; j += 16) {
-    wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> pa;
-    wm::load_matrix_sync(pa, pb + j, ldp);
+    for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    float mx0 = -INFINITY, mx1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    for (int c = 0; c < nchunk; ++c) {
+      const int p0 = c * cpairs, np = min(cpairs, npairs - p0);
+      logits<D>(s, qa, ks, L, hc, p0, np, m0, m1, scale, lane);
+      float t0 = -INFINITY, t1 = -INFINITY;
 #pragma unroll
-    for (int d = 0; d < D / 16; ++d) {
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> vb;
-      wm::load_matrix_sync(vb, vs + j * ldk + d * 16, ldk);
-      wm::mma_sync(o[d], pa, vb, o[d]);
+      for (int j = 0; j < 2 * kMaxPairs; ++j) {
+        if (j < 2 * np) {
+          t0 = fmaxf(t0, fmaxf(s[j][0], s[j][1]));
+          t1 = fmaxf(t1, fmaxf(s[j][2], s[j][3]));
+        }
+      }
+      // row maxima in log2 units: e = 2^(logit log2e - max log2e)
+      const float n0 = fmaxf(mx0, quad_max(t0) * kLog2e), n1 = fmaxf(mx1, quad_max(t1) * kLog2e);
+      const float c0 = fast_exp2(mx0 - n0), c1 = fast_exp2(mx1 - n1);
+      l0 *= c0;
+      l1 *= c1;
+      mx0 = n0;
+      mx1 = n1;
+#pragma unroll
+      for (int j = 0; j < 2 * kMaxPairs; ++j) {
+        if (j < 2 * np) {
+          s[j][0] = fast_exp2(fmaf(s[j][0], kLog2e, -mx0));
+          s[j][1] = fast_exp2(fmaf(s[j][1], kLog2e, -mx0));
+          s[j][2] = fast_exp2(fmaf(s[j][2], kLog2e, -mx1));
+          s[j][3] = fast_exp2(fmaf(s[j][3], kLog2e, -mx1));
+          l0 += s[j][0] + s[j][1];
+          l1 += s[j][2] + s[j][3];
+        }
+      }
+      if (nchunk > 1) {
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[j][0] *= c0;
+          o[j][1] *= c0;
+          o[j][2] *= c1;
+          o[j][3] *= c1;
+        }
+        pv<D>(o, s, p0, np, 1.f, 1.f, vs, L, hc, lane);
+      }
     }
-  }
-  __syncwarp();  // every lane is done reading P before O overwrites it
+    const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+    if (nchunk == 1) {
+      pv<D>(o, s, 0, npairs, inv0, inv1, vs, L, hc, lane);
+    } else {
 #pragma unroll
-  for (int d = 0; d < D / 16; ++d) wm::store_matrix_sync(sb + d * 16, o[d], D + 4, wm::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 16 * D; e += 32) {
-    const int r = e / D, d = e % D;
-    out[base + (size_t)(r0 + r) * C + d] = __float2bfloat16(sb[r * (D + 4) + d]);
+      for (int j = 0; j < D / 8; ++j) {
+        o[j][0] *= inv0;
+        o[j][1] *= inv0;
+        o[j][2] *= inv1;
+        o[j][3] *= inv1;
+      }
+    }
+    bf16* o0 = ow + (size_t)(rb * 16 + g) * C + h * D + 2 * t4;
+    bf16* o1 = o0 + (size_t)8 * C;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<unsigned*>(o0 + 8 * j) = pack_bf16(o[j][0], o[j][1]);
+      *reinterpret_cast<unsigned*>(o1 + 8 * j) = pack_bf16(o[j][2], o[j][3]);
+    }
   }
 }
 
-size_t tc_smem(int N, int D) {
-  return (size_t)2 * N * (D + 8) * sizeof(bf16) + (size_t)(N / 16) * 16 * (N + 4) * sizeof(float);
-}
+size_t tc_smem(int N, int C) { return (size_t)2 * N * TileLayout(C).ldc * 16; }
 
-// whether the tensor-core kernel's shared memory fits the current device's opt-in limit
-bool tc_fits(int N, int D) {
+// whether bf16 at this geometry takes the tensor-core kernel: N % 16 == 0,
+// head dim 16 / 32 / 64 and K, V within the device's opt-in shared memory
+bool tc_path(int N, int C, int heads, int is_bf16) {
+  const int D = C / heads;
+  if (!is_bf16 || N % 16 || C % heads || (D != 16 && D != 32 && D != 64)) return false;
   int dev = 0, limit = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
     return false;
-  return tc_smem(N, D) <= (size_t)limit;
+  return tc_smem(N, C) <= (size_t)limit;
 }
 
 template <int D>
 int run_tc(const void* q, const void* k, const void* v, const void* mask, void* out, int Bw, int N, int C,
-           int heads, int nW, float scale, cudaStream_t st) {
-  const int warps = N / 16;
-  const size_t smem = tc_smem(N, D);
-  cudaError_t e = cudaFuncSetAttribute(window_attention_tc_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+           int heads, int nW, int ldq, int ldk, int ldv, float scale, cudaStream_t st) {
+  const size_t smem = tc_smem(N, C);
+  // kTcWarps where three blocks share an SM's 228 KB (1 KB reserved each),
+  // else 8 warps and one block
+  const int threads = 3 * (smem + 1024) <= 228 * 1024 ? kTcWarps * 32 : kThreads;
+  cudaError_t e = cudaFuncSetAttribute(window_attention_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(window_attention_tc_kernel<D>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
-  window_attention_tc_kernel<D><<<Bw * heads, warps * 32, smem, st>>>(
+  window_attention_tc_kernel<D><<<Bw, threads, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(mask), static_cast<bf16*>(out), N, C, heads, nW, scale);
+      static_cast<const float*>(mask), static_cast<bf16*>(out), N, C, heads, nW, ldq, ldk, ldv, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int run_cc(const void* q, const void* k, const void* v, const void* mask, void* out, int Bw, int N, int C,
+           int heads, int nW, int ldq, int ldk, int ldv, float scale, cudaStream_t st) {
+  const size_t smem = (size_t)(2 * N * (D + 1) + kWarps * N) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(window_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  window_attention_kernel<T, D><<<Bw * heads, kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(mask), static_cast<T*>(out), N, C, heads, nW, ldq, ldk, ldv, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int run(const void* q, const void* k, const void* v, const void* mask, void* out, int Bw, int N, int C,
-        int heads, int nW, float scale, int is_bf16, cudaStream_t st) {
-  const size_t smem = (size_t)(2 * N * (D + 1) + kWarps * N) * sizeof(float);
-  const int grid = Bw * heads;
-  cudaError_t e;
-  if (is_bf16) {
-    e = cudaFuncSetAttribute(window_attention_kernel<bf16, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    window_attention_kernel<bf16, D><<<grid, kThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const float*>(mask), static_cast<bf16*>(out), N, C, heads, nW, scale);
-  } else {
-    e = cudaFuncSetAttribute(window_attention_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    window_attention_kernel<float, D><<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(mask), static_cast<float*>(out), N, C, heads, nW, scale);
-  }
-  return (int)cudaGetLastError();
+        int heads, int nW, int ldq, int ldk, int ldv, float scale, int is_bf16, cudaStream_t st) {
+  if (is_bf16) return run_cc<bf16, D>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
+  return run_cc<float, D>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
 }
 
 }  // namespace
 
-// Takes N <= 256 tokens per window and head dims 8, 16, 32 or 64.
+extern "C" int catseg_window_attention_tensor_cores(int N, int C, int heads, int is_bf16) {
+  return tc_path(N, C, heads, is_bf16) ? 1 : 0;
+}
+
+// Takes N <= 256 tokens per window and head dims 8, 16, 32 or 64; row
+// strides ldq, ldk, ldv >= C and multiples of 8; mask null or (nW, N, N).
 extern "C" int catseg_window_attention(const void* q, const void* k, const void* v, const void* mask, void* out,
-                                       int Bw, int N, int C, int heads, int nW, float scale, int is_bf16,
-                                       void* stream) {
+                                       int Bw, int N, int C, int heads, int nW, int ldq, int ldk, int ldv,
+                                       float scale, int is_bf16, void* stream) {
   if (Bw <= 0 || N <= 0 || N > kMaxN || heads <= 0 || C % heads || nW <= 0 || Bw % nW)
     return (int)cudaErrorInvalidValue;
+  if (ldq < C || ldk < C || ldv < C || ldq % 8 || ldk % 8 || ldv % 8) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && N % 16 == 0 && tc_fits(N, C / heads)) {
+  if (tc_path(N, C, heads, is_bf16)) {
     switch (C / heads) {
-      case 16: return run_tc<16>(q, k, v, mask, out, Bw, N, C, heads, nW, scale, st);
-      case 32: return run_tc<32>(q, k, v, mask, out, Bw, N, C, heads, nW, scale, st);
-      case 64: return run_tc<64>(q, k, v, mask, out, Bw, N, C, heads, nW, scale, st);
-      default: break;
+      case 16: return run_tc<16>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
+      case 32: return run_tc<32>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
+      default: return run_tc<64>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
     }
   }
   switch (C / heads) {
-    case 8: return run<8>(q, k, v, mask, out, Bw, N, C, heads, nW, scale, is_bf16, st);
-    case 16: return run<16>(q, k, v, mask, out, Bw, N, C, heads, nW, scale, is_bf16, st);
-    case 32: return run<32>(q, k, v, mask, out, Bw, N, C, heads, nW, scale, is_bf16, st);
-    case 64: return run<64>(q, k, v, mask, out, Bw, N, C, heads, nW, scale, is_bf16, st);
+    case 8: return run<8>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, is_bf16, st);
+    case 16: return run<16>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, is_bf16, st);
+    case 32: return run<32>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, is_bf16, st);
+    case 64: return run<64>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, is_bf16, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -59,13 +59,15 @@ _SIGNATURES = {
     "catseg_swin_block_bwd": "p" * 26 + "iiiiiii",
     "catseg_class_layer_bwd": "p" * 26 + "iiiifi",
     "catseg_decoder_bwd": "p" * 39 + "iii",
-    "catseg_window_attention": "ppppp" + "iiiii" + "fi",
+    "catseg_window_attention": "ppppp" + "iiiii" + "iii" + "fi",
     "catseg_mlp": "pppppp" + "iiiiii",
     "catseg_linear_attention": "pppp" + "iiii" + "fi",
 }
 # fp32 workspace sizes of the backward entry points (int arguments)
 _WORKSPACE = {"catseg_swin_block_bwd_workspace": 4, "catseg_class_layer_bwd_workspace": 3,
               "catseg_decoder_bwd_workspace": 1}
+# entry points that take each tensor's row stride as an argument
+ROW_STRIDED = frozenset({"catseg_window_attention"})
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _lib = None
@@ -153,6 +155,8 @@ def library() -> ctypes.CDLL:
             lib.catseg_decoder_blocks.restype = ctypes.c_int
             lib.catseg_decoder_scratch_elems.argtypes = []
             lib.catseg_decoder_scratch_elems.restype = ctypes.c_int
+            lib.catseg_window_attention_tensor_cores.argtypes = [ctypes.c_int] * 4
+            lib.catseg_window_attention_tensor_cores.restype = ctypes.c_int
             for name, n in _WORKSPACE.items():
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.c_int] * n
@@ -161,12 +165,21 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def rows_evenly_strided(t) -> bool:
+    """Whether t is contiguous but for its row stride: unit stride in the
+    last dimension, every other dimension packed over the one after it."""
+    return t.dim() >= 2 and t.stride(-1) == 1 and all(
+        t.stride(i) == t.stride(i + 1) * t.size(i + 1) for i in range(t.dim() - 2))
+
+
 def launch(name: str, *args) -> None:
     """Call C entry point ``name`` on the current stream of its tensors' device.
 
-    Tensor arguments pass as device pointers; they must be contiguous and
-    all on one CUDA device (a host pointer would fault inside the kernel).
-    ``None`` passes a null pointer.  Raises on a nonzero ``cudaError_t``."""
+    Tensor arguments pass as device pointers; they must be contiguous (an
+    entry point in ``ROW_STRIDED``, which takes row strides, also takes rows
+    evenly strided) and all on one CUDA device (a host pointer would fault
+    inside the kernel).  ``None`` passes a null pointer.  Raises on a nonzero
+    ``cudaError_t``."""
     import torch
 
     device = None
@@ -176,7 +189,7 @@ def launch(name: str, *args) -> None:
             if not a.is_cuda or (device is not None and a.device != device):
                 raise ValueError(f"{name}: tensors must all be on one CUDA device; got {a.device} "
                                  f"after {device}")
-            if not a.is_contiguous():
+            if not (a.is_contiguous() or (name in ROW_STRIDED and rows_evenly_strided(a))):
                 raise ValueError(f"{name}: tensor arguments must be contiguous")
             device = a.device
             a = a.data_ptr()

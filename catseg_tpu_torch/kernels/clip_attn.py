@@ -3,8 +3,9 @@ plain PyTorch version.
 
 Replaces catseg_tpu/kernels/clip_attn.py:fused_dense_attention (Pallas
 _kernel).  The kernel (csrc/clip_attn.cu) keeps the (S, S) fp32 logits out of
-device memory with an online softmax over 32-key tiles; its note there says
-what bounds it on the card.
+device memory with an online softmax over 64-key tiles: in bf16 on the tensor
+cores (mma.sync, S and P in registers, FlashAttention-2 order), in fp32 on
+CUDA cores in register tiles.  Its note there says what bounds it on the card.
 
 Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
 backward is the reference's plain fp32 recompute (catseg_tpu/kernels/
@@ -43,6 +44,11 @@ def _dense_attention_cuda(q, k, v, heads: int) -> torch.Tensor:
     if not (k.shape == v.shape == q.shape and k.dtype == v.dtype == q.dtype):
         raise ValueError("q, k, v must share shape and dtype")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the kernel reads rows by 16-byte copies (W * itemsize is a multiple of
+    # 16), so each tensor must start 16-byte aligned
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("dense attention kernel reads q, k, v rows in 16-byte pieces: each must start "
+                         f"16-byte aligned; got addresses mod 16 {[t.data_ptr() % 16 for t in (q, k, v)]}")
     out = torch.empty_like(q)
     D = W // heads
     _build.launch("catseg_dense_attention", q, k, v, out, B, S, W, heads, D, D ** -0.5,

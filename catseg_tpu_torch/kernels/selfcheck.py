@@ -7,7 +7,9 @@ T = 256, the count the top-k path hands it) — for the three backward
 kernels of the train step at its shapes (4 images, T = 171, pad_len 256; the
 class layer on the 12x12 pooled grid; 684 decoder slabs), and for the three
 kernels of the aggregator's unfused stages at the serving slab's (window
-attention over its 6000 windows; the ReLU class MLP of
+attention over its 6000 windows, also as ``window_attention@qkv`` on the strided
+views of one qkv projection with no mask and as ``window_attention@w16``
+over 1500 windows of 256 tokens; the ReLU class MLP of
 ``attention_type="full"`` at 10 x 576 positions x 256 padded classes, and
 the GELU Swin MLP at its 864,000 tokens as ``mlp@swin``; linear attention
 over 5760 sequences of 256 classes), or all at small ones, and returns, per
@@ -271,6 +273,27 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
         lambda: F.scaled_dot_product_attention(wheads(qw), wheads(kw), wheads(vw), attn_mask=lib_mask,
                                                scale=32 ** -0.5),
         4.0 * Bw * 144 * 144 * 128, 4 * _nbytes(qw) + _nbytes(mask), mm)
+    # as the unfused Swin block's unshifted half calls it: views of one fused
+    # qkv projection (rows 3C apart), no mask
+    qs, ks, vs = rn(Bw, 144, 384).to(dtype).split(128, dim=-1)
+    out["window_attention@qkv"] = Case(
+        lambda: window_attn.fused_window_attention(qs, ks, vs, None, 4, 32 ** -0.5),
+        lambda: window_attn.window_attention_plain(qs, ks, vs, None, 4, 32 ** -0.5),
+        lambda: F.scaled_dot_product_attention(wheads(qs), wheads(ks), wheads(vs), scale=32 ** -0.5),
+        4.0 * Bw * 144 * 144 * 128, 4 * _nbytes(qw), mm)
+    # window 16 (256 tokens, the most the kernel takes; 32 x 32 grids, 4
+    # windows each): bf16 takes the tensor cores in two 128-key halves
+    Bw16 = 8 if small else 1500
+    q16, k16, v16 = (rn(Bw16, 256, 128).to(dtype) for _ in range(3))
+    mask16 = swin_block.shift_mask(32, 32, 16, 8).to(device)
+    heads16 = lambda t: t.view(Bw16, 256, 4, 32).transpose(1, 2)  # noqa: E731
+    out["window_attention@w16"] = Case(
+        lambda: window_attn.fused_window_attention(q16, k16, v16, mask16, 4, 32 ** -0.5),
+        lambda: window_attn.window_attention_plain(q16, k16, v16, mask16, 4, 32 ** -0.5),
+        lambda: F.scaled_dot_product_attention(heads16(q16), heads16(k16), heads16(v16),
+                                               attn_mask=mask16.to(dtype).repeat(Bw16 // 4, 1, 1)[:, None],
+                                               scale=32 ** -0.5),
+        4.0 * Bw16 * 256 * 256 * 128, 4 * _nbytes(q16) + _nbytes(mask16), mm)
 
     def mlp_case(M, act):
         xm = rn(M, C).to(dtype)

@@ -8,9 +8,14 @@ on chip; its note there says what bounds it on the card.  The reference has
 no shape gate here, so every call goes through the kernel on CUDA.
 
 Arithmetic, in both dtypes as the reference's kernel: fp32 logits scaled
-after the q.k product, the additive fp32 mask, a max-subtracted fp32
-softmax, the probabilities rounded to the input dtype before the fp32 value
-product.
+after the q.k product, the additive fp32 mask (none for an unshifted block:
+``mask=None`` skips the add, bit-equal to a zero mask), a max-subtracted fp32
+softmax, the probabilities normalised, then rounded to the input dtype
+before the fp32 value product (on the bf16 tensor cores, rows of more than
+144 keys take FlashAttention's order: P rounded before it is normalised,
+within the same 2^-5 bound; csrc/window_attn.cu says why).  q, k and v may be views whose rows are
+evenly strided (the unfused Swin block's split of its fused qkv
+projection): the kernel takes each one's row stride, so nothing is copied.
 
 Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
 backward is autograd through the plain version on every device (the
@@ -30,13 +35,15 @@ HEAD_DIMS = (8, 16, 32, 64)
 
 def window_attention_plain(q, k, v, mask, heads: int, scale: float) -> torch.Tensor:
     """softmax(scale * q k^T + mask) v over windows: q/k/v (Bw, N, C) with
-    Bw a multiple of nW; mask (nW, N, N) fp32, window w takes mask[w % nW]."""
+    Bw a multiple of nW; mask (nW, N, N) fp32, window w takes mask[w % nW],
+    or None for zeros (the add is skipped: adding 0.0 is exact)."""
     Bw, N, C = q.shape
     D = C // heads
-    nW = mask.shape[0]
     qh, kh, vh = (t.float().reshape(Bw, N, heads, D).transpose(1, 2) for t in (q, k, v))
     logits = torch.matmul(qh, kh.transpose(-1, -2)) * scale
-    logits = (logits.reshape(Bw // nW, nW, heads, N, N) + mask.float()[None, :, None]).reshape(Bw, heads, N, N)
+    if mask is not None:
+        nW = mask.shape[0]
+        logits = (logits.reshape(Bw // nW, nW, heads, N, N) + mask.float()[None, :, None]).reshape(Bw, heads, N, N)
     attn = torch.softmax(logits, dim=-1).to(q.dtype).float()
     return torch.matmul(attn, vh).to(q.dtype).transpose(1, 2).reshape(Bw, N, C)
 
@@ -47,20 +54,34 @@ def _window_attention_cuda(q, k, v, mask, heads: int, scale: float) -> torch.Ten
         raise TypeError(f"window attention kernel takes fp32 or bf16, got {q.dtype}")
     if not (k.shape == v.shape == q.shape and k.dtype == v.dtype == q.dtype):
         raise ValueError("q, k, v must share shape and dtype")
-    nW = mask.shape[0]
-    if mask.shape != (nW, N, N) or Bw % nW:
-        raise ValueError(f"mask {tuple(mask.shape)} does not fit {Bw} windows of {N} tokens")
+    nW = 1
+    if mask is not None:
+        nW = mask.shape[0]
+        if mask.shape != (nW, N, N) or Bw % nW:
+            raise ValueError(f"mask {tuple(mask.shape)} does not fit {Bw} windows of {N} tokens")
+        mask = mask.float().contiguous()
     if C % heads or C // heads not in HEAD_DIMS or N > MAX_TOKENS:
         raise NotImplementedError(f"window attention kernel takes head dims {HEAD_DIMS} and at most "
                                   f"{MAX_TOKENS} tokens; got C={C}, heads={heads}, N={N}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if any(t.data_ptr() % 32 for t in (q, k, v)):
-        raise ValueError("window attention kernel reads q, k, v in 32-byte tiles: pass aligned tensors")
-    out = torch.empty_like(q)
-    _build.launch("catseg_window_attention", q, k, v, mask.float().contiguous(), out, Bw, N, C, heads, nW,
-                  float(scale), int(q.dtype == torch.bfloat16))
+    # rows may be strided (views of a fused qkv projection); the kernel reads
+    # them by 16-byte copies, so each row must start 16-byte aligned
+    q, k, v = (t if _build.rows_evenly_strided(t) else t.contiguous() for t in (q, k, v))
+    if any(t.stride(1) % 8 or t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("window attention kernel reads q, k, v rows in 16-byte pieces: row strides must be "
+                         f"multiples of 8 elements and rows 16-byte aligned; got strides "
+                         f"{[t.stride(1) for t in (q, k, v)]}")
+    out = torch.empty((Bw, N, C), dtype=q.dtype, device=q.device)
+    _build.launch("catseg_window_attention", q, k, v, mask, out, Bw, N, C, heads, nW,
+                  q.stride(1), k.stride(1), v.stride(1), float(scale), int(q.dtype == torch.bfloat16))
     _build.count("window_attention")
     return out
+
+
+def takes_tensor_cores(N: int, C: int, heads: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel runs this geometry on the tensor-core path (bf16,
+    N % 16 == 0, head dim 16 / 32 / 64, the window's K and V within the
+    current device's shared memory)."""
+    return bool(_build.library().catseg_window_attention_tensor_cores(N, C, heads, int(dtype == torch.bfloat16)))
 
 
 class _WindowAttentionFn(torch.autograd.Function):
@@ -84,6 +105,6 @@ class _WindowAttentionFn(torch.autograd.Function):
 
 def fused_window_attention(q, k, v, mask, heads: int, scale: float) -> torch.Tensor:
     """softmax(scale * q k^T + mask) v over windows; q/k/v (Bw, N, C), mask
-    (nW, N, N) additive fp32 (zeros when unshifted); returns (Bw, N, C) in
-    q's dtype."""
+    (nW, N, N) additive fp32, or None when unshifted (as zeros); returns
+    (Bw, N, C) in q's dtype."""
     return _WindowAttentionFn.apply(q, k, v, mask, heads, scale)

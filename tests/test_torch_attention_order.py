@@ -1,0 +1,168 @@
+"""The rounding order of the two tensor-core attention kernels, on the CPU.
+
+csrc/clip_attn.cu (bf16) runs the FlashAttention-2 order: 64-key tiles, a
+running max, P = exp(s - m_running) rounded to bf16 before the value
+product (unnormalised), and one 1/l at the end, where catseg_tpu's
+reference rounds the normalised P.  csrc/window_attn.cu keeps a window's
+whole logit row in registers and normalises P before rounding it, as the
+reference kernel does; rows longer than 144 keys (window 16) run as two
+128-key halves in the dense kernel's order.  The kernels run only on the
+card; here a plain-PyTorch emulation of each order, kept in this file, is
+held to catseg_tpu at full width, so the order itself is shown to stay
+inside the kernels' stated bounds (chip_smoke [3]): 2^-5 of max(1, |ref|)
+in bf16, 1e-5 in fp32 (there nothing is rounded, only summed in another
+order).
+
+Also on the CPU: the window-attention plain version with ``mask=None`` is
+bit-equal to a zero mask (the unfused Swin block's unshifted half passes
+None), and the wrapper takes the strided views of a fused qkv projection.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from catseg_tpu.core import aggregator as jagg
+from catseg_tpu.kernels import clip_attn as jca
+from catseg_tpu.kernels import window_attn as jwa
+
+from catseg_tpu_torch.kernels import _build
+from catseg_tpu_torch.kernels import window_attn as twa
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+BOUND = {"float32": 1e-5, "bfloat16": 2.0 ** -5}
+
+
+def _inputs(shape, dt, seed):
+    """numpy inputs rounded to dt, as (jax arrays, fp32 torch tensors)."""
+    rng = np.random.RandomState(seed)
+    jdt, tdt = DTYPES[dt]
+    arrs = [rng.randn(*shape).astype(np.float32) for _ in range(3)]
+    return ([jnp.asarray(a, jdt) for a in arrs],
+            [torch.from_numpy(a).to(tdt).float() for a in arrs])
+
+
+def _rounder(dt):
+    tdt = DTYPES[dt][1]
+    return lambda t: t.to(tdt).float()
+
+
+def _heads(t, heads):
+    B, S, W = t.shape
+    return t.reshape(B, S, heads, W // heads).transpose(1, 2)
+
+
+def dense_kernel_order(q, k, v, heads: int, rnd, tile: int = 64):
+    """csrc/clip_attn.cu's order on (B, S, W) fp32 tensors: 64-key tiles,
+    running max m and sum l, O += rnd(exp(s - m)) V, the output O / l
+    rounded by rnd."""
+    B, S, W = q.shape
+    D = W // heads
+    qh, kh, vh = (_heads(t, heads) for t in (q, k, v))
+    m = torch.full((B, heads, S, 1), -math.inf)
+    l = torch.zeros((B, heads, S, 1))
+    o = torch.zeros((B, heads, S, D))
+    for k0 in range(0, S, tile):
+        s = torch.matmul(qh, kh[:, :, k0:k0 + tile].transpose(-1, -2)) * D ** -0.5
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        c = torch.exp(m - mn)
+        p = torch.exp(s - mn)
+        l = l * c + p.sum(-1, keepdim=True)
+        o = o * c + torch.matmul(rnd(p), vh[:, :, k0:k0 + tile])
+        m = mn
+    return rnd(o * (1.0 / l)).transpose(1, 2).reshape(B, S, W)
+
+
+def window_kernel_order(q, k, v, mask, heads: int, scale: float, rnd, max_keys: int = 144):
+    """csrc/window_attn.cu's tensor-core order on (Bw, N, C) fp32 tensors:
+    logits = S * scale + mask; a row of at most 144 keys gets the exact
+    softmax, P = rnd(exp(logit - m) / l), O = P V; a longer row runs in
+    key chunks (16-key multiples, at most 144) with a running max and sum,
+    O rescaled as the max moves, O += rnd(exp(logit - m)) V, then O / l.
+    The output is rounded by rnd."""
+    Bw, N, C = q.shape
+    qh, kh, vh = (_heads(t, heads) for t in (q, k, v))
+    pairs = N // 16
+    nchunk = -(-pairs // (max_keys // 16))
+    per = -(-pairs // nchunk)
+    full = None if mask is None else mask.repeat(Bw // mask.shape[0], 1, 1)[:, None]
+    m = torch.full((Bw, heads, N, 1), -math.inf)
+    l = torch.zeros((Bw, heads, N, 1))
+    o = torch.zeros_like(qh)
+    for a, b in [(16 * per * c, min(N, 16 * per * (c + 1))) for c in range(nchunk)]:
+        s = torch.matmul(qh, kh[:, :, a:b].transpose(-1, -2)) * scale
+        if full is not None:
+            s = s + full[..., a:b]
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        c = torch.exp(m - mn)
+        e = torch.exp(s - mn)
+        l = l * c + e.sum(-1, keepdim=True)
+        m = mn
+        if nchunk == 1:
+            o = torch.matmul(rnd(e * (1.0 / l)), vh[:, :, a:b])
+        else:
+            o = o * c + torch.matmul(rnd(e), vh[:, :, a:b])
+    if nchunk > 1:
+        o = o * (1.0 / l)
+    return rnd(o).transpose(1, 2).reshape(Bw, N, C)
+
+
+def _check(got, want, dt):
+    w = np.asarray(jnp.asarray(want, jnp.float32))
+    g = got.numpy()
+    assert g.shape == w.shape
+    err = float(np.abs(g - w).max())
+    assert err <= BOUND[dt] * max(1.0, float(np.abs(w).max())), err
+    return err
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_dense_order_matches_reference_at_a_clip_layer(dt):
+    """One image of a ViT-B/16 layer at 384^2: S = 577 (a ragged 1-key last
+    tile), 12 heads, W = 768."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs((1, 577, 768), dt, seed=0)
+    want = jca._reference(jq, jk, jv, 12)
+    _check(dense_kernel_order(tq, tk, tv, 12, _rounder(dt)), want, dt)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("win", [12, 16], ids=["N144", "N256-two-chunks"])
+def test_window_order_matches_reference_kernel(dt, win):
+    """8 windows of win^2 tokens x 128 with the shift mask (4 heads, D = 32)
+    against the Pallas kernel in interpret mode, as catseg_tpu's tests run it."""
+    N = win * win
+    (jq, jk, jv), (tq, tk, tv) = _inputs((8, N, 128), dt, seed=win)
+    mask = np.array(jagg._shift_mask(2 * win, 2 * win, win, win // 2))
+    want = jwa.fused_window_attention(jq, jk, jv, jnp.asarray(mask), 4, 32 ** -0.5)
+    got = window_kernel_order(tq, tk, tv, torch.from_numpy(mask), 4, 32 ** -0.5, _rounder(dt))
+    _check(got, want, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_window_plain_no_mask_is_a_zero_mask(dt):
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(8, 144, 128, generator=g).to(dt) for _ in range(3))
+    none = twa.window_attention_plain(q, k, v, None, 4, 32 ** -0.5)
+    zeros = twa.window_attention_plain(q, k, v, torch.zeros(4, 144, 144), 4, 32 ** -0.5)
+    assert torch.equal(none, zeros)
+    assert torch.equal(twa.fused_window_attention(q, k, v, None, 4, 32 ** -0.5), none)
+
+
+def test_window_attention_takes_qkv_views():
+    """The views of one fused projection, rows 3C apart, as the unfused Swin
+    block passes them: equal to the call on contiguous copies, and the
+    launcher's stride rule accepts them (and nothing more irregular)."""
+    g = torch.Generator().manual_seed(4)
+    qkv = torch.randn(2, 4, 144, 3 * 128, generator=g).to(torch.bfloat16)
+    q, k, v = (t.reshape(-1, 144, 128) for t in qkv.split(128, dim=-1))
+    assert not v.is_contiguous() and _build.rows_evenly_strided(v) and v.stride(1) == 384
+    assert not _build.rows_evenly_strided(v.transpose(0, 1))
+    assert not _build.rows_evenly_strided(qkv[:, :2, :, :128].reshape(-1, 144, 128)[::2])
+    mask = torch.from_numpy(np.array(jagg._shift_mask(24, 24, 12, 6)))
+    got = twa.fused_window_attention(q, k, v, mask, 4, 32 ** -0.5)
+    want = twa.fused_window_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask, 4, 32 ** -0.5)
+    assert torch.equal(got, want)

@@ -189,20 +189,123 @@ def test_full_attention_forward_runs_the_mlp_kernel(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_window_attention_takes_window_16(cuda, dtype):
-    """256 tokens per window, the most the kernel takes: bf16 leaves the
-    tensor-core path, whose blocks would overflow shared memory, for the
-    CUDA-core one."""
+    """256 tokens per window, the most the kernel takes: bf16 runs it on the
+    tensor-core path (two 128-key halves, FlashAttention's order), fp32 on
+    CUDA cores."""
     from catseg_tpu_torch.kernels import swin_block, window_attn
 
     g = torch.Generator().manual_seed(5)
     q, k, v = (torch.randn(8, 256, 128, generator=g).to(cuda, dtype) for _ in range(3))
     mask = swin_block.shift_mask(32, 32, 16, 8).to(cuda)
+    assert window_attn.takes_tensor_cores(256, 128, 4, dtype) == (dtype == torch.bfloat16)
     before = _build.LAUNCHES["window_attention"]
     got = window_attn.fused_window_attention(q, k, v, mask, 4, 32 ** -0.5)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["window_attention"] == before + 1
     want = window_attn.window_attention_plain(q, k, v, mask, 4, 32 ** -0.5)
     assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("heads", [12, 16], ids=["W768", "W1024"])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 577])
+def test_dense_attention_at_every_length(cuda, S, heads, dtype):
+    """ViT-B (12 heads) and ViT-L (16) widths at lengths around the 64-key
+    tile and CLIP's 577: the kernel launches, stays within the bound, and
+    two runs are bit-equal."""
+    from catseg_tpu_torch.kernels import clip_attn
+
+    g = torch.Generator().manual_seed(S + heads)
+    q, k, v = (torch.randn(2, S, 64 * heads, generator=g).to(cuda, dtype) for _ in range(3))
+    before = _build.LAUNCHES["dense_attention"]
+    got = clip_attn.fused_dense_attention(q, k, v, heads)
+    again = clip_attn.fused_dense_attention(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["dense_attention"] == before + 2
+    want = clip_attn.dense_attention_plain(q, k, v, heads)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_dense_attention_refuses_misaligned_rows(cuda, dtype):
+    """The kernel reads rows by 16-byte copies: a contiguous view that starts
+    16 bytes into its storage runs and equals a fresh copy; one that starts
+    an element in raises before any launch."""
+    from catseg_tpu_torch.kernels import clip_attn
+
+    n = 2 * 65 * 128
+    step = 16 // torch.tensor([], dtype=dtype).element_size()
+    buf = torch.randn(n + step, generator=torch.Generator().manual_seed(5)).to(cuda, dtype)
+    q = buf[step:].view(2, 65, 128)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 0
+    got = clip_attn.fused_dense_attention(q, q, q, 2)
+    assert torch.equal(got, clip_attn.fused_dense_attention(q.clone(), q.clone(), q.clone(), 2))
+    odd = buf[1:n + 1].view(2, 65, 128)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    before = _build.LAUNCHES["dense_attention"]
+    with pytest.raises(ValueError, match="16-byte"):
+        clip_attn.fused_dense_attention(odd, odd, odd, 2)
+    assert _build.LAUNCHES["dense_attention"] == before
+
+
+def _window_case(cuda, N, D, dtype, seed):
+    from catseg_tpu_torch.kernels import swin_block
+
+    win = int(N ** 0.5)
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(8, N, 128, generator=g).to(cuda, dtype) for _ in range(3))
+    return q, k, v, swin_block.shift_mask(2 * win, 2 * win, win, win // 2).to(cuda), 128 // D
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("N", [144, 256])
+def test_window_attention_masks(cuda, N, D, dtype):
+    """Windows 12 and 16 at head dims 16, 32, 64 (C = 128; bf16 on tensor
+    cores): the shift mask, a zero mask and no mask each launch the kernel
+    within the bound; no mask is bit-equal to the zero mask, and two runs
+    are bit-equal."""
+    from catseg_tpu_torch.kernels import window_attn
+
+    q, k, v, shifted, heads = _window_case(cuda, N, D, dtype, seed=N + D)
+    assert window_attn.takes_tensor_cores(N, 128, heads, dtype) == (dtype == torch.bfloat16)
+    scale = D ** -0.5
+    out = {}
+    for name, mask in (("shifted", shifted), ("zeros", torch.zeros_like(shifted)), ("none", None)):
+        before = _build.LAUNCHES["window_attention"]
+        out[name] = window_attn.fused_window_attention(q, k, v, mask, heads, scale)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["window_attention"] == before + 1, name
+        want = window_attn.window_attention_plain(q, k, v, mask, heads, scale)
+        assert selfcheck.rel_err(out[name], want)[1] <= selfcheck.BOUND[dtype], name
+    assert torch.equal(out["zeros"], out["none"])
+    assert torch.equal(out["shifted"], window_attn.fused_window_attention(q, k, v, shifted, heads, scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("guided", [False, True], ids=["views", "guided"])
+def test_window_attention_takes_qkv_views(cuda, dtype, guided):
+    """The unfused Swin block's q, k, v are views of its fused projection
+    (rows 3C apart; with guidance q and k are fresh tensors, v a view): the
+    kernel reads them in place, equal to the call on contiguous copies, and
+    a row stride off the 16-byte grid raises."""
+    from catseg_tpu_torch.kernels import swin_block, window_attn
+
+    g = torch.Generator().manual_seed(8)
+    qkv = torch.randn(2, 36, 144, 3 * 128, generator=g).to(cuda, dtype)
+    q, k, v = (t.reshape(-1, 144, 128) for t in qkv.split(128, dim=-1))
+    if guided:
+        q, k = q + 0.5, k - 0.5
+    assert v.stride(1) == 384 and not v.is_contiguous()
+    mask = swin_block.shift_mask(24, 24, 12, 6).to(cuda)
+    got = window_attn.fused_window_attention(q, k, v, mask, 4, 32 ** -0.5)
+    want = window_attn.fused_window_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask, 4, 32 ** -0.5)
+    assert torch.equal(got, want)
+    odd = torch.randn(72, 144, 132, generator=g).to(cuda, dtype)[..., :128]
+    with pytest.raises(ValueError, match="16-byte"):
+        window_attn.fused_window_attention(odd, odd, odd, mask, 4, 32 ** -0.5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
