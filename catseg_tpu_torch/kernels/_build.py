@@ -51,6 +51,7 @@ UNFUSED = ("window_attention", "mlp", "linear_attention")
 # C entry points and their argument kinds: "p" pointer, "i" int, "f" float.
 # The stream is always the last argument (a pointer).
 _SIGNATURES = {
+    "catseg_layer_norm": "ppppiifi",
     "catseg_dense_attention": "ppppiiiiifi",
     "catseg_corr_embed": "pppppiiiiii",
     "catseg_swin_block": "pppp" + "p" * 12 + "iiiiiii",
@@ -172,8 +173,9 @@ def rows_evenly_strided(t) -> bool:
         t.stride(i) == t.stride(i + 1) * t.size(i + 1) for i in range(t.dim() - 2))
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry point ``name`` on the current stream of its tensors' device.
+def launch(name: str, *args, lib: ctypes.CDLL | None = None) -> None:
+    """Call C entry point ``name`` (of ``lib``, by default the port's
+    :func:`library`) on the current stream of its tensors' device.
 
     Tensor arguments pass as device pointers; they must be contiguous (an
     entry point in ``ROW_STRIDED``, which takes row strides, also takes rows
@@ -196,7 +198,7 @@ def launch(name: str, *args) -> None:
         cargs.append(a)
     if device is None:
         raise ValueError(f"{name}: no tensor argument")
-    lib = library()
+    lib = lib or library()
     with torch.cuda.device(device):
         err = getattr(lib, name)(*cargs, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

@@ -1,10 +1,14 @@
-"""Row LayerNorm with fp32 statistics: Triton kernel + plain PyTorch version.
+"""Row LayerNorm with fp32 statistics: CUDA kernel + plain PyTorch version.
 
 Replaces catseg_tpu/kernels/layer_norm.py:fused_layer_norm (Pallas _kernel).
-Bound on the card: device-memory bandwidth (one read and one write per
-element, ~5 flops each).  The kernel normalizes BLOCK_M rows per program in
-registers, so the activation crosses device memory exactly twice instead of
-once per upcast / mean / variance / normalize pass.
+The kernel, csrc/layer_norm.cu, is bound by device-memory bytes (one read
+and one write of every element); its note says how it keeps them in
+flight.  Any row count and any row width that is a multiple of 8 (bf16) or
+4 (fp32) up to 4096 / 2048 elements goes in whole, with no padding to a
+power of two (:func:`kernel_takes`).  The reference's TPU tile gate (C a
+multiple of 128, at least 512 rows) is not repeated: a CUDA tensor always
+takes the kernel, or raises for a width it does not take; only a CPU tensor
+takes the plain version.
 
 Variance follows the reference's dtype gate: single-pass E[x^2] - mu^2 when
 the input is bf16, two-pass when it is fp32.  The output keeps the input
@@ -13,19 +17,16 @@ dtype; gamma and beta are applied in fp32.
 Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
 backward is the reference's analytic formula (catseg_tpu/kernels/
 layer_norm.py ``_bwd``: fp32 statistics recomputed from x), plain PyTorch on
-every device, as the reference has no backward kernel.
+every device, as the reference has no backward kernel.  Where no gradient
+is recorded (serving), the kernel is called without the Function, and fp32
+contiguous gamma / beta (the model's parameters) pass without a copy.
 """
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import _build
-
-_MIN_ROWS = 512  # the reference's gate: C % 128 == 0 and at least one 512-row tile
-
 
 def layer_norm_fp32(x32: torch.Tensor, g: torch.Tensor, b: torch.Tensor, fast: bool,
                     eps: float = 1e-5) -> torch.Tensor:
@@ -43,57 +44,35 @@ def layer_norm_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: flo
     return layer_norm_fp32(x.float(), g, b, x.dtype == torch.bfloat16, eps).to(x.dtype)
 
 
-def kernel_applicable(x: torch.Tensor) -> bool:
-    C = x.shape[-1]
-    return C % 128 == 0 and x.numel() // C >= _MIN_ROWS
+def kernel_takes(C: int, dtype: torch.dtype) -> bool:
+    """The row widths the CUDA kernel takes: whole 16-byte vectors, a
+    multiple of 8 up to 4096 in bf16 or of 4 up to 2048 in fp32."""
+    if dtype == torch.bfloat16:
+        return 0 < C <= 4096 and C % 8 == 0
+    return dtype == torch.float32 and 0 < C <= 2048 and C % 4 == 0
 
 
-@functools.lru_cache(maxsize=None)
-def _triton_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def ln_kernel(x_ptr, g_ptr, b_ptr, o_ptr, M, C, eps,
-                  BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr, FAST: tl.constexpr):
-        rows = tl.program_id(0) * BLOCK_M + tl.arange(0, BLOCK_M)
-        cols = tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        mask = (rows[:, None] < M) & cmask[None, :]
-        offs = rows[:, None].to(tl.int64) * C + cols[None, :]
-        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        mean = tl.sum(x, axis=1) / C
-        if FAST:
-            var = tl.sum(x * x, axis=1) / C - mean * mean
-        else:
-            d = tl.where(mask, x - mean[:, None], 0.0)
-            var = tl.sum(d * d, axis=1) / C
-        rstd = 1.0 / tl.sqrt(var + eps)
-        g = tl.load(g_ptr + cols, mask=cmask, other=0.0)
-        b = tl.load(b_ptr + cols, mask=cmask, other=0.0)
-        y = (x - mean[:, None]) * rstd[:, None] * g[None, :] + b[None, :]
-        tl.store(o_ptr + offs, y.to(o_ptr.dtype.element_ty), mask=mask)
-
-    return ln_kernel
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
 
 
 def _layer_norm_cuda(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
-    import triton
-
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"layer_norm kernel takes fp32 or bf16, got {x.dtype}")
     C = x.shape[-1]
-    x2 = x.contiguous().view(-1, C)
-    M = x2.shape[0]
-    out = torch.empty_like(x2)
-    block_c = triton.next_power_of_2(C)
-    block_m = max(1, 4096 // block_c)
-    grid = (triton.cdiv(M, block_m),)
-    _triton_kernel()[grid](x2, g.float().contiguous(), b.float().contiguous(), out, M, C, eps,
-                           BLOCK_M=block_m, BLOCK_C=block_c, FAST=x.dtype == torch.bfloat16,
-                           num_warps=4)
+    if not kernel_takes(C, x.dtype):
+        raise NotImplementedError(f"layer_norm kernel takes rows of a multiple of 8 bf16 (up to 4096) or 4 fp32 "
+                                  f"(up to 2048) elements; got {C} {x.dtype}")
+    x, g, b = x.contiguous(), _f32(g), _f32(b)
+    # rows, gamma and beta are read as 16-byte vectors
+    if any(t.data_ptr() % 16 for t in (x, g, b)):
+        raise ValueError(f"layer_norm kernel reads 16-byte vectors: x, gamma and beta must start 16-byte aligned; "
+                         f"got addresses mod 16 {[t.data_ptr() % 16 for t in (x, g, b)]}")
+    out = torch.empty_like(x)
+    _build.launch("catseg_layer_norm", x, g, b, out, x.numel() // C, C, eps,
+                  int(x.dtype == torch.bfloat16))
     _build.count("layer_norm")
-    return out.view(x.shape)
+    return out
 
 
 def layer_norm_backward(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor, eps: float = 1e-5):
@@ -131,10 +110,8 @@ class _LayerNormFn(torch.autograd.Function):
 
 
 def fused_layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis, fp32 statistics, any leading shape.
-
-    Shapes outside the reference's kernel gate take the plain version on
-    every device, as the reference does."""
-    if not kernel_applicable(x):
-        return layer_norm_plain(x, g, b, eps)
+    """LayerNorm over the last axis, fp32 statistics, any leading shape: the
+    kernel on a CUDA tensor, the plain version on a CPU one."""
+    if x.is_cuda and not (torch.is_grad_enabled() and (x.requires_grad or g.requires_grad or b.requires_grad)):
+        return _layer_norm_cuda(x, g, b, eps)
     return _LayerNormFn.apply(x, g, b, eps)

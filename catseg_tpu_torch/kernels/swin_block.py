@@ -10,9 +10,10 @@ there says what bounds it on the card.  Parameter dicts use the reference's
 ln2_g/b, fc1_w/b, fc2_w/b) so the two packages are called alike.
 
 bf16 takes the reference's fast forms (tanh GELU, single-pass LN variance,
-softmax clamped at 60 with no max pass); fp32 takes exact erf GELU, two-pass
-LN and a max-subtracted softmax.  One predicate, the activation dtype, picks
-the forms in the kernel and in the plain version.
+softmax clamped at 60 with no max pass) on the tensor cores, its weights
+handed in mma fragment order (:func:`pack_mma_b`); fp32 takes exact erf
+GELU, two-pass LN and a max-subtracted softmax.  One predicate, the
+activation dtype, picks the forms in the kernel and in the plain version.
 
 Gradients: each block is a ``torch.autograd.Function``.  Its backward on
 CUDA is csrc/swin_block_bwd.cu (replaces the reference's ``_bwd`` /
@@ -132,20 +133,44 @@ def _check_cuda(x, heads: int, win: int) -> None:
                                   f"got C={C}, heads={heads}, window={win}, grid {H}x{W}")
 
 
-def _swin_block_cuda(x, qg, kg, p: dict, shift: int) -> torch.Tensor:
+def pack_mma_b(w: torch.Tensor) -> torch.Tensor:
+    """A (K, N) weight as the bf16 kernel reads its mma.m16n8k16 B fragments:
+    for n8 tile j and k-pair p (rows 32p .. 32p + 31), lane l = 4g + t holds
+    16 bytes, W[32p + 8r + 2t + h, 8j + g] for r = 0..3, h = 0..1 (b0, b1
+    of k-step 2p, then of 2p + 1), at element ((j K/32 + p) 32 + l) 8; a
+    warp reads a tile's pair as 512 contiguous bytes."""
+    K, N = w.shape
+    return w.reshape(K // 32, 4, 4, 2, N // 8, 8).permute(4, 0, 5, 2, 1, 3).contiguous()
+
+
+def block_args(x, qg, kg, p: dict, shift: int) -> tuple[torch.Tensor, tuple]:
+    """(out, the arguments of C entry point ``catseg_swin_block``) for one
+    block on CUDA tensors: weights cast and packed as the kernel takes them."""
     B, T, H, W, C = x.shape
     dt = x.dtype
     # LN parameters fp32; the rest rounded through the compute dtype, weight
-    # matrices kept in it (bf16 feeds the tensor cores), biases as fp32
+    # matrices kept in it (bf16 feeds the tensor cores, in fragment order),
+    # biases as fp32
+    pack = pack_mma_b if dt == torch.bfloat16 else torch.Tensor.contiguous
     w = {k: (p[k].float() if k.startswith("ln") else
-             p[k].to(dt) if k.endswith("_w") else p[k].to(dt).float()).contiguous() for k in _KEYS}
+             pack(p[k].to(dt)) if k.endswith("_w") else p[k].to(dt).float()).contiguous() for k in _KEYS}
     x = x.contiguous()
     out = torch.empty_like(x)
     has_guid = qg is not None
     if has_guid:
         qg, kg = qg.to(dt).contiguous(), kg.to(dt).contiguous()
-    _build.launch("catseg_swin_block", x, out, qg, kg, *(w[k] for k in _KEYS), B, T, H, W, shift,
-                  int(has_guid), int(dt == torch.bfloat16))
+    # the bf16 kernel gathers token rows by 16-byte cp.async
+    rows = (x, qg, kg) if has_guid else (x,)
+    if any(t.data_ptr() % 16 for t in rows):
+        raise ValueError(f"swin kernel reads token rows by 16-byte copies: x, qg and kg must start 16-byte "
+                         f"aligned; got addresses mod 16 {[t.data_ptr() % 16 for t in rows]}")
+    return out, (x, out, qg, kg, *(w[k] for k in _KEYS), B, T, H, W, shift, int(has_guid),
+                 int(dt == torch.bfloat16))
+
+
+def _swin_block_cuda(x, qg, kg, p: dict, shift: int) -> torch.Tensor:
+    out, args = block_args(x, qg, kg, p, shift)
+    _build.launch("catseg_swin_block", *args)
     _build.count("swin_block")
     return out
 

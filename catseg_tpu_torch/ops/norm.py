@@ -9,8 +9,8 @@ from ..kernels.layer_norm import fused_layer_norm
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis; the fused kernel where the reference's
-    gate holds (C % 128 == 0, >= 512 rows), its plain version elsewhere."""
+    """LayerNorm over the last axis: the kernel on a CUDA tensor, its plain
+    version on a CPU one."""
     return fused_layer_norm(x, scale, bias, eps)
 
 

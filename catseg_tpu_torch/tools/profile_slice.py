@@ -40,7 +40,7 @@ CATEGORIES = (
     ("decoder kernel", r"decoder_kernel"),
     ("dense-attention kernel", r"dense_attention"),
     ("corr-embed kernel", r"corr_embed"),
-    ("LayerNorm kernel", r"^ln_kernel"),
+    ("LayerNorm kernel", r"layer_norm_kernel"),
     ("cuDNN convolutions + layout transposes", r"conv|cudnn|xmma|nchw|nhwc|implicit|Kernel2?D?_?Transpose"),
     ("matmuls (cuBLAS / CUTLASS)", r"gemm|cutlass|cublas|sm90_"),
     ("resizes", r"upsample|interp|bilinear|bicubic"),

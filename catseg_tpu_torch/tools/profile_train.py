@@ -10,8 +10,8 @@ step measures:
 - the step (host clock ending in ``torch.cuda.synchronize()``, median of
   ``REPS``);
 - device time per kernel entry point in one step: every CUDA launch
-  (``_build.launch``) and every Triton LayerNorm call is bracketed by CUDA
-  events on its stream; the rest of the step (CLIP matmuls and the text
+  (``_build.launch``, the LayerNorm's too) is bracketed by CUDA events on
+  its stream; the rest of the step (CLIP matmuls and the text
   tower's attention in plain PyTorch, the BCE, casts, the optimizer) is the
   step minus their sum;
 - one step under ``torch.profiler``: the device's busy time (the union of
@@ -61,7 +61,7 @@ def main(argv=None) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from ..configs import class_names, vitb384
-    from ..kernels import _build, layer_norm
+    from ..kernels import _build
     from ..train.loop import class_tokens, init_train_state, make_train_step
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -86,14 +86,13 @@ def main(argv=None) -> dict:
     step_ms = statistics.median(secs) * 1e3
 
     timings: list = []
-    launch, ln = _build.launch, layer_norm._layer_norm_cuda
+    launch = _build.launch
     _build.launch = lambda name, *a, _f=launch: _bracket(timings, name.removeprefix("catseg_"), _f)(name, *a)
-    layer_norm._layer_norm_cuda = _bracket(timings, "layer_norm", ln)
     try:
         run()
         torch.cuda.synchronize()
     finally:
-        _build.launch, layer_norm._layer_norm_cuda = launch, ln
+        _build.launch = launch
     per: dict[str, list] = {}
     for name, s, e in timings:
         per.setdefault(name, []).append(s.elapsed_time(e))

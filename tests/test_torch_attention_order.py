@@ -1,4 +1,4 @@
-"""The rounding order of the two tensor-core attention kernels, on the CPU.
+"""The rounding order of the tensor-core attention kernels, on the CPU.
 
 csrc/clip_attn.cu (bf16) runs the FlashAttention-2 order: 64-key tiles, a
 running max, P = exp(s - m_running) rounded to bf16 before the value
@@ -12,6 +12,13 @@ held to catseg_tpu at full width, so the order itself is shown to stay
 inside the kernels' stated bounds (chip_smoke [3]): 2^-5 of max(1, |ref|)
 in bf16, 1e-5 in fp32 (there nothing is rounded, only summed in another
 order).
+
+csrc/swin_block.cu's bf16 kernel keeps the reference's rounding points but
+exponentiates on the SFU, exp(y) as 2^(y log2 e), and normalises P by one
+reciprocal a row: that order, patched into the port's plain pair, is held
+to catseg_tpu's bf16 ``_reference_pair`` within 2^-5.  Its weights reach
+it in mma fragment order (``pack_mma_b``): the layout is checked element
+by element and by emulating the kernel's fragment products.
 
 Also on the CPU: the window-attention plain version with ``mask=None`` is
 bit-equal to a zero mask (the unfused Swin block's unshifted half passes
@@ -28,9 +35,11 @@ import jax.numpy as jnp
 
 from catseg_tpu.core import aggregator as jagg
 from catseg_tpu.kernels import clip_attn as jca
+from catseg_tpu.kernels import swin_block as jsw
 from catseg_tpu.kernels import window_attn as jwa
 
 from catseg_tpu_torch.kernels import _build
+from catseg_tpu_torch.kernels import swin_block as tsw
 from catseg_tpu_torch.kernels import window_attn as twa
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -166,3 +175,78 @@ def test_window_attention_takes_qkv_views():
     got = twa.fused_window_attention(q, k, v, mask, 4, 32 ** -0.5)
     want = twa.fused_window_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask, 4, 32 ** -0.5)
     assert torch.equal(got, want)
+
+
+def _swin_params(rng, C=128):
+    def u(*shape, scale=None):
+        scale = scale or shape[0] ** -0.5
+        return rng.uniform(-scale, scale, shape).astype(np.float32)
+
+    return {"ln1_g": 1 + u(C, scale=0.1), "ln1_b": u(C, scale=0.1), "qkv_w": u(C, 3 * C),
+            "qkv_b": u(3 * C, scale=0.1), "proj_w": u(C, C), "proj_b": u(C, scale=0.1),
+            "ln2_g": 1 + u(C, scale=0.1), "ln2_b": u(C, scale=0.1), "fc1_w": u(C, 4 * C),
+            "fc1_b": u(4 * C, scale=0.1), "fc2_w": u(4 * C, C), "fc2_b": u(C, scale=0.1)}
+
+
+def swin_kernel_softmax(logits, fast: bool):
+    """csrc/swin_block.cu's bf16 softmax: e = 2^(min(logit, 60) log2 e), no
+    max pass, P = e * (1 / sum) (rounded to bf16 by the caller)."""
+    assert fast
+    e = torch.exp2(logits.clamp_max(60.0) * (1.0 / math.log(2.0)))
+    return e * (1.0 / e.sum(-1, keepdim=True))
+
+
+@pytest.mark.parametrize("guided", [False, True], ids=["plain", "guided"])
+def test_swin_order_matches_reference_pair(monkeypatch, guided):
+    """Both blocks of a pair (shift 0, then 6 with the region mask) on a
+    24 x 24 grid, T = 2, bf16, against catseg_tpu's _reference_pair."""
+    rng = np.random.RandomState(11)
+    x = rng.randn(1, 2, 24, 24, 128).astype(np.float32)
+    guid4 = tuple(rng.randn(1, 24, 24, 128).astype(np.float32) * 0.5 for _ in range(4))
+    p1, p2 = _swin_params(rng), _swin_params(rng)
+    mask = jnp.asarray(np.array(jagg._shift_mask(24, 24, 12, 6)))
+    jb = lambda a: jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+    tb = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    jp = lambda p: {k: jnp.asarray(v) for k, v in p.items()}  # noqa: E731
+    tp = lambda p: {k: torch.from_numpy(v) for k, v in p.items()}  # noqa: E731
+    want = jsw._reference_pair(jb(x), tuple(map(jb, guid4)) if guided else None, jp(p1), jp(p2), mask, 4, 12)
+    monkeypatch.setattr(tsw, "_softmax_rows", swin_kernel_softmax)
+    got = tsw.swin_pair_plain(tb(x), tuple(map(tb, guid4)) if guided else None, tp(p1), tp(p2), 4, 12)
+    _check(got.float(), want, "bfloat16")
+
+
+def test_swin_weight_packing_is_the_mma_fragment_layout():
+    """pack_mma_b against the m16n8k16 fragment layout of csrc/attn_common.cuh:
+    element by element, and by emulating the kernel's gemm (A fragments as
+    ldmatrix gives them, B from the packed 16 bytes of each lane, C rows g
+    and g + 8) on one 16-row strip of a (16, 64) x (64, 24) product."""
+    rng = np.random.RandomState(5)
+    K, N = 64, 24
+    w = rng.randn(K, N).astype(np.float32)
+    packed = tsw.pack_mma_b(torch.from_numpy(w)).reshape(-1, 8).numpy()
+    kp = K // 32
+    for j in range(N // 8):
+        for p in range(kp):
+            for lane in range(32):
+                g, t = lane // 4, lane % 4
+                for r in range(4):
+                    for h in range(2):
+                        assert packed[(j * kp + p) * 32 + lane, 2 * r + h] == w[32 * p + 8 * r + 2 * t + h, 8 * j + g]
+    # one 16-row strip through the kernel's loop: per k-step, the tiles the
+    # mma sees are assembled from each lane's fragments as the layout places them
+    a = rng.randn(16, K).astype(np.float32)
+    c = np.zeros((16, N), np.float32)
+    for j in range(N // 8):
+        for p in range(kp):
+            for hstep in range(2):
+                ks = 2 * p + hstep
+                a_tile, b_tile = np.zeros((16, 16), np.float32), np.zeros((16, 8), np.float32)
+                for lane in range(32):
+                    g, t = lane // 4, lane % 4
+                    for dr, dk in ((0, 0), (8, 0), (0, 8), (8, 8)):   # a0..a3
+                        a_tile[g + dr, 2 * t + dk:2 * t + dk + 2] = a[g + dr, 16 * ks + 2 * t + dk:16 * ks + 2 * t + dk + 2]
+                    frag = packed[(j * kp + p) * 32 + lane, 4 * hstep:4 * hstep + 4]
+                    b_tile[2 * t:2 * t + 2, g] = frag[:2]        # b0
+                    b_tile[2 * t + 8:2 * t + 10, g] = frag[2:]   # b1
+                c[:, 8 * j:8 * j + 8] += a_tile @ b_tile
+    np.testing.assert_allclose(c, a @ w, rtol=1e-5, atol=1e-4)

@@ -361,3 +361,131 @@ def test_small_geometry_runs_the_unfused_kernels(cuda, attn):
     assert {"window_attention", "mlp"} <= launched and not launched & {"swin_block", "class_layer"}, launched
     assert ("linear_attention" in launched) == (attn == "linear"), launched
     torch.testing.assert_close(got.cpu(), want, atol=5e-4, rtol=1e-3)
+
+
+def _swin_params(g, cuda, C=128):
+    def u(*shape, bound=None):
+        bound = shape[0] ** -0.5 if bound is None else bound
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * bound).to(cuda)
+
+    return {"ln1_g": 1 + u(C, bound=0.1), "ln1_b": u(C, bound=0.1), "qkv_w": u(C, 3 * C),
+            "qkv_b": u(3 * C, bound=0.1), "proj_w": u(C, C), "proj_b": u(C, bound=0.1),
+            "ln2_g": 1 + u(C, bound=0.1), "ln2_b": u(C, bound=0.1), "fc1_w": u(C, 4 * C),
+            "fc1_b": u(4 * C, bound=0.1), "fc2_w": u(4 * C, C), "fc2_b": u(C, bound=0.1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("guided", [False, True], ids=["plain", "guided"])
+@pytest.mark.parametrize("shift", [0, 6])
+@pytest.mark.parametrize("grid", [(24, 24), (24, 48)], ids=["24x24", "24x48"])
+@pytest.mark.parametrize("T", [1, 5])
+def test_swin_block_geometries(cuda, T, grid, shift, guided, dtype):
+    """One Swin block (bf16: the tensor-core kernel; fp32: CUDA cores) on 2
+    images x T classes over a 24 x 24 or a 24 x 48 grid, at shift 0 and 6,
+    with and without guidance, against the plain block: 2^-5 (bf16) and
+    1e-4 (fp32) of max(1, |plain|); the pair once too.  Two runs are
+    bit-equal."""
+    from catseg_tpu_torch.kernels import swin_block
+
+    g = torch.Generator().manual_seed(T * 100 + grid[1] + shift)
+    x = torch.randn(2, T, *grid, 128, generator=g).to(cuda, dtype)
+    qg, kg = (None, None) if not guided else (
+        (torch.randn(2, *grid, 128, generator=g) * 0.5).to(cuda, dtype) for _ in range(2))
+    p = _swin_params(g, cuda)
+    before = _build.LAUNCHES["swin_block"]
+    got = swin_block._swin_block_cuda(x, qg, kg, p, shift)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["swin_block"] == before + 1
+    want = swin_block.swin_block_plain(x, qg, kg, p, 4, 12, shift)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype]
+    assert torch.equal(got, swin_block._swin_block_cuda(x, qg, kg, p, shift))
+    if shift == 6:
+        guid4 = None if not guided else (qg, kg, kg, qg)
+        p1 = _swin_params(g, cuda)
+        pair = swin_block.fused_swin_pair(x, guid4, p1, p, 4, 12)
+        assert selfcheck.rel_err(pair, swin_block.swin_pair_plain(x, guid4, p1, p, 4, 12))[1] <= selfcheck.BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("C", [512, 768, 1024])
+def test_layer_norm_widths(cuda, C, dtype):
+    """The text tower's, ViT-B's and ViT-L's row widths, 5771 rows (a
+    grid-stride walk whose last step is ragged: 8 rows a block per step),
+    against the plain LayerNorm within the bound; the launch count rises, in
+    serving (no gradient) and under autograd alike."""
+    from catseg_tpu_torch.kernels import layer_norm
+
+    g = torch.Generator().manual_seed(C)
+    x = (torch.randn(5771, C, generator=g) * 2 + 0.5).to(cuda, dtype)
+    w, b = (1 + torch.randn(C, generator=g) * 0.1).to(cuda), (torch.randn(C, generator=g) * 0.1).to(cuda)
+    want = layer_norm.layer_norm_plain(x, w, b)
+    for grad in (False, True):
+        before = _build.LAUNCHES["layer_norm"]
+        with torch.set_grad_enabled(grad):
+            got = layer_norm.fused_layer_norm(x.requires_grad_(grad), w, b)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["layer_norm"] == before + 1
+        assert got.dtype == dtype and got.shape == x.shape
+        assert selfcheck.rel_err(got.detach(), want)[1] <= selfcheck.BOUND[dtype], grad
+        x = x.detach()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(7, 768), (511, 128), (600, 520), (1, 96)], ids=lambda s: "x".join(map(str, s)))
+def test_layer_norm_launches_outside_the_reference_gate(cuda, shape, dtype):
+    """Fewer than 512 rows, or a width not a multiple of 128: the reference's
+    TPU gate would take its plain form; on the card the kernel launches and
+    matches the plain LayerNorm within the bound."""
+    from catseg_tpu_torch.kernels import layer_norm
+
+    g = torch.Generator().manual_seed(shape[0] + shape[1])
+    x = (torch.randn(*shape, generator=g) * 2 + 0.5).to(cuda, dtype)
+    w, b = (1 + torch.randn(shape[1], generator=g) * 0.1).to(cuda), (torch.randn(shape[1], generator=g) * 0.1).to(cuda)
+    before = _build.LAUNCHES["layer_norm"]
+    got = layer_norm.fused_layer_norm(x, w, b)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["layer_norm"] == before + 1
+    assert selfcheck.rel_err(got, layer_norm.layer_norm_plain(x, w, b))[1] <= selfcheck.BOUND[dtype]
+
+
+def test_layer_norm_refuses_what_it_cannot_take(cuda):
+    """A width that is no whole number of 16-byte vectors, and rows that
+    start off a 16-byte boundary, raise before any launch; there is no
+    plain fallback on the card."""
+    from catseg_tpu_torch.kernels import layer_norm
+
+    w, b = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
+    before = _build.LAUNCHES["layer_norm"]
+    with pytest.raises(NotImplementedError):
+        layer_norm.fused_layer_norm(torch.randn(64, 6, device=cuda, dtype=torch.bfloat16), w[:6], b[:6])
+    buf = torch.randn(8 * 768 + 8, device=cuda, dtype=torch.bfloat16)
+    odd = buf[1:8 * 768 + 1].view(8, 768)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        layer_norm.fused_layer_norm(odd, w, b)
+    assert _build.LAUNCHES["layer_norm"] == before
+    ok = buf[8:].view(8, 768)
+    assert torch.equal(layer_norm.fused_layer_norm(ok, w, b), layer_norm.fused_layer_norm(ok.clone(), w, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_swin_block_refuses_misaligned_rows(cuda, dtype):
+    """The bf16 kernel gathers token rows by 16-byte copies: an x or a
+    guidance view that starts one element into its storage raises before
+    any launch (in both dtypes, one check)."""
+    from catseg_tpu_torch.kernels import swin_block
+
+    g = torch.Generator().manual_seed(11)
+    n = 24 * 24 * 128
+    buf = torch.randn(n + 1, generator=g).to(cuda, dtype)
+    odd = buf[1:].view(1, 1, 24, 24, 128)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    good = buf[:n].view(1, 1, 24, 24, 128)
+    gd = good[:, 0]
+    p = _swin_params(g, cuda)
+    before = _build.LAUNCHES["swin_block"]
+    for x, qg, kg in ((odd, None, None), (good, odd[:, 0], gd), (good, gd, odd[:, 0])):
+        with pytest.raises(ValueError, match="16-byte"):
+            swin_block._swin_block_cuda(x, qg, kg, p, 0)
+    assert _build.LAUNCHES["swin_block"] == before

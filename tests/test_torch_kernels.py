@@ -65,16 +65,26 @@ def test_layer_norm_matches_pallas(dt):
     jx, tx = _pair(x, dt)
     want = jln.fused_layer_norm(jx, jnp.asarray(g), jnp.asarray(b))
     got = tln.fused_layer_norm(tx, torch.from_numpy(g), torch.from_numpy(b))
-    assert got.dtype == DTYPES[dt][1] and tln.kernel_applicable(tx)
+    assert got.dtype == DTYPES[dt][1] and tln.kernel_takes(tx.shape[-1], tx.dtype)
     mx, _ = _err(got, want)
     # bf16: one ulp of |y| <= ~8 is 2^-5
     assert mx <= (1e-5 if dt == "float32" else 2 ** -5), mx
 
 
 def test_layer_norm_gate_mirrors_reference():
-    assert not tln.kernel_applicable(torch.zeros(511, 128))
-    assert not tln.kernel_applicable(torch.zeros(600, 96))
-    assert tln.kernel_applicable(torch.zeros(2, 300, 768))
+    """Outside the reference's TPU gate (C % 128, >= 512 rows) the reference
+    takes its XLA form; the port's CUDA kernel takes those shapes too (no
+    gate repeated), and on the CPU the port equals the reference there."""
+    rng = np.random.RandomState(2)
+    for dt, shape in ((dt, s) for dt in DTYPES for s in ((511, 128), (600, 96), (7, 520))):
+        x = rng.randn(*shape).astype(np.float32) * 2 + 0.5
+        g, b = rng.randn(shape[-1]).astype(np.float32), rng.randn(shape[-1]).astype(np.float32)
+        jx, tx = _pair(x, dt)
+        assert tln.kernel_takes(shape[-1], tx.dtype)
+        got = tln.fused_layer_norm(tx, torch.from_numpy(g), torch.from_numpy(b))
+        want = jln.fused_layer_norm(jx, jnp.asarray(g), jnp.asarray(b))
+        assert _err(got, want)[0] <= (1e-5 if dt == "float32" else 2 ** -5), (dt, shape)
+    assert not tln.kernel_takes(6, torch.bfloat16) and not tln.kernel_takes(4100, torch.float32)
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
