@@ -18,6 +18,8 @@
 
 namespace catseg {
 
+using bf16 = __nv_bfloat16;
+
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -93,6 +95,44 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int n>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
+// ---- bf16 tiles in shared memory for the mma.sync products (swin_block.cu,
+// class_layer.cu): rows of RC 16-byte chunks, XOR-swizzled by the row's low
+// 3 bits, so the 8 row addresses of an ldmatrix at one chunk index hit 8
+// distinct bank groups ----
+
+// element offset of (row, 16-byte chunk) in a swizzled tile of RC chunks a row
+template <int RC>
+__device__ __forceinline__ int sw(int row, int chunk) {
+  return row * RC * 8 + ((chunk ^ (row & 7)) << 3);
+}
+
+template <int RC>
+__device__ __forceinline__ bf16* at(bf16* tile, int row, int col) {
+  return tile + sw<RC>(row, col >> 3) + (col & 7);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void store_bf16x2(bf16* p, float lo, float hi) {
+  *reinterpret_cast<unsigned*>(p) = pack_bf16(lo, hi);
+}
+
+// A fragment of rows 16 strip .. + 15, columns 16 ks .. + 15
+template <int RC>
+__device__ __forceinline__ void load_a(unsigned (&a)[4], const bf16* tile, int strip, int ks, int lane) {
+  ldmatrix_x4(a, tile + sw<RC>(16 * strip + (lane & 7) + ((lane >> 3) & 1) * 8, 2 * ks + (lane >> 4)));
+}
+
+template <int MS, int NT>
+__device__ __forceinline__ void zero(float (&acc)[MS][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MS; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
 }
 
 }  // namespace catseg

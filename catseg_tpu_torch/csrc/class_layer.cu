@@ -10,20 +10,31 @@
 // attention terms, so pad rows are never materialized.
 //
 // Per head: K = elu(k)+1 and V/Tp -> the 32x32 KV block and the K sum (plus
-// pad terms) in shared memory -> Q = elu(q)+1 -> out = Q.KV * Tp / (Q.Ksum +
-// 1e-6).  q and k stay fp32 through the guidance add and elu+1, as the
-// reference spec does.  Then residual -> LN2 -> ReLU MLP -> residual.
+// pad terms) -> Q = elu(q)+1 -> out = Q.KV * Tp / (Q.Ksum + 1e-6).  q and k
+// stay fp32 through the guidance add and elu+1, and the linear attention is
+// fp32, as the reference spec does.  Then residual -> LN2 -> ReLU MLP ->
+// residual.  Both paths take T <= 256 (pad_len, the count the top-k path
+// hands over).
 //
-// bf16 (the serving dtype) runs the qkv and MLP products on tensor cores
-// (wmma bf16 -> fp32; rows padded to 16); fp32 runs CUDA-core FMAs and stays
-// the oracle-parity path.  Both take T <= 256 (pad_len, the count the top-k
-// path hands over): bf16 runs the MLP in passes of at most 128 rows so its
-// fc2 accumulators stay in registers; fp32 writes seq = x + attention straight
-// to out and accumulates the fc2 chunks there, so shared memory holds one
-// (T, C) buffer and the per-head rows.
+// bf16 (the serving dtype) runs on mma.sync tensor cores (its note below).
+// Its work at T = 150 is 29 M multiply-adds a position on the tensor cores
+// (qkv, fc1, fc2) and 1.3 M fp32 ones in the linear attention: 0.33 ms for
+// the 5760 positions of the serving slab at the bf16 peak; it takes ~5 ms
+// on an H100 (80GB HBM3, 700 W), one 16-warp CTA an SM.  A position's work
+// is small and serial (LN -> 4 x (k|v, KV, q, out) -> LN -> 4 x (fc1, fc2)),
+// 28 barriers, and tools/class_phases.py's clocks spread its time over all
+// the phases: k|v 24%, fc1 17%, KV 14%, q 13%, attention out 12%, fc2 11%,
+// loads, LayerNorms and stores 10%; every product phase runs at 4-21x its
+// tensor-core cycles, so issue and latency inside each phase, not the
+// tensor cores or device memory (the activation crosses it once), set the
+// time.  Loading every weight fragment of a product before its first mma
+// (one L2 round trip a task) did not help: it spilled and ran 14% slower.
 //
-// Bound on the card: the qkv / MLP products (~0.18 M multiply-adds per class
-// row) and one CTA per SM; the activation is read and written once.
+// fp32 runs CUDA-core FMAs and stays the oracle-parity path: one 8-warp CTA
+// an SM, seq = x + attention written straight to out and the fc2 chunks
+// accumulated there, so shared memory holds one (T, C) buffer and the
+// per-head rows.
+#include "attn_common.cuh"
 #include "common.cuh"
 
 using namespace catseg;
@@ -32,9 +43,6 @@ namespace {
 
 constexpr int kC = 128, kHeads = 4, kD = 32, kDP = kD + 1, kHid = 512, kHC = 64;
 constexpr int kThreads = 256, kWarps = kThreads / 32;
-constexpr int kLdb = kC + 8;      // bf16 row stride of tensor-core operands (16-byte skew)
-constexpr int kHCt = 128;         // tensor-core MLP hidden chunk
-constexpr int kPassTiles = 8;     // tensor-core MLP: 16-row tiles per pass
 constexpr int kMaxT = 256;        // classes per position (pad_len)
 constexpr size_t kSmemLimit = 232448;
 
@@ -42,30 +50,11 @@ struct ClassParams {
   const float *ln1_g, *ln1_b, *qkv_w, *qkv_b, *ln2_g, *ln2_b, *m1_w, *m1_b, *m2_w, *m2_b;
 };
 
-struct ClassParamsTC {
-  const float *ln1_g, *ln1_b;
-  const bf16* qkv_w;
-  const float *qkv_b, *ln2_g, *ln2_b;
-  const bf16* m1_w;
-  const float* m1_b;
-  const bf16* m2_w;
-  const float* m2_b;
-};
-
 __device__ __forceinline__ float elu1(float v) { return v > 0.f ? v + 1.f : expf(fminf(v, 0.f)); }
 
 constexpr size_t smem_bytes(int nT) {
   return (size_t)(nT * kC + 2 * nT * kDP + kD * kDP + kD + nT) * sizeof(float);
 }
-
-constexpr int padded(int nT) { return (nT + 15) / 16 * 16; }
-
-constexpr size_t smem_bytes_tc(int nT) {
-  return (size_t)(padded(nT) + kPassTiles * 16) * kLdb * sizeof(bf16)
-         + (size_t)(2 * padded(nT) * kDP + kD * kDP + kD + padded(nT)) * sizeof(float)
-         + (size_t)kWarps * 256 * sizeof(float);
-}
-static_assert(smem_bytes(kMaxT) <= kSmemLimit && smem_bytes_tc(kMaxT) <= kSmemLimit, "shared memory at T = 256");
 
 // KV block (D, DP) and K sum (D) of head hq from K (elu+1) and V/Tp rows
 // (nT, DP), plus the padding rows' constant terms.
@@ -175,123 +164,394 @@ class_layer_kernel(const float* x, float* out, const float* qg, const float* kg,
   for (int i = tid; i < nT * kC; i += blockDim.x) out[row(i / kC) + i % kC] += p.m2_b[i % kC];
 }
 
-// bf16 layer: tensor-core qkv / MLP products (mm_tc) on rows padded to a
-// multiple of 16 with zeros; the MLP runs in passes of kPassTiles row tiles,
-// whose fc2 accumulators stay in registers across the 128-wide hidden chunks
-// (warp w owns output column tile w).
-__global__ void __launch_bounds__(kThreads, 1)
-class_layer_tc_kernel(const bf16* x, bf16* out, const bf16* qg, const bf16* kg,
-                      const float* __restrict__ pad_kv, const float* __restrict__ pad_ksum, ClassParamsTC p,
-                      int nT, int HW, int has_guid, float Tp) {
-  namespace wm = nvcuda::wmma;
-  using T = bf16;
-  static_assert(kC / 16 == kWarps, "one fc2 output column tile per warp");
-  extern __shared__ __align__(128) unsigned char smraw[];
-  const int tp = (nT + 15) / 16 * 16, mt = tp / 16;
-  bf16* Ya = reinterpret_cast<bf16*>(smraw);  // (tp, kLdb): LN1 out, then LN2 out; pad rows 0
-  bf16* Hc = Ya + tp * kLdb;                  // (kPassTiles * 16, kLdb): MLP hidden chunk of a pass
-  float* Kh = reinterpret_cast<float*>(Hc + kPassTiles * 16 * kLdb);
-  float* Vh = Kh + tp * kDP;
-  float* KV = Vh + tp * kDP;
-  float* ks = KV + kD * kDP;
-  float* z = ks + kD;
-  float* stage = z + tp;
-  const int pos = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  auto row = [&](int t) { return ((size_t)(b * nT + t) * HW + pos) * kC; };
-  const size_t gb = (size_t)b * nT * kC;
+// ---- bf16 layer on the tensor cores: one 16-warp CTA per (position, image) ----
+//
+// Shared memory, tp = T rounded up to 16 rows:
+//   Xs  (tp, C) bf16  x, by one 16-byte cp.async a chunk; then seq = x +
+//       attention, a head's 32 columns at a time; then the layer's output
+//   Ys  (tp, C) bf16  LN1 out, then LN2 out (rows >= T stay 0)
+//   Ks, Vs (tp, kFS) fp32  K and V / Tp of one head; Q of the head then
+//       takes Ks.  Together they hold the MLP's (tp, 128) hidden chunk.
+//   KV (32, 32), ks (32) fp32  the head's KV block and K sum
+// the bf16 tiles swizzled as in attn_common.cuh: 832 bytes a row, 137 KB at
+// T = 150, 217 KB at T = 256.  Every product takes its A fragments by
+// ldmatrix from Ys (or the hidden chunk) and its B fragments from weights
+// packed in mma fragment order (kernels/swin_block.py pack_mma_b), 16 bytes
+// a lane straight from L2 into registers; a warp's task is one 16-column
+// block over a group of at most kG row strips, so a B fragment feeds up to
+// kG mma.  Epilogues run on the fp32 accumulators in registers.
+//
+// Per head: k | v (4 column blocks) -> K, V / Tp fp32; KV = K^T V and the K
+// sum by register-tiled FMAs (a thread owns a 4x4 block of KV over every
+// 8th row, the 8 row phases summed by a fixed butterfly of shuffles: no
+// atomics, the same order every run); q (2 blocks) -> Q fp32 over K; then a
+// thread a (row, 8 columns) forms Q.KV, z = Q.Ksum and seq = bf16(x + Q.KV
+// Tp / (z + 1e-6)) in Xs.  The MLP runs in four 128-wide hidden chunks:
+// fc1 + bias + ReLU rounded into the chunk, fc2 accumulated in registers
+// over the chunks (two output tasks a warp), then out = seq + bf16(fc2 +
+// bias) in Xs and one 16-byte store a chunk of every row.
+constexpr int kTcWarps = 16, kTcThreads = kTcWarps * 32;
+constexpr int kG = 4;             // row strips a product task takes at most
+constexpr int kFS = kD + 8;       // fp32 row stride of K, V, Q (two store wavefronts a fragment)
+constexpr int kHidChunk = 128;    // MLP hidden columns a pass
 
-  for (int i = tid; i < (tp - nT) * kLdb; i += blockDim.x) Ya[nT * kLdb + i] = from_f<T>(0.f);
-  for (int t = warp; t < nT; t += kWarps) {
-    float v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = to_f(x[row(t) + lane + 32 * i]);
-    ln_row128<T>(v, p.ln1_g, p.ln1_b, Ya + t * kLdb, lane);
-  }
-  __syncthreads();
+// Timing build (tools/class_phases.py; never the library the port loads):
+// CATSEG_CLASS_PHASE_CLOCKS makes thread 0 of every CTA add the clock64
+// cycles between the kernel's barriers to g_phase_cycles, one slot a phase
+// (x load + LN1, k|v, KV, q, attention out, LN2, fc1, fc2, epilogue and
+// store; the head phases summed over the 4 heads), the CTA count in the last.
+#ifdef CATSEG_CLASS_PHASE_CLOCKS
+constexpr int kPhases = 9;
+__device__ unsigned long long g_phase_cycles[kPhases + 1];
+#define CLASS_PHASE(i)                                                                    \
+  do {                                                                                    \
+    if (threadIdx.x == 0) {                                                               \
+      const long long now = clock64();                                                    \
+      atomicAdd(&g_phase_cycles[i], (unsigned long long)(now - t_phase));                 \
+      t_phase = now;                                                                      \
+    }                                                                                     \
+  } while (0)
+#else
+#define CLASS_PHASE(i) \
+  do {                 \
+  } while (0)
+#endif
 
-  for (int h = 0; h < kHeads; ++h) {
-    const int hq = h * kD, hk = kC + h * kD, hv = 2 * kC + h * kD;
-    mm_tc(Ya, kLdb, p.qkv_w + hk, 3 * kC, tp, kD, kC, stage, [&](int r, int c, float acc) {
-      if (r >= nT) return;
-      float k = acc + p.qkv_b[hk + c];
-      if (has_guid) k += to_f(kg[gb + (size_t)r * kC + hq + c]);
-      Kh[r * kDP + c] = elu1(k);
-    });
-    mm_tc(Ya, kLdb, p.qkv_w + hv, 3 * kC, tp, kD, kC, stage, [&](int r, int c, float acc) {
-      if (r < nT) Vh[r * kDP + c] = (acc + p.qkv_b[hv + c]) / Tp;
-    });
-    __syncthreads();
-    head_kv(Kh, Vh, nT, hq, pad_kv, pad_ksum, KV, ks);
-    __syncthreads();
-    float* Qh = Kh;
-    mm_tc(Ya, kLdb, p.qkv_w + hq, 3 * kC, tp, kD, kC, stage, [&](int r, int c, float acc) {
-      if (r >= nT) return;
-      float q = acc + p.qkv_b[hq + c];
-      if (has_guid) q += to_f(qg[gb + (size_t)r * kC + hq + c]);
-      Qh[r * kDP + c] = elu1(q);
-    });
-    __syncthreads();
-    // seq = x + attn, rounded, straight to out (the final residual)
-    head_out(Qh, KV, ks, z, nT, Tp, [&](int t, int f, float v) {
-      const size_t gi = row(t) + hq + f;
-      out[gi] = from_f<T>(to_f(x[gi]) + v);
-    });
-    __syncthreads();
-  }
+struct ClassParamsTC {
+  const float *ln1_g, *ln1_b;
+  const uint4* qkv_w;   // packed (pack_mma_b) bf16 weights
+  const float *qkv_b, *ln2_g, *ln2_b;
+  const uint4* m1_w;
+  const float* m1_b;
+  const uint4* m2_w;
+  const float* m2_b;
+};
 
-  for (int t = warp; t < nT; t += kWarps) {
-    float v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = to_f(out[row(t) + lane + 32 * i]);
-    ln_row128<T>(v, p.ln2_g, p.ln2_b, Ya + t * kLdb, lane);
-  }
-  __syncthreads();
+__host__ __device__ constexpr int padded(int nT) { return (nT + 15) / 16 * 16; }
 
-  float* st = stage + warp * 256;
-  for (int t0 = 0; t0 < mt; t0 += kPassTiles) {
-    const int pt = min(kPassTiles, mt - t0);
-    wm::fragment<wm::accumulator, 16, 16, 16, float> acc[kPassTiles];
+constexpr size_t smem_bytes_tc(int nT) {
+  return (size_t)padded(nT) * (2 * kC * sizeof(bf16) + 2 * kFS * sizeof(float))
+         + (size_t)(kD * kD + kD) * sizeof(float);
+}
+static_assert(2 * kFS * sizeof(float) >= kHidChunk * sizeof(bf16), "the hidden chunk fits the K and V rows");
+static_assert(smem_bytes(kMaxT) <= kSmemLimit && smem_bytes_tc(kMaxT) <= kSmemLimit, "shared memory at T = 256");
+
+// strips [s0, s0 + ms) of row group gi of ng over ns strips: sizes differ by at most one
+__device__ __forceinline__ void row_group(int gi, int ng, int ns, int& s0, int& ms) {
+  s0 = gi * ns / ng;
+  ms = (gi + 1) * ns / ng - s0;
+}
+
+// acc[i][j] += A (strips s0 + i for i < ms, 128 columns) x W (n8 tiles j0 +
+// j, k-pairs p0 .. p0 + 3); A a swizzled (rows, 128) bf16 tile, W packed
+// with kp k-pairs a tile (swin_block.cu's gemm with a run-time strip count)
+template <int NT>
+__device__ __forceinline__ void gemm_rows(float (&acc)[kG][NT][4], const bf16* A, int s0, int ms,
+                                          const uint4* __restrict__ W, int kp, int j0, int p0, int lane) {
 #pragma unroll
-    for (int i = 0; i < kPassTiles; ++i) wm::fill_fragment(acc[i], 0.f);
-    for (int c0 = 0; c0 < kHid; c0 += kHCt) {
-      mm_tc(Ya + t0 * 16 * kLdb, kLdb, p.m1_w + c0, kHid, pt * 16, kHCt, kC, stage, [&](int r, int c, float a) {
-        Hc[r * kLdb + c] = from_f<T>(fmaxf(a + p.m1_b[c0 + c], 0.f));
-      });
-      __syncthreads();
+  for (int p = 0; p < kC / 32; ++p) {
+    uint4 b[NT];
 #pragma unroll
-      for (int i = 0; i < kPassTiles; ++i) {
-        if (i < pt) {
-          for (int k = 0; k < kHCt; k += 16) {
-            wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-            wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> bm;
-            wm::load_matrix_sync(a, Hc + i * 16 * kLdb + k, kLdb);
-            wm::load_matrix_sync(bm, p.m2_w + (size_t)(c0 + k) * kC + warp * 16, kC);
-            wm::mma_sync(acc[i], a, bm, acc[i]);
-          }
+    for (int j = 0; j < NT; ++j) b[j] = __ldg(W + ((size_t)(j0 + j) * kp + p0 + p) * 32 + lane);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int i = 0; i < kG; ++i) {
+        if (i < ms) {
+          unsigned a[4];
+          load_a<kC / 8>(a, A, s0 + i, 2 * p + h, lane);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a, h ? b[j].z : b[j].x, h ? b[j].w : b[j].y);
         }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < kPassTiles; ++i) {
-      if (i < pt) {
-        wm::store_matrix_sync(st, acc[i], 16, wm::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int t = (t0 + i) * 16 + e / 16, c = warp * 16 + e % 16;
-          if (t < nT) {
-            const size_t gi = row(t) + c;
-            out[gi] = from_f<T>(to_f(out[gi]) + rnd<T>(st[e] + p.m2_b[c]));
-          }
-        }
-        __syncwarp();
       }
     }
   }
 }
 
+// epi(row, col, v0, v1) for each accumulator pair of strips s0 .. s0 + ms - 1;
+// col counts from the task's first column
+template <int NT, typename Epi>
+__device__ __forceinline__ void rows_pairs(const float (&acc)[kG][NT][4], int s0, int ms, int lane, Epi epi) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < kG; ++i) {
+    if (i < ms) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int r = 16 * (s0 + i) + g, c = 8 * j + 2 * t;
+        epi(r, c, acc[i][j][0], acc[i][j][1]);
+        epi(r + 8, c, acc[i][j][2], acc[i][j][3]);
+      }
+    }
+  }
+}
+
+// LayerNorm (single-pass variance, fp32 statistics) of rows < nT of X into
+// Y, a warp a row, columns 4 lane .. 4 lane + 3 in each lane
+__device__ __forceinline__ void ln_rows_tc(bf16* X, bf16* Y, const float* g, const float* b, int nT, int warp,
+                                           int lane) {
+  const float4 gv = __ldg(reinterpret_cast<const float4*>(g) + lane);
+  const float4 bv = __ldg(reinterpret_cast<const float4*>(b) + lane);
+  for (int r = warp; r < nT; r += kTcWarps) {
+    const float2 v01 = unpack_bf16(at<16>(X, r, 4 * lane)), v23 = unpack_bf16(at<16>(X, r, 4 * lane + 2));
+    const float mean = warp_sum(v01.x + v01.y + v23.x + v23.y) * (1.f / kC);
+    const float var =
+        warp_sum(v01.x * v01.x + v01.y * v01.y + v23.x * v23.x + v23.y * v23.y) * (1.f / kC) - mean * mean;
+    const float rs = rsqrtf(var + 1e-5f);
+    store_bf16x2(at<16>(Y, r, 4 * lane), (v01.x - mean) * rs * gv.x + bv.x, (v01.y - mean) * rs * gv.y + bv.y);
+    store_bf16x2(at<16>(Y, r, 4 * lane + 2), (v23.x - mean) * rs * gv.z + bv.z,
+                 (v23.y - mean) * rs * gv.w + bv.w);
+  }
+}
+
+// KV block and K sum of head hq over rows < nT of Ks, Vs, plus the padding
+// rows' terms: thread (4x4 block b, row phase s) sums rows s, s + 8, ...;
+// the 8 phases (lanes s = 0..7 of one block) meet by xor shuffles
+__device__ __forceinline__ void head_kv_tc(const float* Ks, const float* Vs, int nT, int hq,
+                                           const float* __restrict__ pad_kv, const float* __restrict__ pad_ksum,
+                                           float* KV, float* ks, int tid) {
+  static_assert(kTcThreads == 8 * (kD / 4) * (kD / 4), "a thread per (4x4 KV block, row phase)");
+  const int blk = tid >> 3, s = tid & 7, d0 = (blk >> 3) * 4, f0 = (blk & 7) * 4;
+  float acc[4][4] = {}, kp[4] = {};
+  for (int t = s; t < nT; t += 8) {
+    const float4 k = *reinterpret_cast<const float4*>(Ks + t * kFS + d0);
+    const float4 v = *reinterpret_cast<const float4*>(Vs + t * kFS + f0);
+    const float kk[4] = {k.x, k.y, k.z, k.w}, vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      kp[i] += kk[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(kk[i], vv[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      kp[i] += __shfl_xor_sync(0xffffffffu, kp[i], o);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], o);
+    }
+  }
+  if (s == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) KV[(d0 + i) * kD + f0 + j] = acc[i][j] + pad_kv[(size_t)(hq + d0 + i) * kC + hq + f0 + j];
+      if (f0 == 0) ks[d0 + i] = kp[i] + pad_ksum[hq + d0 + i];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+class_layer_tc_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, const bf16* __restrict__ qg,
+                      const bf16* __restrict__ kg, const float* __restrict__ pad_kv,
+                      const float* __restrict__ pad_ksum, ClassParamsTC p, int nT, int HW, int has_guid, float Tp) {
+  extern __shared__ __align__(128) unsigned char smraw[];
+#ifdef CATSEG_CLASS_PHASE_CLOCKS
+  long long t_phase = clock64();
+#endif
+  const int tp = padded(nT), ns = tp / 16;
+  bf16* Xs = reinterpret_cast<bf16*>(smraw);
+  bf16* Ys = Xs + tp * kC;
+  float* Ks = reinterpret_cast<float*>(Ys + tp * kC);
+  float* Vs = Ks + tp * kFS;
+  bf16* Hs = reinterpret_cast<bf16*>(Ks);
+  float* KV = Vs + tp * kFS;
+  float* ks = KV + kD * kD;
+  const int pos = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  auto grow = [&](int t) { return ((size_t)(b * nT + t) * HW + pos) * kC; };
+  const size_t gb = (size_t)b * nT * kC;
+
+  // x rows by 16-byte cp.async, rows >= T zero-filled; LN1 (Ys rows >= T zero)
+  for (int e = tid; e < tp * 16; e += kTcThreads) {
+    const int r = e >> 4, c = e & 15;
+    const bool valid = r < nT;
+    cp_async16(Xs + sw<16>(r, c), x + (valid ? grow(r) + c * 8 : 0), valid);
+    if (!valid) *reinterpret_cast<uint4*>(Ys + sw<16>(r, c)) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  ln_rows_tc(Xs, Ys, p.ln1_g, p.ln1_b, nT, warp, lane);
+  __syncthreads();
+  CLASS_PHASE(0);
+
+  const int ng = (ns + kG - 1) / kG, ngq = (ns + 1) / 2;
+  for (int h = 0; h < kHeads; ++h) {
+    const int hq = h * kD;
+    // k | v of the head: 4 16-column blocks x ng row groups
+    for (int task = warp; task < 4 * ng; task += kTcWarps) {
+      const int cb = task & 3, isv = cb >> 1, c0 = (cb & 1) * 16;
+      const int col0 = (1 + isv) * kC + hq + c0;   // qkv column of the block
+      int s0, ms;
+      row_group(task >> 2, ng, ns, s0, ms);
+      float acc[kG][2][4];
+      zero(acc);
+      gemm_rows<2>(acc, Ys, s0, ms, p.qkv_w, kC / 32, col0 / 8, 0, lane);
+      float* dst = isv ? Vs : Ks;
+      rows_pairs(acc, s0, ms, lane, [&](int r, int c, float v0, float v1) {
+        if (r >= nT) return;
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(p.qkv_b + col0 + c));
+        float a0 = v0 + bb.x, a1 = v1 + bb.y;
+        if (isv) {
+          a0 = a0 / Tp;
+          a1 = a1 / Tp;
+        } else {
+          if (has_guid) {
+            const float2 gv = unpack_bf16(kg + gb + (size_t)r * kC + hq + c0 + c);
+            a0 += gv.x;
+            a1 += gv.y;
+          }
+          a0 = elu1(a0);
+          a1 = elu1(a1);
+        }
+        *reinterpret_cast<float2*>(dst + r * kFS + c0 + c) = make_float2(a0, a1);
+      });
+    }
+    __syncthreads();
+    CLASS_PHASE(1);
+    head_kv_tc(Ks, Vs, nT, hq, pad_kv, pad_ksum, KV, ks, tid);
+    __syncthreads();
+    CLASS_PHASE(2);
+    // q of the head over K (folded into KV and ks now): 2 blocks x row groups of at most 2 strips
+    for (int task = warp; task < 2 * ngq; task += kTcWarps) {
+      const int c0 = (task & 1) * 16;
+      int s0, ms;
+      row_group(task >> 1, ngq, ns, s0, ms);
+      float acc[kG][2][4];
+      zero(acc);
+      gemm_rows<2>(acc, Ys, s0, ms, p.qkv_w, kC / 32, (hq + c0) / 8, 0, lane);
+      rows_pairs(acc, s0, ms, lane, [&](int r, int c, float v0, float v1) {
+        if (r >= nT) return;
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(p.qkv_b + hq + c0 + c));
+        float a0 = v0 + bb.x, a1 = v1 + bb.y;
+        if (has_guid) {
+          const float2 gv = unpack_bf16(qg + gb + (size_t)r * kC + hq + c0 + c);
+          a0 += gv.x;
+          a1 += gv.y;
+        }
+        *reinterpret_cast<float2*>(Ks + r * kFS + c0 + c) = make_float2(elu1(a0), elu1(a1));
+      });
+    }
+    __syncthreads();
+    CLASS_PHASE(3);
+    // seq = x + Q.KV Tp / (Q.Ksum + 1e-6), rounded, over x in Xs: a thread a (row, 8 columns)
+    for (int it = tid; it < nT * 4; it += kTcThreads) {
+      const int r = it >> 2, f0 = (it & 3) * 8;
+      float o[8] = {}, z = 0.f;
+#pragma unroll
+      for (int d4 = 0; d4 < kD; d4 += 4) {
+        const float4 q4 = *reinterpret_cast<const float4*>(Ks + r * kFS + d4);
+        const float qq[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int d = d4 + u;
+          z = fmaf(qq[u], ks[d], z);
+          const float4 a = *reinterpret_cast<const float4*>(KV + d * kD + f0);
+          const float4 c = *reinterpret_cast<const float4*>(KV + d * kD + f0 + 4);
+          o[0] = fmaf(qq[u], a.x, o[0]);
+          o[1] = fmaf(qq[u], a.y, o[1]);
+          o[2] = fmaf(qq[u], a.z, o[2]);
+          o[3] = fmaf(qq[u], a.w, o[3]);
+          o[4] = fmaf(qq[u], c.x, o[4]);
+          o[5] = fmaf(qq[u], c.y, o[5]);
+          o[6] = fmaf(qq[u], c.z, o[6]);
+          o[7] = fmaf(qq[u], c.w, o[7]);
+        }
+      }
+      const float sc = Tp / (z + 1e-6f);
+      uint4* xp = reinterpret_cast<uint4*>(at<16>(Xs, r, hq + f0));
+      uint4 u = *xp;
+      unsigned* w = reinterpret_cast<unsigned*>(&u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + e));
+        w[e] = pack_bf16(xv.x + o[2 * e] * sc, xv.y + o[2 * e + 1] * sc);
+      }
+      *xp = u;
+    }
+    __syncthreads();
+    CLASS_PHASE(4);
+  }
+
+  ln_rows_tc(Xs, Ys, p.ln2_g, p.ln2_b, nT, warp, lane);
+  __syncthreads();
+  CLASS_PHASE(5);
+
+  // ReLU MLP in 128-wide hidden chunks; fc2 task warp + 16 i (16-column
+  // block, row group) keeps its accumulators in registers across the chunks
+  float acc2[2][kG][2][4];
+  zero(acc2[0]);
+  zero(acc2[1]);
+  for (int c0 = 0; c0 < kHid; c0 += kHidChunk) {
+    for (int task = warp; task < (kHidChunk / 16) * ng; task += kTcWarps) {
+      const int cb = task % (kHidChunk / 16);
+      int s0, ms;
+      row_group(task / (kHidChunk / 16), ng, ns, s0, ms);
+      float acc[kG][2][4];
+      zero(acc);
+      gemm_rows<2>(acc, Ys, s0, ms, p.m1_w, kC / 32, (c0 + 16 * cb) / 8, 0, lane);
+      rows_pairs(acc, s0, ms, lane, [&](int r, int c, float v0, float v1) {
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(p.m1_b + c0 + 16 * cb + c));
+        store_bf16x2(at<kHidChunk / 8>(Hs, r, 16 * cb + c), fmaxf(v0 + bb.x, 0.f), fmaxf(v1 + bb.y, 0.f));
+      });
+    }
+    __syncthreads();
+    CLASS_PHASE(6);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int task = warp + kTcWarps * i;
+      if (task < (kC / 16) * ng) {
+        int s0, ms;
+        row_group(task / (kC / 16), ng, ns, s0, ms);
+        gemm_rows<2>(acc2[i], Hs, s0, ms, p.m2_w, kHid / 32, 2 * (task % (kC / 16)), c0 / 32, lane);
+      }
+    }
+    __syncthreads();
+    CLASS_PHASE(7);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int task = warp + kTcWarps * i;
+    if (task < (kC / 16) * ng) {
+      const int cb = task % (kC / 16);
+      int s0, ms;
+      row_group(task / (kC / 16), ng, ns, s0, ms);
+      rows_pairs(acc2[i], s0, ms, lane, [&](int r, int c, float v0, float v1) {
+        if (r >= nT) return;
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(p.m2_b + 16 * cb + c));
+        bf16* d = at<16>(Xs, r, 16 * cb + c);
+        const float2 xv = unpack_bf16(d);
+        store_bf16x2(d, xv.x + rnd<bf16>(v0 + bb.x), xv.y + rnd<bf16>(v1 + bb.y));
+      });
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < nT * 16; e += kTcThreads) {
+    const int r = e >> 4, c = e & 15;
+    *reinterpret_cast<uint4*>(out + grow(r) + c * 8) = *reinterpret_cast<const uint4*>(Xs + sw<16>(r, c));
+  }
+#ifdef CATSEG_CLASS_PHASE_CLOCKS
+  __syncthreads();
+  CLASS_PHASE(8);
+  if (tid == 0) atomicAdd(&g_phase_cycles[kPhases], 1ull);
+#endif
+}
+
 }  // namespace
+
+#ifdef CATSEG_CLASS_PHASE_CLOCKS
+// copies the timing build's per-phase cycle sums and CTA count (kPhases + 1
+// values) to host memory and sets them to 0
+extern "C" int catseg_class_phase_cycles(unsigned long long* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_phase_cycles, sizeof(g_phase_cycles));
+  static const unsigned long long zeros[kPhases + 1] = {};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase_cycles, zeros, sizeof(zeros));
+  return (int)e;
+}
+#endif
 
 extern "C" int catseg_class_layer(const void* x, void* out, const void* qg, const void* kg,
                                   const void* pad_kv, const void* pad_ksum, const void* ln1_g,
@@ -308,13 +568,14 @@ extern "C" int catseg_class_layer(const void* x, void* out, const void* qg, cons
   const dim3 grid(HW, B);
   cudaError_t e;
   if (is_bf16) {
-    const ClassParamsTC p{f(ln1_g), f(ln1_b), h(qkv_w), f(qkv_b), f(ln2_g),
-                          f(ln2_b), h(m1_w),  f(m1_b),  h(m2_w),  f(m2_b)};
+    auto u = [](const void* ptr) { return static_cast<const uint4*>(ptr); };
+    const ClassParamsTC p{f(ln1_g), f(ln1_b), u(qkv_w), f(qkv_b), f(ln2_g),
+                          f(ln2_b), u(m1_w),  f(m1_b),  u(m2_w),  f(m2_b)};
     const size_t smem = smem_bytes_tc(nT);
     e = cudaFuncSetAttribute(class_layer_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    class_layer_tc_kernel<<<grid, kThreads, smem, st>>>(h(x), static_cast<bf16*>(out), h(qg), h(kg), f(pad_kv),
-                                                        f(pad_ksum), p, nT, HW, has_guid, Tp);
+    class_layer_tc_kernel<<<grid, kTcThreads, smem, st>>>(h(x), static_cast<bf16*>(out), h(qg), h(kg), f(pad_kv),
+                                                          f(pad_ksum), p, nT, HW, has_guid, Tp);
   } else {
     const ClassParams p{f(ln1_g), f(ln1_b), f(qkv_w), f(qkv_b), f(ln2_g),
                         f(ln2_b), f(m1_w),  f(m1_b),  f(m2_w),  f(m2_b)};

@@ -12,7 +12,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 
 namespace catseg {
 
@@ -103,36 +102,6 @@ __device__ __forceinline__ void mm_rows(const float* A, int lda, const float* __
 #pragma unroll
     for (int i = 0; i < RB; ++i)
       if (i < nr) epi(r0 + i, c, acc[i]);
-  }
-}
-
-// Tensor-core form of mm_rows for bf16 operands: A (R, K) bf16 in shared
-// memory (lda a multiple of 8), W (K, N) bf16 row-major in global memory;
-// R, N, K multiples of 16.  Each warp takes 16x16 output tiles round-robin,
-// accumulates in fp32 (wmma m16n16k16), stages the tile in its own 256-float
-// slice of ``stage`` and hands every element to epi(r, c, acc).
-template <typename Epi>
-__device__ __forceinline__ void mm_tc(const bf16* A, int lda, const bf16* __restrict__ W, int ldw,
-                                      int R, int N, int K, float* stage, Epi epi) {
-  namespace wm = nvcuda::wmma;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  const int tn = N / 16, tiles = (R / 16) * tn;
-  float* st = stage + warp * 256;
-  for (int t = warp; t < tiles; t += nw) {
-    const int rt = t / tn, ct = t % tn;
-    wm::fragment<wm::accumulator, 16, 16, 16, float> c;
-    wm::fill_fragment(c, 0.f);
-    for (int k = 0; k < K; k += 16) {
-      wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> b;
-      wm::load_matrix_sync(a, A + rt * 16 * lda + k, lda);
-      wm::load_matrix_sync(b, W + (size_t)k * ldw + ct * 16, ldw);
-      wm::mma_sync(c, a, b, c);
-    }
-    wm::store_matrix_sync(st, c, 16, wm::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) epi(rt * 16 + e / 16, ct * 16 + e % 16, st[e]);
-    __syncwarp();
   }
 }
 

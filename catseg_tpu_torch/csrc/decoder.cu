@@ -15,82 +15,147 @@
 //
 // Design.  A slab's activations (~3 MB in bf16) do not fit a CTA's 227 KB, so
 // each CTA owns a private global scratch of three buffers (u1 -> A, c1 -> B,
-// c2 -> C, u2 -> A, c3 -> B, c4 -> C), reused slab after slab and mostly
-// served from L2.  Every pre-GN conv output is written once, its GroupNorm
-// sums (fp32 E[x], E[x^2] of the stored values, eps 1e-5) accumulate in
-// shared memory in the conv's epilogue, and the next stage applies GN + ReLU
-// while it loads its input.  A 3x3 conv runs over row bands: the band plus a
-// one-row halo (and zero pad columns) sits in shared memory, and the conv is
-// an implicit GEMM over the 9 taps.  ConvT k2s2 is a per-pixel GEMM (Cin x
-// 4*Cout) whose epilogue scatters the four phases.  GN statistics need the
-// whole plane, which the CTA holds by construction: no cross-CTA reduction.
+// c2 -> C, u2 -> A, c3 -> B, c4 -> C), reused slab after slab.  Every pre-GN
+// conv output is written once; its GroupNorm sums (fp32 E[x], E[x^2] of the
+// stored values, eps 1e-5) are taken in the conv's epilogue, each warp's in
+// its own slot, and summed over the warps in a fixed order after the stage:
+// no atomics, so two runs are bit-equal.  The next stage applies GN + ReLU to
+// its input once it has landed in shared memory.  A 3x3 conv runs over row
+// bands: the band plus a one-row halo (and zero pad columns) sits in shared
+// memory, and the conv is an implicit GEMM over the 9 taps.  ConvT k2s2 is a
+// per-pixel GEMM (Cin x 4*Cout) whose epilogue scatters the four phases.  GN
+// statistics need the whole plane, which the CTA holds by construction.
 //
-// bf16 (the serving dtype) runs every conv and ConvT on tensor cores (wmma
-// bf16 -> fp32; conv weights staged in shared memory) and rounds where the
-// reference's compiled bf16 branch does: ConvT outputs (bf16(acc) + bf16
-// bias), pre-GN conv outputs, GN + ReLU outputs; the head stays fp32.  fp32
-// runs CUDA-core FMAs, fp32 throughout: the oracle-parity path.
+// bf16 (the serving dtype) runs every conv, ConvT and the head on mma.sync
+// tensor cores (its note below) and rounds where the reference's compiled
+// bf16 branch does: ConvT outputs (bf16(acc) + bf16 bias), pre-GN conv
+// outputs, GN + ReLU outputs; the head sums its bf16 products in fp32 and
+// writes fp32 logits.  fp32 runs CUDA-core FMAs with synchronous band loads,
+// fp32 throughout: the oracle-parity path.
 //
 // Bound on the card: ~0.97 GFLOP of products per slab (ConvT 56.6 M x 2, the
 // four convs 849 M, head 5.3 M), so bf16 tensor-core math bounds it (1500
-// slabs = 1.45 TFLOP = 1.5 ms at 989 TFLOP/s); the scratch traffic (~6 MB per
-// slab, L2 or HBM) and one CTA per SM with no load/compute overlap keep this
-// first version well above that.  Shared memory allows one CTA per SM, so it
-// runs 16 warps, each on one or two 16-channel output tiles, to keep more
-// loads in flight.
+// slabs = 1.45 TFLOP = 1.47 ms at 989 TFLOP/s); the bf16 kernel takes ~9.1
+// ms on an H100 (80GB HBM3, 700 W), 160 TFLOP/s.  Per-stage clocks
+// (tools/decoder_phases.py) spread a slab's time over its stages: each conv
+// 14-19% at 4-6x its tensor-core cycles, the second ConvT 14% at 14x, the
+// head 10%, the first ConvT 7%.  Below the math sit the scratch planes: a
+// slab writes u1, c1, c2, u2, c3 and c4 (3.1 MB) and reads them back with
+// their band halos (4.1 MB), and 132 CTAs' scratch (272 MB) does not stay in
+// the 50 MB L2: ~10.8 GB at 1500 slabs, 3.2 ms at 3.35 TB/s if all of it
+// went to device memory.  One 12-warp CTA an SM (217 KB of shared memory at
+// the first conv), each band's tasks split evenly over the warps, two or
+// three barriers a band.
 #include <type_traits>
 
+#include "attn_common.cuh"
 #include "common.cuh"
 
 using namespace catseg;
 
 namespace {
 
-constexpr int kThreads = 512, kWarps = kThreads / 32;
 constexpr int kBufA = 96 * 96 * 48;  // u1 (48*48*96), then u2
 constexpr int kBufB = 96 * 96 * 32;  // c1 (48*48*64), then c3
 constexpr int kBufC = 96 * 96 * 32;  // c2, then c4
 constexpr int kScratch = kBufA + kBufB + kBufC;
-constexpr int kChunk = 96;           // ConvT pixels per GEMM chunk
+constexpr int kChunk = 96;           // ConvT pixels per GEMM chunk (fp32)
 constexpr size_t kSmemLimit = 232448;
 
-// shared header: GN sums [4 convs][4 groups][2], GN scale / shift (64), head
-// weights (288), tensor-core epilogue staging (256 floats per warp)
+template <typename T> constexpr bool kTC = std::is_same<T, bf16>::value;
+// CTA size: fp32 16 warps (a thread per output channel and 8 pixels); bf16
+// 12 warps (a warp per 48-pixel x 16-channel tile, 12 tiles a band)
+template <typename T> constexpr int kThreadsOf = kTC<T> ? 384 : 512;
+constexpr int kMaxWarps = 16;
+
+// shared header: GN partial sums [warp][4 groups][2], GN scale / shift (64),
+// head weights (288)
 constexpr int kHeadW = 9 * 32;
-constexpr int kHeaderFloats = 32 + 64 + 64 + kHeadW + kWarps * 256;
+constexpr int kHeaderFloats = kMaxWarps * 4 * 2 + 64 + 64 + kHeadW;
 __host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) / 128 * 128; }
 constexpr size_t kHeader = align128(kHeaderFloats * sizeof(float));
 
-template <typename T> constexpr bool kTC = std::is_same<T, bf16>::value;
+// fp32 head band: each lane reads 16-byte vectors at an odd 16-byte-unit stride
+constexpr int kHeadStride = 36;
 
-// shared-memory pixel stride of a conv's input band: tensor-core tiles need
-// 32-byte aligned rows (a multiple of 16 bf16); an odd number of 32-byte
-// units keeps ldmatrix at most 2-way conflicted.  FMA reads are broadcasts.
-template <typename T> __host__ __device__ constexpr int band_stride(int cin) {
-  return kTC<T> ? ((cin / 16) % 2 ? cin : cin + 16) : cin;
-}
-// head band: each lane reads 16-byte vectors at an odd 16-byte-unit stride
-template <typename T> __host__ __device__ constexpr int head_stride() { return kTC<T> ? 40 : 36; }
-
-template <typename T> constexpr size_t conv_bytes(int cin, int cout, int wd, int r) {
-  return (kTC<T> ? align128((size_t)9 * cin * (cout + 8) * sizeof(T)) : 0)
-         + (size_t)(r + 2) * (wd + 2) * band_stride<T>(cin) * sizeof(T);
-}
-template <typename T> constexpr size_t convt_bytes(int cin) {
-  return (size_t)kChunk * (kTC<T> ? cin + 8 : cin) * sizeof(T);
-}
 constexpr size_t cmax(size_t a, size_t b) { return a > b ? a : b; }
 
-// stage geometry: (rows per band, output tiles per tensor-core job)
-constexpr int kR1 = 4, kNG1 = 1, kR2 = 8, kNG2 = 2, kR3 = 4, kNG3 = 1, kR4 = 8, kNG4 = 2, kRH = 8;
+// fp32 stage geometry: rows per band
+constexpr int kR1 = 4, kR2 = 8, kR3 = 4, kR4 = 8, kRH = 8;
 
-template <typename T> constexpr size_t smem_bytes() {
-  return kHeader + cmax(cmax(cmax(conv_bytes<T>(96, 64, 48, kR1), conv_bytes<T>(64, 64, 48, kR2)),
-                             cmax(conv_bytes<T>(48, 32, 96, kR3), conv_bytes<T>(32, 32, 96, kR4))),
-                        cmax((size_t)(kRH + 2) * 98 * head_stride<T>() * sizeof(T),
-                             cmax(convt_bytes<T>(128), convt_bytes<T>(64))));
+constexpr size_t fma_conv_bytes(int cin, int wd, int r) { return (size_t)(r + 2) * (wd + 2) * cin * sizeof(float); }
+
+constexpr size_t smem_bytes_fp32() {
+  return kHeader + cmax(cmax(cmax(fma_conv_bytes(96, 48, kR1), fma_conv_bytes(64, 48, kR2)),
+                             cmax(fma_conv_bytes(48, 96, kR3), fma_conv_bytes(32, 96, kR4))),
+                        cmax((size_t)(kRH + 2) * 98 * kHeadStride * sizeof(float),
+                             (size_t)kChunk * 128 * sizeof(float)));
 }
+
+// ---- bf16 stages on the tensor cores ----
+//
+// Every stage is an implicit GEMM on mma.sync m16n8k16 (bf16 in, fp32
+// accumulators).  A stage first copies its weights, packed by the wrapper in
+// mma fragment order 16 rows deep (kernels/decoder.py), into shared memory by
+// cp.async; then it walks its input in bands (3x3 convs: R output rows plus a
+// one-row halo and zero pad columns; ConvT: 96-pixel chunks), double-
+// buffered: band i + 1 arrives by 16-byte cp.async while band i computes.  A
+// landed band that feeds on a GroupNorm'd plane gets ReLU(GN) in one pass
+// over its in-plane pixels (pad pixels stay 0), rounded to bf16 as before.
+// Band pixels sit at a stride of Cin + 8 elements, an odd number of 16-byte
+// units, so ldmatrix's 8 row addresses hit 8 distinct bank groups at any
+// tap offset.  A warp's task is 3 row strips of 16 pixels (48 pixels of one
+// output row) x 16 output channels; its A fragments come by ldmatrix from the
+// band, B from the packed weights (8 bytes a lane, one 256-byte read a
+// warp), and the epilogue runs on the fp32 accumulators in registers:
+// guidance plane, rounding, bf16-pair stores and the GN partial sums of its
+// channel group, which stays the warp's through the stage.
+//
+// Weights live in shared memory, not in registers read from L2 (as the Swin
+// kernel's do): a conv's 48-pixel tasks would re-read a weight slice from L2
+// once per task, ~20 MB a slab; the staged copy is 0.35 MB a slab.
+constexpr int kTcWarps = kThreadsOf<bf16> / 32;
+constexpr int kMS = 3;               // row strips a task
+constexpr int kChunkTC = 192;        // ConvT pixels per chunk
+// rows per band of the four convs and the head
+constexpr int kB1 = 3, kB2 = 6, kB3 = 6, kB4 = 6, kBH = 6;
+
+constexpr size_t tc_band_bytes(int cin, int wd, int r) { return (size_t)(r + 2) * (wd + 2) * (cin + 8) * sizeof(bf16); }
+constexpr size_t tc_conv_bytes(int cin, int cout, int wd, int r) {
+  return align128((size_t)9 * cin * cout * sizeof(bf16)) + 2 * tc_band_bytes(cin, wd, r);
+}
+constexpr size_t tc_convt_bytes(int cin, int cout) {
+  return align128((size_t)cin * 4 * cout * sizeof(bf16)) + 2 * (size_t)kChunkTC * (cin + 8) * sizeof(bf16);
+}
+constexpr size_t smem_bytes_tc() {
+  return kHeader + cmax(cmax(cmax(tc_conv_bytes(96, 64, 48, kB1), tc_conv_bytes(64, 64, 48, kB2)),
+                             cmax(tc_conv_bytes(48, 32, 96, kB3), tc_conv_bytes(32, 32, 96, kB4))),
+                        cmax(tc_conv_bytes(32, 8, 96, kBH), cmax(tc_convt_bytes(128, 96), tc_convt_bytes(64, 48))));
+}
+template <typename T> constexpr size_t smem_bytes() { return kTC<T> ? smem_bytes_tc() : smem_bytes_fp32(); }
 static_assert(smem_bytes<bf16>() <= kSmemLimit && smem_bytes<float>() <= kSmemLimit, "shared memory");
+
+// Timing build (tools/decoder_phases.py; never the library the port loads):
+// CATSEG_DEC_PHASE_CLOCKS makes thread 0 of every CTA add the clock64 cycles
+// of each stage (ConvT 1, conv 1, conv 2, ConvT 2, conv 3, conv 4, head;
+// GN affines with the conv before them) to g_phase_cycles, summed over the
+// CTA's slabs, and its slab count to the last slot.
+#ifdef CATSEG_DEC_PHASE_CLOCKS
+constexpr int kPhases = 7;
+__device__ unsigned long long g_phase_cycles[kPhases + 1];
+#define DEC_PHASE(i)                                                                      \
+  do {                                                                                    \
+    if (threadIdx.x == 0) {                                                               \
+      const long long now = clock64();                                                    \
+      atomicAdd(&g_phase_cycles[i], (unsigned long long)(now - t_phase));                 \
+      t_phase = now;                                                                      \
+    }                                                                                     \
+  } while (0)
+#else
+#define DEC_PHASE(i) \
+  do {               \
+  } while (0)
+#endif
 
 template <typename T> struct DecW {
   const T* up1_w; const float* up1_b;
@@ -101,18 +166,6 @@ template <typename T> struct DecW {
   const T* c22_w; const float *gn22_g, *gn22_b;
   const T* hd_w; const float* hd_b;
 };
-
-// rows x cols (row-major, cols % 8 == 0) from global into shared memory at row stride ldd
-template <typename T>
-__device__ __forceinline__ void copy_rows(T* dst, int ldd, const T* __restrict__ src, int rows, int cols) {
-  constexpr int V = 16 / sizeof(T);
-  const int nv = cols / V;
-  for (int i = threadIdx.x; i < rows * nv; i += blockDim.x) {
-    const int r = i / nv, v = i % nv;
-    *reinterpret_cast<uint4*>(dst + (size_t)r * ldd + v * V) =
-        __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * cols + v * V));
-  }
-}
 
 // ReLU(GN affine) of one 16-byte vector whose first channel is c0, in place
 template <typename T>
@@ -154,66 +207,55 @@ __device__ void load_rows(T* dst, const T* src, int rows, const float* sc, const
   }
 }
 
-// add a 16-channel group's sums into the GN accumulators
-__device__ __forceinline__ void add_stats(float* gs, int co, float s1, float s2) {
-  atomicAdd(gs + 2 * (co >> 4), s1);
-  atomicAdd(gs + 2 * (co >> 4) + 1, s2);
-}
-
-// 3x3 conv of a band on tensor cores: output R rows x Wd cols x COUT; a job is
-// one 16-pixel strip of a row x NG 16-channel output tiles.  epi(r, x, co,
-// acc) stores and returns the stored value, whose GN sums accumulate into gs.
-template <int CIN, int COUT, int Wd, int P, int NG, typename Epi>
-__device__ void conv_tc(const bf16* band, const bf16* Ws, int R, float* stage, float* gs, Epi epi) {
-  namespace wm = nvcuda::wmma;
-  constexpr int LDW = COUT + 8, strips = Wd / 16, groups = COUT / (16 * NG);
-  static_assert(COUT % (16 * NG) == 0 && Wd % 16 == 0 && CIN % 16 == 0, "tile shape");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* st = stage + warp * 256;
-  const int jobs = R * strips * groups;
-  for (int j = warp; j < jobs; j += kWarps) {
-    const int g = j % groups, s = (j / groups) % strips, r = j / (groups * strips);
-    wm::fragment<wm::accumulator, 16, 16, 16, float> acc[NG];
+// A warp's GroupNorm partial sums of a stage into its own slot ([4 groups]
+// x {sum, sum of squares}; groups it holds no channel of stay 0).  Lanes < 16
+// hold group ga's sums, lanes >= 16 group gb's (ga == gb: the whole warp's).
+__device__ __forceinline__ void write_slot(float* slot, int lane, float s1, float s2, int ga, int gb) {
+  const int top = ga == gb ? 16 : 8;   // xor butterfly over the warp, or over each half
 #pragma unroll
-    for (int i = 0; i < NG; ++i) wm::fill_fragment(acc[i], 0.f);
-    for (int tap = 0; tap < 9; ++tap) {
-      const bf16* a0 = band + ((r + tap / 3) * (Wd + 2) + s * 16 + tap % 3) * P;
-      const bf16* w0 = Ws + tap * CIN * LDW + g * NG * 16;
-#pragma unroll
-      for (int k = 0; k < CIN; k += 16) {
-        wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-        wm::load_matrix_sync(a, a0 + k, P);
-#pragma unroll
-        for (int i = 0; i < NG; ++i) {
-          wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> b;
-          wm::load_matrix_sync(b, w0 + k * LDW + i * 16, LDW);
-          wm::mma_sync(acc[i], a, b, acc[i]);
-        }
-      }
+  for (int o = 16; o > 0; o >>= 1) {
+    if (o <= top) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
     }
-#pragma unroll
-    for (int i = 0; i < NG; ++i) {
-      wm::store_matrix_sync(st, acc[i], 16, wm::mem_row_major);
-      __syncwarp();
-      const int co0 = (g * NG + i) * 16;
-      float s1 = 0.f, s2 = 0.f;
-      for (int e = lane; e < 256; e += 32) {
-        const float v = epi(r, s * 16 + e / 16, co0 + e % 16, st[e]);
-        s1 += v;
-        s2 += v * v;
-      }
-      s1 = warp_sum(s1);
-      s2 = warp_sum(s2);
-      if (lane == 0 && gs) add_stats(gs, co0, s1, s2);
-      __syncwarp();
-    }
+  }
+  if (lane < 8) slot[lane] = 0.f;
+  __syncwarp();
+  if (lane == 0) {
+    slot[2 * ga] = s1;
+    slot[2 * ga + 1] = s2;
+  } else if (lane == 16 && ga != gb) {
+    slot[2 * gb] = s1;
+    slot[2 * gb + 1] = s2;
   }
 }
 
-// The same conv with CUDA-core FMAs in fp32: a thread owns one output channel
-// and RB neighbouring pixels of a row; weights (9*CIN, COUT) read from global.
+// GroupNorm affine (16 channels per group) of a plane of cnt values a group,
+// from the warps' slots summed in warp order
+__device__ void gn_affine(const float* slots, int nwarps, const float* __restrict__ g, const float* __restrict__ b,
+                          int C, float cnt, float* sc, float* sh) {
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int w = 0; w < nwarps; ++w) {
+      s1 += slots[w * 8 + 2 * (c >> 4)];
+      s2 += slots[w * 8 + 2 * (c >> 4) + 1];
+    }
+    const float mean = s1 / cnt;
+    const float var = s2 / cnt - mean * mean;
+    const float s = rsqrtf(var + 1e-5f) * g[c];
+    sc[c] = s;
+    sh[c] = b[c] - mean * s;
+  }
+}
+
+// ---- fp32 stages: CUDA-core FMAs ----
+
+// 3x3 conv of a band: a thread owns output channel co (fixed: blockDim is a
+// multiple of COUT) and RB neighbouring pixels of a row; weights (9*CIN,
+// COUT) read from global.  epi(r, x, co, acc) stores and returns the stored
+// value, whose GN sums accumulate into s1, s2.
 template <int CIN, int COUT, int Wd, int P, int RB, typename Epi>
-__device__ void conv_fma(const float* band, const float* __restrict__ Wg, int R, float* gs, Epi epi) {
+__device__ void conv_fma(const float* band, const float* __restrict__ Wg, int R, float& s1, float& s2, Epi epi) {
   constexpr int PG = Wd / RB;
   const int items = R * PG * COUT;
   for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
@@ -232,85 +274,316 @@ __device__ void conv_fma(const float* band, const float* __restrict__ Wg, int R,
         for (int i = 0; i < RB; ++i) acc[i] = fmaf(a[i * P + ci], wv, acc[i]);
       }
     }
-    float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int i = 0; i < RB; ++i) {
       const float v = epi(r, x0 + i, co, acc[i]);
       s1 += v;
       s2 += v * v;
     }
-    if (gs) add_stats(gs, co, s1, s2);
   }
 }
 
 // One 3x3 conv stage over a (Wd, Wd, CIN) plane in bands of R rows; GN applies
-// ReLU(GN) (sc, sh) to the input on load.  epi(y, x, co, acc) as in conv_tc.
-template <typename T, int CIN, int COUT, int Wd, int R, int NG, bool GN, typename Epi>
-__device__ void conv_stage(unsigned char* work, const T* src, const T* __restrict__ wg, const float* sc,
-                           const float* sh, float* stage, float* gs, Epi epi) {
-  constexpr int P = band_stride<T>(CIN);
-  T* band = reinterpret_cast<T*>(work);
-  if constexpr (kTC<T>) {
-    copy_rows<T>(reinterpret_cast<T*>(work), COUT + 8, wg, 9 * CIN, COUT);
-    band = reinterpret_cast<T*>(work + align128((size_t)9 * CIN * (COUT + 8) * sizeof(T)));
-  }
+// ReLU(GN) (sc, sh) to the input on load.  The stage's GN partial sums go to
+// this warp's slot.
+template <int CIN, int COUT, int Wd, int R, bool GN, typename Epi>
+__device__ void conv_stage_fma(unsigned char* work, const float* src, const float* __restrict__ wg, const float* sc,
+                               const float* sh, float* slots, Epi epi) {
+  static_assert(kThreadsOf<float> % COUT == 0 && COUT % 32 == 0, "a thread keeps one output channel");
+  float* band = reinterpret_cast<float*>(work);
+  float s1 = 0.f, s2 = 0.f;
   for (int y0 = 0; y0 < Wd; y0 += R) {
     __syncthreads();
-    load_band<T, CIN, P, Wd, GN>(band, src, y0, R, sc, sh);
+    load_band<float, CIN, CIN, Wd, GN>(band, src, y0, R, sc, sh);
     __syncthreads();
-    auto e = [&](int r, int x, int co, float a) { return epi(y0 + r, x, co, a); };
-    if constexpr (kTC<T>) {
-      conv_tc<CIN, COUT, Wd, P, NG>(band, reinterpret_cast<const T*>(work), R, stage, gs, e);
-    } else {
-      conv_fma<CIN, COUT, Wd, P, 8>(band, wg, R, gs, e);
-    }
+    conv_fma<CIN, COUT, Wd, CIN, 8>(band, wg, R, s1, s2,
+                                    [&](int r, int x, int co, float a) { return epi(y0 + r, x, co, a); });
   }
+  const int g0 = ((threadIdx.x & ~31) % COUT) >> 4;   // lanes 0-15 hold group g0, 16-31 group g0 + 1
+  write_slot(slots + (threadIdx.x >> 5) * 8, threadIdx.x & 31, s1, s2, g0, g0 + 1);
   __syncthreads();
 }
 
 // ConvT k2s2 of a (Win, Win, CIN) plane into (2Win, 2Win, COUT): per-pixel
 // GEMM over chunks of kChunk pixels, the four phases scattered in the epilogue.
-template <typename T, int CIN, int COUT, int Win, bool GN>
-__device__ void convt_stage(unsigned char* work, const T* src, T* dst, const T* __restrict__ wg,
-                            const float* __restrict__ bias, const float* sc, const float* sh, float* stage) {
-  constexpr int LDA = kTC<T> ? CIN + 8 : CIN;
+template <int CIN, int COUT, int Win, bool GN>
+__device__ void convt_stage_fma(unsigned char* work, const float* src, float* dst, const float* __restrict__ wg,
+                                const float* __restrict__ bias, const float* sc, const float* sh) {
   static_assert((Win * Win) % kChunk == 0, "chunking");
-  T* A = reinterpret_cast<T*>(work);
+  float* A = reinterpret_cast<float*>(work);
   for (int p0 = 0; p0 < Win * Win; p0 += kChunk) {
     __syncthreads();
-    load_rows<T, CIN, LDA, GN>(A, src + (size_t)p0 * CIN, kChunk, sc, sh);
+    load_rows<float, CIN, CIN, GN>(A, src + (size_t)p0 * CIN, kChunk, sc, sh);
     __syncthreads();
-    auto epi = [&](int r, int c, float acc) {
+    mm_rows<8>(A, CIN, wg, 4 * COUT, kChunk, 4 * COUT, CIN, [&](int r, int c, float acc) {
       const int p = p0 + r, i = p / Win, j = p % Win, ph = c / COUT, co = c % COUT;
-      const size_t o = ((size_t)(2 * i + (ph >> 1)) * 2 * Win + 2 * j + (ph & 1)) * COUT + co;
-      dst[o] = from_f<T>(rnd<T>(acc) + rnd<T>(bias[co]));
-    };
-    if constexpr (kTC<T>) {
-      mm_tc(A, LDA, wg, 4 * COUT, kChunk, 4 * COUT, CIN, stage, epi);
-    } else {
-      mm_rows<8>(A, LDA, wg, 4 * COUT, kChunk, 4 * COUT, CIN, epi);
-    }
+      dst[((size_t)(2 * i + (ph >> 1)) * 2 * Win + 2 * j + (ph & 1)) * COUT + co] = acc + bias[co];
+    });
   }
   __syncthreads();
 }
 
-// GroupNorm affine (16 channels per group) from the sums gs of a plane of hw pixels
-__device__ void gn_affine(const float* gs, const float* __restrict__ g, const float* __restrict__ b, int C,
-                          float cnt, float* sc, float* sh) {
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const float mean = gs[2 * (c >> 4)] / cnt;
-    const float var = gs[2 * (c >> 4) + 1] / cnt - mean * mean;
-    const float s = rsqrtf(var + 1e-5f) * g[c];
-    sc[c] = s;
-    sh[c] = b[c] - mean * s;
+// ---- bf16 stages (the note above) ----
+
+// items 0 .. n-1 through two shared-memory buffers: load(i, buf) issues item
+// i's cp.async copies (the first group also takes whatever the caller issued
+// before), prep(i, buf) works on the landed buffer and returns whether it
+// wrote it (a barrier follows), compute(i, buf) reads it
+template <typename Load, typename Prep, typename Compute>
+__device__ __forceinline__ void pipelined(int n, Load load, Prep prep, Compute compute) {
+  load(0, 0);
+  cp_async_commit();
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) {
+      load(i + 1, (i + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (prep(i, i & 1)) __syncthreads();
+    compute(i, i & 1);
+    __syncthreads();
   }
 }
 
-// head: conv3x3 32 -> 1 of ReLU(GN(c4)) + bias, fp32 out (96, 96)
-template <typename T>
-__device__ void head_stage(unsigned char* work, const T* src, const float* hw, float hb, float* out,
-                           const float* sc, const float* sh) {
-  constexpr int P = head_stride<T>(), V = 16 / sizeof(T), Wd = 96;
+// n16-byte vectors of packed weights into shared memory (joins the next commit group)
+__device__ __forceinline__ void stage_weights(void* dst, const void* src, size_t bytes) {
+  for (size_t i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    cp_async16(static_cast<char*>(dst) + 16 * i, static_cast<const char*>(src) + 16 * i);
+}
+
+// ReLU(GN) in place over the n16 16-byte vectors of a landed buffer for
+// which inplane(vector index) holds; CIN channels a pixel at stride P
+template <int CIN, int P, typename In>
+__device__ __forceinline__ void gn_relu_band(bf16* buf, int npx, const float* sc, const float* sh, In inplane) {
+  constexpr int NV = CIN / 8;
+  for (int e = threadIdx.x; e < npx * NV; e += blockDim.x) {
+    const int v = e % NV, px = e / NV;
+    if (!inplane(px)) continue;
+    uint4* p = reinterpret_cast<uint4*>(buf + (size_t)px * P + v * 8);
+    uint4 u = *p;
+    gn_relu_vec<bf16>(u, v * 8, sc, sh);
+    *p = u;
+  }
+}
+
+// acc[i][j] += A (strips i = 0..2, CK k-steps from column 0) x B (n8 tiles
+// j < NT at w[j KS 32], k-steps ks0 ..); a is this lane's ldmatrix row
+// address in strip 0 (strip i 16 P further), w packed 16 deep with KS
+// k-steps a tile
+template <int CK, int NT>
+__device__ __forceinline__ void mma_taps(float (&acc)[kMS][NT][4], const bf16* a, int P, const uint2* w, int KS,
+                                         int ks0) {
+#pragma unroll
+  for (int kc = 0; kc < CK; ++kc) {
+    uint2 b[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) b[j] = w[(j * KS + ks0 + kc) * 32];
+#pragma unroll
+    for (int i = 0; i < kMS; ++i) {
+      unsigned f[4];
+      ldmatrix_x4(f, a + i * 16 * P + kc * 16);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], f, b[j].x, b[j].y);
+    }
+  }
+}
+
+// cp.async copies of input rows [y0-1, y0+R] x cols [-1, Wd] of a (Wd, Wd,
+// CIN) plane into a band (R+2, Wd+2, CIN+8), zero-filled outside the plane
+template <int CIN, int Wd, int R>
+__device__ __forceinline__ void band_copy(bf16* band, const bf16* src, int y0) {
+  constexpr int P = CIN + 8, NV = CIN / 8;
+  for (int e = threadIdx.x; e < (R + 2) * (Wd + 2) * NV; e += blockDim.x) {
+    const int v = e % NV, px = e / NV;
+    const int gx = px % (Wd + 2) - 1, gy = y0 - 1 + px / (Wd + 2);
+    const bool in = gy >= 0 && gy < Wd && gx >= 0 && gx < Wd;
+    cp_async16(band + px * P + v * 8, src + (in ? ((size_t)gy * Wd + gx) * CIN + v * 8 : 0), in);
+  }
+}
+
+// ReLU(GN) over the in-plane pixels of a landed band (band_copy's layout)
+template <int CIN, int Wd, int R>
+__device__ __forceinline__ void band_gn(bf16* band, int y0, const float* sc, const float* sh) {
+  gn_relu_band<CIN, CIN + 8>(band, (R + 2) * (Wd + 2), sc, sh, [&](int px) {
+    const int gx = px % (Wd + 2) - 1, gy = y0 - 1 + px / (Wd + 2);
+    return gy >= 0 && gy < Wd && gx >= 0 && gx < Wd;
+  });
+}
+
+// 3x3 conv stage over a (Wd, Wd, CIN) plane in bands of R output rows into
+// dst (Wd, Wd, COUT): bf16(conv), or bf16(conv + hg) with hg the image's
+// guidance plane, whose pairs a task loads before its products (loaded in
+// the epilogue, each would wait behind the stores before it); the stored
+// values' GN sums accumulate in the warp's channel group, warp % (COUT /
+// 16) throughout.
+template <int CIN, int COUT, int Wd, int R, bool GN, bool GUIDED>
+__device__ void conv_stage_tc(unsigned char* work, const bf16* src, const bf16* wpk, const float* sc, const float* sh,
+                              float* slots, bf16* dst, const bf16* __restrict__ hg) {
+  constexpr int P = CIN + 8, CK = CIN / 16, KS = 9 * CK, CG = COUT / 16, SEG = Wd / (16 * kMS);
+  constexpr int BAND = (R + 2) * (Wd + 2) * P, TASKS = R * SEG * CG;
+  static_assert(Wd % (16 * kMS) == 0 && TASKS % kTcWarps == 0 && kTcWarps % CG == 0, "task shape");
+  static_assert((P / 8) % 2 == 1 && (BAND * sizeof(bf16)) % 16 == 0, "band layout");
+  constexpr size_t WB = (size_t)9 * CIN * COUT * sizeof(bf16);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint2* Ws = reinterpret_cast<const uint2*>(work);
+  bf16* bands = reinterpret_cast<bf16*>(work + align128(WB));
+  stage_weights(work, wpk, WB);
+  auto load = [&](int bi, int buf) { band_copy<CIN, Wd, R>(bands + buf * BAND, src, bi * R); };
+  auto prep = [&](int bi, int buf) {
+    if (GN) band_gn<CIN, Wd, R>(bands + buf * BAND, bi * R, sc, sh);
+    return GN;
+  };
+  const int cg = warp % CG;
+  const uint2* w0 = Ws + (size_t)(2 * cg) * KS * 32 + lane;
+  float s1 = 0.f, s2 = 0.f;
+  auto compute = [&](int bi, int buf) {
+    const bf16* band = bands + buf * BAND;
+    for (int task = warp; task < TASKS; task += kTcWarps) {
+      const int pg = task / CG, r = pg / SEG, x0 = (pg % SEG) * 16 * kMS;
+      const size_t o0 = ((size_t)(bi * R + r) * Wd + x0 + g) * COUT + 16 * cg + 2 * t;   // strip 0, row g, n8 tile 0
+      unsigned hv[kMS][2][2];   // [strip][n8 tile][row half]
+      if constexpr (GUIDED) {
+#pragma unroll
+        for (int i = 0; i < kMS; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              hv[i][j][h] = __ldg(reinterpret_cast<const unsigned*>(hg + o0 + (size_t)(16 * i + 8 * h) * COUT + 8 * j));
+      }
+      float acc[kMS][2][4];
+      zero(acc);
+      const bf16* a0 = band + (r * (Wd + 2) + x0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + (lane >> 4) * 8;
+      for (int tap = 0; tap < 9; ++tap)
+        mma_taps<CK>(acc, a0 + ((tap / 3) * (Wd + 2) + tap % 3) * P, P, w0, KS, tap * CK);
+#pragma unroll
+      for (int i = 0; i < kMS; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+            if constexpr (GUIDED) {
+              const float2 hf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hv[i][j][h]));
+              v0 += hf.x;
+              v1 += hf.y;
+            }
+            v0 = rnd<bf16>(v0);
+            v1 = rnd<bf16>(v1);
+            store_bf16x2(dst + o0 + (size_t)(16 * i + 8 * h) * COUT + 8 * j, v0, v1);
+            s1 += v0 + v1;
+            s2 += v0 * v0 + v1 * v1;
+          }
+    }
+  };
+  pipelined(Wd / R, load, prep, compute);
+  write_slot(slots + warp * 8, lane, s1, s2, cg, cg);
+  __syncthreads();
+}
+
+// ConvT k2s2 of a (Win, Win, CIN) plane into (2Win, 2Win, COUT): per-pixel
+// GEMM (CIN x 4 COUT) over chunks of kChunkTC pixels, output columns (phase,
+// channel); the epilogue scatters channel pairs to the four phases.
+template <int CIN, int COUT, int Win, bool GN>
+__device__ void convt_stage_tc(unsigned char* work, const bf16* src, bf16* dst, const bf16* wpk,
+                               const float* __restrict__ bias, const float* sc, const float* sh) {
+  constexpr int P = CIN + 8, NV = CIN / 8, KS = CIN / 16, NB = 4 * COUT / 16, SEG = kChunkTC / (16 * kMS);
+  constexpr int TASKS = SEG * NB;
+  static_assert((Win * Win) % kChunkTC == 0 && kChunkTC % (16 * kMS) == 0 && TASKS % kTcWarps == 0, "chunking");
+  static_assert(COUT % 16 == 0 && (P / 8) % 2 == 1, "a 16-column block lies in one phase; band layout");
+  constexpr size_t WB = (size_t)CIN * 4 * COUT * sizeof(bf16);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint2* Ws = reinterpret_cast<const uint2*>(work);
+  bf16* bufs = reinterpret_cast<bf16*>(work + align128(WB));
+  stage_weights(work, wpk, WB);
+  auto load = [&](int c, int buf) {
+    bf16* A = bufs + buf * kChunkTC * P;
+    const bf16* s = src + (size_t)c * kChunkTC * CIN;
+    for (int e = threadIdx.x; e < kChunkTC * NV; e += blockDim.x)
+      cp_async16(A + (e / NV) * P + (e % NV) * 8, s + (size_t)e * 8);
+  };
+  auto prep = [&](int, int buf) {
+    if (!GN) return false;
+    gn_relu_band<CIN, P>(bufs + buf * kChunkTC * P, kChunkTC, sc, sh, [](int) { return true; });
+    return true;
+  };
+  auto compute = [&](int c, int buf) {
+    const bf16* A = bufs + buf * kChunkTC * P;
+    for (int task = warp; task < TASKS; task += kTcWarps) {
+      const int cb = task % NB, s0 = (task / NB) * kMS;
+      float acc[kMS][2][4];
+      zero(acc);
+      const bf16* a0 = A + (16 * s0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + (lane >> 4) * 8;
+      mma_taps<KS>(acc, a0, P, Ws + (size_t)(2 * cb) * KS * 32 + lane, KS, 0);
+#pragma unroll
+      for (int i = 0; i < kMS; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = 16 * cb + 8 * j + 2 * t, ph = col / COUT, co = col % COUT;
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + co));
+          const float b0 = rnd<bf16>(bb.x), b1 = rnd<bf16>(bb.y);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = c * kChunkTC + 16 * (s0 + i) + g + 8 * h, y = p / Win, x = p % Win;
+            const size_t o = ((size_t)(2 * y + (ph >> 1)) * 2 * Win + 2 * x + (ph & 1)) * COUT + co;
+            store_bf16x2(dst + o, rnd<bf16>(acc[i][j][2 * h]) + b0, rnd<bf16>(acc[i][j][2 * h + 1]) + b1);
+          }
+        }
+    }
+  };
+  pipelined(Win * Win / kChunkTC, load, prep, compute);
+}
+
+// head on the tensor cores: conv3x3 32 -> 1 of ReLU(GN(c4)) + bias, fp32
+// out (96, 96).  The weight column comes padded to one n8 tile (the wrapper
+// packs (288, 8), columns 1-7 zero): the same bf16 products as the
+// CUDA-core head, summed in fp32 in the tensor cores' order; lanes t = 0
+// hold column 0.
+__device__ void head_stage_tc(unsigned char* work, const bf16* src, const bf16* wpk, float hb, float* out,
+                              const float* sc, const float* sh) {
+  constexpr int CIN = 32, Wd = 96, R = kBH, P = CIN + 8, CK = CIN / 16, KS = 9 * CK, SEG = Wd / (16 * kMS);
+  constexpr int BAND = (R + 2) * (Wd + 2) * P, TASKS = R * SEG;
+  static_assert(TASKS % kTcWarps == 0 && (P / 8) % 2 == 1, "task shape; band layout");
+  constexpr size_t WB = (size_t)9 * CIN * 8 * sizeof(bf16);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint2* Ws = reinterpret_cast<const uint2*>(work);
+  bf16* bands = reinterpret_cast<bf16*>(work + align128(WB));
+  stage_weights(work, wpk, WB);
+  auto load = [&](int bi, int buf) { band_copy<CIN, Wd, R>(bands + buf * BAND, src, bi * R); };
+  auto prep = [&](int bi, int buf) {
+    band_gn<CIN, Wd, R>(bands + buf * BAND, bi * R, sc, sh);
+    return true;
+  };
+  auto compute = [&](int bi, int buf) {
+    const bf16* band = bands + buf * BAND;
+    for (int task = warp; task < TASKS; task += kTcWarps) {
+      const int r = task / SEG, x0 = (task % SEG) * 16 * kMS;
+      float acc[kMS][1][4];
+      zero(acc);
+      const bf16* a0 = band + (r * (Wd + 2) + x0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + (lane >> 4) * 8;
+      for (int tap = 0; tap < 9; ++tap)
+        mma_taps<CK>(acc, a0 + ((tap / 3) * (Wd + 2) + tap % 3) * P, P, Ws + lane, KS, tap * CK);
+      if (t == 0) {
+        float* o = out + (size_t)(bi * R + r) * Wd + x0 + g;
+#pragma unroll
+        for (int i = 0; i < kMS; ++i) {
+          o[16 * i] = acc[i][0][0] + hb;
+          o[16 * i + 8] = acc[i][0][2] + hb;
+        }
+      }
+    }
+  };
+  pipelined(Wd / R, load, prep, compute);
+}
+
+// fp32 head: conv3x3 32 -> 1 of ReLU(GN(c4)) + bias, fp32 out (96, 96)
+__device__ void head_stage_fma(unsigned char* work, const float* src, const float* hw, float hb, float* out,
+                               const float* sc, const float* sh) {
+  using T = float;
+  constexpr int P = kHeadStride, V = 4, Wd = 96;
   T* band = reinterpret_cast<T*>(work);
   for (int y0 = 0; y0 < Wd; y0 += kRH) {
     __syncthreads();
@@ -337,72 +610,83 @@ __device__ void head_stage(unsigned char* work, const T* src, const float* hw, f
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreadsOf<T>, 1)
 decoder_kernel(const T* __restrict__ x, const T* __restrict__ hg1, const T* __restrict__ hg2, float* out,
                T* scratch, DecW<T> w, int N, int nT) {
   extern __shared__ __align__(128) unsigned char smraw[];
-  float* gsum = reinterpret_cast<float*>(smraw);  // [4][4][2]
-  float* sc = gsum + 32;
+  float* slots = reinterpret_cast<float*>(smraw);  // [warp][4 groups][2]
+  float* sc = slots + kMaxWarps * 8;
   float* sh = sc + 64;
   float* hw = sh + 64;
-  float* stage = hw + kHeadW;
   unsigned char* work = smraw + kHeader;
   T* bufA = scratch + (size_t)blockIdx.x * kScratch;
   T* bufB = bufA + kBufA;
   T* bufC = bufB + kBufB;
-  for (int i = threadIdx.x; i < kHeadW; i += blockDim.x) hw[i] = to_f(w.hd_w[i]);
+  const int nw = blockDim.x >> 5;
+  if constexpr (!kTC<T>)
+    for (int i = threadIdx.x; i < kHeadW; i += blockDim.x) hw[i] = w.hd_w[i];
   const float hb = w.hd_b[0];
   constexpr float cnt1 = 48.f * 48.f * 16.f, cnt2 = 96.f * 96.f * 16.f;
 
+#ifdef CATSEG_DEC_PHASE_CLOCKS
+  long long t_phase = clock64();
+#endif
   for (int n = blockIdx.x; n < N; n += gridDim.x) {
     const int img = n / nT;
     const T* hg1b = hg1 + (size_t)img * 48 * 48 * 64;
     const T* hg2b = hg2 + (size_t)img * 96 * 96 * 32;
-    for (int i = threadIdx.x; i < 32; i += blockDim.x) gsum[i] = 0.f;
-
-    // u1 = ConvT(x) -> A
-    convt_stage<T, 128, 96, 24, false>(work, x + (size_t)n * 24 * 24 * 128, bufA, w.up1_w, w.up1_b,
-                                       nullptr, nullptr, stage);
-    // c1 = conv(u1) + hg1 -> B
-    conv_stage<T, 96, 64, 48, kR1, kNG1, false>(
-        work, bufA, w.c11_w, nullptr, nullptr, stage, gsum, [&](int y, int xx, int co, float a) {
-          const size_t i = ((size_t)y * 48 + xx) * 64 + co;
-          const T v = from_f<T>(a + to_f(hg1b[i]));
-          bufB[i] = v;
-          return to_f(v);
-        });
-    gn_affine(gsum, w.gn11_g, w.gn11_b, 64, cnt1, sc, sh);
-    // c2 = conv(ReLU(GN(c1))) -> C
-    conv_stage<T, 64, 64, 48, kR2, kNG2, true>(
-        work, bufB, w.c12_w, sc, sh, stage, gsum + 8, [&](int y, int xx, int co, float a) {
-          const size_t i = ((size_t)y * 48 + xx) * 64 + co;
-          const T v = from_f<T>(a);
-          bufC[i] = v;
-          return to_f(v);
-        });
-    gn_affine(gsum + 8, w.gn12_g, w.gn12_b, 64, cnt1, sc, sh);
-    // u2 = ConvT(ReLU(GN(c2))) -> A
-    convt_stage<T, 64, 48, 48, true>(work, bufC, bufA, w.up2_w, w.up2_b, sc, sh, stage);
-    // c3 = conv(u2) + hg2 -> B
-    conv_stage<T, 48, 32, 96, kR3, kNG3, false>(
-        work, bufA, w.c21_w, nullptr, nullptr, stage, gsum + 16, [&](int y, int xx, int co, float a) {
-          const size_t i = ((size_t)y * 96 + xx) * 32 + co;
-          const T v = from_f<T>(a + to_f(hg2b[i]));
-          bufB[i] = v;
-          return to_f(v);
-        });
-    gn_affine(gsum + 16, w.gn21_g, w.gn21_b, 32, cnt2, sc, sh);
-    // c4 = conv(ReLU(GN(c3))) -> C
-    conv_stage<T, 32, 32, 96, kR4, kNG4, true>(
-        work, bufB, w.c22_w, sc, sh, stage, gsum + 24, [&](int y, int xx, int co, float a) {
-          const size_t i = ((size_t)y * 96 + xx) * 32 + co;
-          const T v = from_f<T>(a);
-          bufC[i] = v;
-          return to_f(v);
-        });
-    gn_affine(gsum + 24, w.gn22_g, w.gn22_b, 32, cnt2, sc, sh);
+    const T* xn = x + (size_t)n * 24 * 24 * 128;
+    if constexpr (kTC<T>) {
+      convt_stage_tc<128, 96, 24, false>(work, xn, bufA, w.up1_w, w.up1_b, nullptr, nullptr);
+      DEC_PHASE(0);
+      conv_stage_tc<96, 64, 48, kB1, false, true>(work, bufA, w.c11_w, nullptr, nullptr, slots, bufB, hg1b);
+      gn_affine(slots, nw, w.gn11_g, w.gn11_b, 64, cnt1, sc, sh);
+      DEC_PHASE(1);
+      conv_stage_tc<64, 64, 48, kB2, true, false>(work, bufB, w.c12_w, sc, sh, slots, bufC, nullptr);
+      gn_affine(slots, nw, w.gn12_g, w.gn12_b, 64, cnt1, sc, sh);
+      DEC_PHASE(2);
+      convt_stage_tc<64, 48, 48, true>(work, bufC, bufA, w.up2_w, w.up2_b, sc, sh);
+      DEC_PHASE(3);
+      conv_stage_tc<48, 32, 96, kB3, false, true>(work, bufA, w.c21_w, nullptr, nullptr, slots, bufB, hg2b);
+      gn_affine(slots, nw, w.gn21_g, w.gn21_b, 32, cnt2, sc, sh);
+      DEC_PHASE(4);
+      conv_stage_tc<32, 32, 96, kB4, true, false>(work, bufB, w.c22_w, sc, sh, slots, bufC, nullptr);
+      gn_affine(slots, nw, w.gn22_g, w.gn22_b, 32, cnt2, sc, sh);
+      DEC_PHASE(5);
+    } else {
+      convt_stage_fma<128, 96, 24, false>(work, xn, bufA, w.up1_w, w.up1_b, nullptr, nullptr);
+      conv_stage_fma<96, 64, 48, kR1, false>(work, bufA, w.c11_w, nullptr, nullptr, slots,
+                                             [&](int y, int xx, int co, float a) {
+                                               const size_t i = ((size_t)y * 48 + xx) * 64 + co;
+                                               return bufB[i] = a + hg1b[i];
+                                             });
+      gn_affine(slots, nw, w.gn11_g, w.gn11_b, 64, cnt1, sc, sh);
+      conv_stage_fma<64, 64, 48, kR2, true>(work, bufB, w.c12_w, sc, sh, slots, [&](int y, int xx, int co, float a) {
+        return bufC[((size_t)y * 48 + xx) * 64 + co] = a;
+      });
+      gn_affine(slots, nw, w.gn12_g, w.gn12_b, 64, cnt1, sc, sh);
+      convt_stage_fma<64, 48, 48, true>(work, bufC, bufA, w.up2_w, w.up2_b, sc, sh);
+      conv_stage_fma<48, 32, 96, kR3, false>(work, bufA, w.c21_w, nullptr, nullptr, slots,
+                                             [&](int y, int xx, int co, float a) {
+                                               const size_t i = ((size_t)y * 96 + xx) * 32 + co;
+                                               return bufB[i] = a + hg2b[i];
+                                             });
+      gn_affine(slots, nw, w.gn21_g, w.gn21_b, 32, cnt2, sc, sh);
+      conv_stage_fma<32, 32, 96, kR4, true>(work, bufB, w.c22_w, sc, sh, slots, [&](int y, int xx, int co, float a) {
+        return bufC[((size_t)y * 96 + xx) * 32 + co] = a;
+      });
+      gn_affine(slots, nw, w.gn22_g, w.gn22_b, 32, cnt2, sc, sh);
+    }
     // out = head(ReLU(GN(c4)))
-    head_stage<T>(work, bufC, hw, hb, out + (size_t)n * 96 * 96, sc, sh);
+    if constexpr (kTC<T>) {
+      head_stage_tc(work, bufC, w.hd_w, hb, out + (size_t)n * 96 * 96, sc, sh);
+    } else {
+      head_stage_fma(work, bufC, hw, hb, out + (size_t)n * 96 * 96, sc, sh);
+    }
+    DEC_PHASE(6);
+#ifdef CATSEG_DEC_PHASE_CLOCKS
+    if (threadIdx.x == 0) atomicAdd(&g_phase_cycles[kPhases], 1ull);
+#endif
   }
 }
 
@@ -414,7 +698,7 @@ template <typename T> cudaError_t prepare(int* blocks) {
     int dev = 0, sms = 0, per = 0;
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, decoder_kernel<T>, kThreads, smem_bytes<T>());
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, decoder_kernel<T>, kThreadsOf<T>, smem_bytes<T>());
     if (e != cudaSuccess) return e;
     *blocks = sms * (per > 0 ? per : 1);
   }
@@ -430,13 +714,24 @@ cudaError_t run(const void* x, const void* hg1, const void* hg2, void* out, void
                   f(9),  t(10), f(11), f(12), t(13), f(14), f(15), t(16), f(17)};
   cudaError_t e = prepare<T>(nullptr);
   if (e != cudaSuccess) return e;
-  decoder_kernel<T><<<grid, kThreads, smem_bytes<T>(), st>>>(
+  decoder_kernel<T><<<grid, kThreadsOf<T>, smem_bytes<T>(), st>>>(
       static_cast<const T*>(x), static_cast<const T*>(hg1), static_cast<const T*>(hg2),
       static_cast<float*>(out), static_cast<T*>(scratch), w, N, nT);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+#ifdef CATSEG_DEC_PHASE_CLOCKS
+// copies the timing build's per-stage cycle sums and slab count (kPhases + 1
+// values) to host memory and sets them to 0
+extern "C" int catseg_decoder_phase_cycles(unsigned long long* host) {
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_phase_cycles, sizeof(g_phase_cycles));
+  static const unsigned long long zeros[kPhases + 1] = {};
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_phase_cycles, zeros, sizeof(zeros));
+  return (int)e;
+}
+#endif
 
 // scratch elements one CTA needs (the wrapper allocates grid times this)
 extern "C" int catseg_decoder_scratch_elems() { return kScratch; }

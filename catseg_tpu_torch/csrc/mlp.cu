@@ -20,6 +20,8 @@
 // MLP at M = 1.47 M rows against 0.4-0.6 GB of x and out).  Every CTA still
 // reads all the weights from L2 (256 KB in bf16 per 64 rows); TMA multicast
 // across a cluster and wgmma tiles are the next step.
+#include <mma.h>
+
 #include "common.cuh"
 
 using namespace catseg;

@@ -278,31 +278,6 @@ struct SwinParamsTC {
   const float* fc2_b;
 };
 
-// element offset of (row, 16-byte chunk) in a swizzled tile of RC chunks a row
-template <int RC>
-__device__ __forceinline__ int sw(int row, int chunk) {
-  return row * RC * 8 + ((chunk ^ (row & 7)) << 3);
-}
-
-template <int RC>
-__device__ __forceinline__ bf16* at(bf16* tile, int row, int col) {
-  return tile + sw<RC>(row, col >> 3) + (col & 7);
-}
-
-__device__ __forceinline__ float2 unpack_bf16(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void store_bf16x2(bf16* p, float lo, float hi) {
-  *reinterpret_cast<unsigned*>(p) = pack_bf16(lo, hi);
-}
-
-// A fragment of rows 16 strip .. + 15, columns 16 ks .. + 15
-template <int RC>
-__device__ __forceinline__ void load_a(unsigned (&a)[4], const bf16* tile, int strip, int ks, int lane) {
-  ldmatrix_x4(a, tile + sw<RC>(16 * strip + (lane & 7) + ((lane >> 3) & 1) * 8, 2 * ks + (lane >> 4)));
-}
-
 // acc[i][j] += A (strips s0 + i, k-steps 0 .. 2 KP - 1) x W (n8 tiles j0 + j,
 // k-pairs p0 ..).  W in fragment order: the 16 bytes of lane l at (n8 tile j,
 // k-pair p) are its b0, b1 of k-steps 2p and 2p + 1, at index (j kp + p) 32 + l.
@@ -331,14 +306,6 @@ __device__ __forceinline__ void gemm(float (&acc)[MS][NT][4], const bf16* A, int
       }
     }
   }
-}
-
-template <int MS, int NT>
-__device__ __forceinline__ void zero(float (&acc)[MS][NT][4]) {
-#pragma unroll
-  for (int i = 0; i < MS; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
 }
 
 // epi(row, col, v0, v1) for each accumulator pair: rows 16 (s0 + i) + g and

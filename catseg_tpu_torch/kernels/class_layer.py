@@ -4,7 +4,10 @@ plain PyTorch version.
 Replaces catseg_tpu/kernels/class_layer.py:fused_class_layer (Pallas
 _kernel, _kernel_v2 and _kernel_v3; one Hopper kernel for all three).  The
 kernel (csrc/class_layer.cu) runs one CTA per (position, image) over the T
-class rows at stride H*W*C; its note there says what bounds it on the card.
+class rows at stride H*W*C.  In bf16 it runs its products on mma.sync tensor
+cores with the weights packed in fragment order (:func:`pack_mma_b`), about
+15x its bound on an H100: its phases (tools/class_phases.py) are latency-
+and issue-bound, none near the tensor cores' rate; its note there says more.
 The spec is the reference's ``_reference``: q and k stay fp32 through the
 guidance add and elu+1, linear attention adds the learnable padding rows as
 constant KV / K-sum terms (:func:`pad_contributions`).
@@ -26,6 +29,7 @@ import torch
 from . import _build
 from .autograd import plain_vjp
 from .layer_norm import layer_norm_fp32
+from .swin_block import pack_mma_b
 
 _EPS = 1e-6
 
@@ -122,22 +126,35 @@ def _check_cuda(x, heads: int) -> None:
                                   f"classes per position; got C={C}, heads={heads}, T={T}")
 
 
-def _class_layer_cuda(x, qg, kg, pad_kv, pad_ksum, kp: dict, Tp: int) -> torch.Tensor:
+def layer_args(x, qg, kg, pad_kv, pad_ksum, kp: dict, Tp: int) -> tuple[torch.Tensor, tuple]:
+    """(out, the arguments of C entry point ``catseg_class_layer``) for one
+    layer on CUDA tensors: weights cast (and in bf16 packed) as the kernel
+    takes them."""
     B, T, H, W, C = x.shape
     dt = x.dtype
     # weight matrices travel in the compute dtype (bf16 feeds the tensor
-    # cores); LN parameters and biases in fp32, unrounded as in the spec
-    w = [kp[k].to(dt) if k.endswith("_w") else kp[k].float() for k in _KP]
-    w = [v.contiguous() for v in w]
+    # cores, packed in mma fragment order); LN parameters and biases in
+    # fp32, unrounded as in the spec
+    pack = pack_mma_b if dt == torch.bfloat16 else torch.Tensor.contiguous
+    w = [(pack(kp[k].to(dt)) if k.endswith("_w") else kp[k].float()).contiguous() for k in _KP]
     x = x.contiguous()
-    out = torch.empty_like(x)
     has_guid = qg is not None
     if has_guid:
         qg, kg = qg.to(dt).contiguous(), kg.to(dt).contiguous()
+    # the bf16 kernel reads class rows by 16-byte cp.async
+    rows = (x, qg, kg) if has_guid else (x,)
+    if any(t.data_ptr() % 16 for t in rows):
+        raise ValueError(f"class layer kernel reads class rows by 16-byte copies: x, qg and kg must start 16-byte "
+                         f"aligned; got addresses mod 16 {[t.data_ptr() % 16 for t in rows]}")
+    out = torch.empty_like(x)
     pkv = pad_kv.float().contiguous()
     pks = pad_ksum.float().reshape(C).contiguous()
-    _build.launch("catseg_class_layer", x, out, qg, kg, pkv, pks, *w,
-                  B, T, H * W, int(has_guid), float(Tp), int(dt == torch.bfloat16))
+    return out, (x, out, qg, kg, pkv, pks, *w, B, T, H * W, int(has_guid), float(Tp), int(dt == torch.bfloat16))
+
+
+def _class_layer_cuda(x, qg, kg, pad_kv, pad_ksum, kp: dict, Tp: int) -> torch.Tensor:
+    out, args = layer_args(x, qg, kg, pad_kv, pad_ksum, kp, Tp)
+    _build.launch("catseg_class_layer", *args)
     _build.count("class_layer")
     return out
 

@@ -10,8 +10,13 @@ ReLU, conv3x3 64 -> 64, GN(4) + ReLU at 48^2; ConvT 64 -> 48, conv3x3 48 -> 32
 conv(concat(u, g)) == conv_u(u) + conv_g(g): the guidance half runs once per
 image here, in plain PyTorch, as the reference's ``_prep_guidance`` runs
 outside its Pallas call.  The kernel (csrc/decoder.cu) takes the flagship
-geometry only (:func:`decoder_kernel_applicable`); its note there says what
-bounds it on the card.
+geometry only (:func:`decoder_kernel_applicable`).  In bf16 it runs every
+conv, ConvT and the head on mma.sync tensor cores over double-buffered
+cp.async bands, its weights packed 16 rows deep in fragment order
+(:func:`pack_mma_b`), at about 6x its tensor-core bound on an H100: the
+per-CTA scratch planes (~7 MB a slab, beyond the L2) and the latency inside
+each stage hold it there; its note there says more.  GroupNorm sums go through per-warp slots
+in a fixed order, so two runs are bit-equal.
 
 The plain version is the reference's ``_up_tail`` pair (core/aggregator.py
 there): the wrapper takes it only for CPU tensors.  Parameter dicts hold the
@@ -35,6 +40,7 @@ import torch
 from ..ops import conv2d, conv_transpose2d_nonoverlap, group_norm
 from . import _build
 from .autograd import plain_vjp
+from .swin_block import pack_mma_b
 
 BASE = 24   # feature grid the kernel is written for
 
@@ -123,19 +129,29 @@ def _check_cuda(x, g1, g2, d1, d2) -> None:
 
 
 def _kernel_weights(p: dict, dt: torch.dtype, f32: bool) -> list:
-    """The kernel's layouts: ConvT (Cin, 4 Cout) columns, conv taps (9 Cin, Cout);
-    matrices in dt (or fp32 rounded through dt), vectors fp32."""
+    """The kernel's layouts: ConvT (Cin, 4 Cout) columns, conv taps (9 Cin,
+    Cout); matrices in dt (or fp32 rounded through dt), vectors fp32.  The
+    bf16 kernel takes its ConvT and conv matrices packed in mma fragment
+    order, 16 rows deep (:func:`pack_mma_b`; 9 x 48 rows are no multiple of
+    32), the head's (288, 1) taps padded with zero columns to one n8 tile."""
+    tc = dt == torch.bfloat16 and not f32
+    pack = (lambda w: pack_mma_b(w, 16)) if tc else torch.Tensor.contiguous  # noqa: E731
     mat = (lambda w: w.to(dt).float().contiguous()) if f32 else (lambda w: w.to(dt).contiguous())  # noqa: E731
     vec = lambda v: v.float().reshape(-1).contiguous()  # noqa: E731
     out = []
     for s in (1, 2):
-        out += [mat(_up_cols(p[f"up{s}_w"], dt)), vec(p[f"up{s}_b"]), mat(_conv_taps(p[f"c{s}1_w"], dt)),
-                vec(p[f"gn{s}1_g"]), vec(p[f"gn{s}1_b"]), mat(_conv_taps(p[f"c{s}2_w"], dt)),
+        out += [pack(mat(_up_cols(p[f"up{s}_w"], dt))), vec(p[f"up{s}_b"]), pack(mat(_conv_taps(p[f"c{s}1_w"], dt))),
+                vec(p[f"gn{s}1_g"]), vec(p[f"gn{s}1_b"]), pack(mat(_conv_taps(p[f"c{s}2_w"], dt))),
                 vec(p[f"gn{s}2_g"]), vec(p[f"gn{s}2_b"])]
-    return out + [mat(_conv_taps(p["hd_w"], dt).reshape(-1)), vec(p["hd_b"])]
+    hd = _conv_taps(p["hd_w"], dt)
+    hd = pack(torch.nn.functional.pad(mat(hd), (0, 7))) if tc else mat(hd.reshape(-1))
+    return out + [hd, vec(p["hd_b"])]
 
 
-def _decoder_cuda(x, hg1, hg2, p: dict) -> torch.Tensor:
+def decoder_args(x, hg1, hg2, p: dict) -> tuple[torch.Tensor, tuple]:
+    """(out, the arguments of C entry point ``catseg_decoder``) for the
+    fused decoder on CUDA tensors: weights cast (and in bf16 packed) as the
+    kernel takes them, the persistent grid and its scratch allocated."""
     N = x.shape[0]
     dt = x.dtype
     B = hg1.shape[0]
@@ -144,6 +160,10 @@ def _decoder_cuda(x, hg1, hg2, p: dict) -> torch.Tensor:
         raise ValueError(f"guidance planes {tuple(hg1.shape)}, {tuple(hg2.shape)}")
     w = _kernel_weights(p, dt, f32=False)
     x = x.contiguous()
+    # the bf16 kernel reads x by 16-byte cp.async, the guidance planes by channel pairs
+    if any(t.data_ptr() % 16 for t in (x, hg1, hg2)):
+        raise ValueError("decoder kernel reads slabs by 16-byte copies: x, hg1 and hg2 must start 16-byte "
+                         f"aligned; got addresses mod 16 {[t.data_ptr() % 16 for t in (x, hg1, hg2)]}")
     lib = _build.library()
     with torch.cuda.device(x.device):
         blocks = lib.catseg_decoder_blocks(int(dt == torch.bfloat16))
@@ -153,8 +173,12 @@ def _decoder_cuda(x, hg1, hg2, p: dict) -> torch.Tensor:
     grid = min(N, blocks)
     scratch = torch.empty(grid * lib.catseg_decoder_scratch_elems(), dtype=dt, device=x.device)
     out = torch.empty((N, 96, 96), dtype=torch.float32, device=x.device)
-    _build.launch("catseg_decoder", x, hg1, hg2, out, scratch, *w, N, N // B,
-                  grid, int(dt == torch.bfloat16))
+    return out, (x, hg1, hg2, out, scratch, *w, N, N // B, grid, int(dt == torch.bfloat16))
+
+
+def _decoder_cuda(x, hg1, hg2, p: dict) -> torch.Tensor:
+    out, args = decoder_args(x, hg1, hg2, p)
+    _build.launch("catseg_decoder", *args)
     _build.count("decoder")
     return out
 

@@ -133,14 +133,15 @@ def _check_cuda(x, heads: int, win: int) -> None:
                                   f"got C={C}, heads={heads}, window={win}, grid {H}x{W}")
 
 
-def pack_mma_b(w: torch.Tensor) -> torch.Tensor:
-    """A (K, N) weight as the bf16 kernel reads its mma.m16n8k16 B fragments:
-    for n8 tile j and k-pair p (rows 32p .. 32p + 31), lane l = 4g + t holds
-    16 bytes, W[32p + 8r + 2t + h, 8j + g] for r = 0..3, h = 0..1 (b0, b1
-    of k-step 2p, then of 2p + 1), at element ((j K/32 + p) 32 + l) 8; a
-    warp reads a tile's pair as 512 contiguous bytes."""
+def pack_mma_b(w: torch.Tensor, depth: int = 32) -> torch.Tensor:
+    """A (K, N) weight as the bf16 kernels read their mma.m16n8k16 B
+    fragments: for n8 tile j and block p of ``depth`` rows (32: two k-steps,
+    16: one), lane l = 4g + t holds W[depth p + 8r + 2t + h, 8j + g] for r <
+    depth / 8, h = 0..1 (b0, b1 of each k-step in turn), at element ((j K /
+    depth + p) 32 + l) depth / 4; a warp reads a tile's block as 32 depth / 2
+    contiguous bytes."""
     K, N = w.shape
-    return w.reshape(K // 32, 4, 4, 2, N // 8, 8).permute(4, 0, 5, 2, 1, 3).contiguous()
+    return w.reshape(K // depth, depth // 8, 4, 2, N // 8, 8).permute(4, 0, 5, 2, 1, 3).contiguous()
 
 
 def block_args(x, qg, kg, p: dict, shift: int) -> tuple[torch.Tensor, tuple]:

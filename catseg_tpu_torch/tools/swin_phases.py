@@ -3,7 +3,7 @@
     python -m catseg_tpu_torch.tools.swin_phases [--reps 5]
 
 Builds csrc/swin_block.cu twice more as timing builds (into
-``catseg_tpu_torch/_build/swin_phases/<hash>/``, never the port's library):
+``catseg_tpu_torch/_build/swin_block_phases/<hash>/``, never the port's library):
 ``clocks`` with CATSEG_SWIN_PHASE_CLOCKS (thread 0 of every CTA adds the
 clock64 cycles between the kernel's barriers, per phase), and ``l1`` with
 CATSEG_SWIN_WEIGHTS_FROM_L1 as well (every weight fragment read from 8 KB a
@@ -43,16 +43,19 @@ BUILDS = {"clocks": ("-DCATSEG_SWIN_PHASE_CLOCKS",),
           "l1": ("-DCATSEG_SWIN_PHASE_CLOCKS", "-DCATSEG_SWIN_WEIGHTS_FROM_L1")}
 
 
-def build() -> dict[str, ctypes.CDLL]:
-    """Both timing builds (one nvcc each, started together), loaded."""
-    srcs = [_build.CSRC / "swin_block.cu", _build.CSRC / "errors.cu"]
+def timing_builds(stem: str, builds: dict[str, tuple], entry: str, cycles_fn: str) -> dict[str, ctypes.CDLL]:
+    """csrc/<stem>.cu as one library per timing build (``builds``: name ->
+    extra nvcc defines; one nvcc each, started together) under
+    ``_build/<stem>_phases/<hash>/``, loaded with C entry point ``entry`` and
+    the phase-cycle reader ``cycles_fn`` bound."""
+    srcs = [_build.CSRC / f"{stem}.cu", _build.CSRC / "errors.cu"]
     h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
     for p in sorted(_build.CSRC.glob("*.cuh")) + srcs:
         h.update(p.read_bytes())
-    out_dir = _build.BUILD_ROOT / "swin_phases" / h.hexdigest()[:16]
+    out_dir = _build.BUILD_ROOT / f"{stem}_phases" / h.hexdigest()[:16]
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, defs in BUILDS.items():
+    for name, defs in builds.items():
         lib = out_dir / f"lib{name}.so"
         if not lib.exists():
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *defs, "-shared", "-o", str(lib), *map(str, srcs)]
@@ -63,25 +66,30 @@ def build() -> dict[str, ctypes.CDLL]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the {name} build:\n{log[-8000:]}")
     libs = {}
-    for name in BUILDS:
+    for name in builds:
         lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-        fn = lib.catseg_swin_block
-        fn.argtypes = [_build._CTYPE[k] for k in _build._SIGNATURES["catseg_swin_block"]] + [ctypes.c_void_p]
+        fn = getattr(lib, entry)
+        fn.argtypes = [_build._CTYPE[k] for k in _build._SIGNATURES[entry]] + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.catseg_swin_phase_cycles.argtypes = [ctypes.c_void_p]
-        lib.catseg_swin_phase_cycles.restype = ctypes.c_int
+        getattr(lib, cycles_fn).argtypes = [ctypes.c_void_p]
+        getattr(lib, cycles_fn).restype = ctypes.c_int
         lib.catseg_error_string.argtypes = [ctypes.c_int]
         lib.catseg_error_string.restype = ctypes.c_char_p
         libs[name] = lib
     return libs
 
 
-def cycles(lib) -> list[int]:
-    """Per-phase cycle sums and the CTA count since the last read (then 0)."""
-    buf = (ctypes.c_ulonglong * (len(PHASES) + 1))()
-    err = lib.catseg_swin_phase_cycles(ctypes.addressof(buf))
+def build() -> dict[str, ctypes.CDLL]:
+    """Both timing builds of the Swin kernel, loaded."""
+    return timing_builds("swin_block", BUILDS, "catseg_swin_block", "catseg_swin_phase_cycles")
+
+
+def cycles(lib, n: int = len(PHASES), fn: str = "catseg_swin_phase_cycles") -> list[int]:
+    """Per-phase cycle sums of ``n`` phases and the CTA count since the last read (then 0)."""
+    buf = (ctypes.c_ulonglong * (n + 1))()
+    err = getattr(lib, fn)(ctypes.addressof(buf))
     if err:
-        raise RuntimeError(f"catseg_swin_phase_cycles: cudaError {err}")
+        raise RuntimeError(f"{fn}: cudaError {err}")
     return list(buf)
 
 

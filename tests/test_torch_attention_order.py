@@ -215,38 +215,42 @@ def test_swin_order_matches_reference_pair(monkeypatch, guided):
     _check(got.float(), want, "bfloat16")
 
 
-def test_swin_weight_packing_is_the_mma_fragment_layout():
-    """pack_mma_b against the m16n8k16 fragment layout of csrc/attn_common.cuh:
-    element by element, and by emulating the kernel's gemm (A fragments as
-    ldmatrix gives them, B from the packed 16 bytes of each lane, C rows g
-    and g + 8) on one 16-row strip of a (16, 64) x (64, 24) product."""
+@pytest.mark.parametrize("K,N,depth", [(64, 24, 32), (128, 384, 32), (512, 128, 32), (128, 384, 16),
+                                         (432, 32, 16), (288, 8, 16)],
+                         ids=["toy", "class-qkv", "class-fc2", "decoder-convt1", "decoder-conv3", "decoder-head"])
+def test_swin_weight_packing_is_the_mma_fragment_layout(K, N, depth):
+    """pack_mma_b against the m16n8k16 fragment layout of csrc/attn_common.cuh,
+    at the kernels' shapes (a toy one; #6's qkv and fc2 weights, 32 rows deep
+    a block; #8's ConvT, 3x3-conv and padded head taps, 16 deep, where 9 x 48
+    rows are no multiple of 32): element by element, and by emulating the kernels' gemm
+    (A fragments as ldmatrix gives them, B from the packed bytes of each
+    lane, C rows g and g + 8) on one 16-row strip of a (16, K) x (K, N)
+    product."""
     rng = np.random.RandomState(5)
-    K, N = 64, 24
     w = rng.randn(K, N).astype(np.float32)
-    packed = tsw.pack_mma_b(torch.from_numpy(w)).reshape(-1, 8).numpy()
-    kp = K // 32
-    for j in range(N // 8):
-        for p in range(kp):
-            for lane in range(32):
-                g, t = lane // 4, lane % 4
-                for r in range(4):
-                    for h in range(2):
-                        assert packed[(j * kp + p) * 32 + lane, 2 * r + h] == w[32 * p + 8 * r + 2 * t + h, 8 * j + g]
+    packed = tsw.pack_mma_b(torch.from_numpy(w), depth).reshape(-1, depth // 4).numpy()
+    kp = K // depth
+    j, p, lane, r, h = np.meshgrid(np.arange(N // 8), np.arange(kp), np.arange(32), np.arange(depth // 8),
+                                   np.arange(2), indexing="ij")
+    g, t = lane // 4, lane % 4
+    np.testing.assert_array_equal(packed[(j * kp + p) * 32 + lane, 2 * r + h],
+                                  w[depth * p + 8 * r + 2 * t + h, 8 * j + g])
     # one 16-row strip through the kernel's loop: per k-step, the tiles the
     # mma sees are assembled from each lane's fragments as the layout places them
     a = rng.randn(16, K).astype(np.float32)
     c = np.zeros((16, N), np.float32)
-    for j in range(N // 8):
-        for p in range(kp):
-            for hstep in range(2):
-                ks = 2 * p + hstep
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    for jj in range(N // 8):
+        for pp in range(kp):
+            for q in range(depth // 16):
+                ks = pp * (depth // 16) + q
                 a_tile, b_tile = np.zeros((16, 16), np.float32), np.zeros((16, 8), np.float32)
-                for lane in range(32):
-                    g, t = lane // 4, lane % 4
-                    for dr, dk in ((0, 0), (8, 0), (0, 8), (8, 8)):   # a0..a3
-                        a_tile[g + dr, 2 * t + dk:2 * t + dk + 2] = a[g + dr, 16 * ks + 2 * t + dk:16 * ks + 2 * t + dk + 2]
-                    frag = packed[(j * kp + p) * 32 + lane, 4 * hstep:4 * hstep + 4]
-                    b_tile[2 * t:2 * t + 2, g] = frag[:2]        # b0
-                    b_tile[2 * t + 8:2 * t + 10, g] = frag[2:]   # b1
-                c[:, 8 * j:8 * j + 8] += a_tile @ b_tile
+                for dr, dk in ((0, 0), (8, 0), (0, 8), (8, 8)):   # a0..a3
+                    for e in range(2):
+                        a_tile[g + dr, 2 * t + dk + e] = a[g + dr, 16 * ks + 2 * t + dk + e]
+                frag = packed[(jj * kp + pp) * 32 + np.arange(32), 4 * q:4 * q + 4]
+                for e in range(2):
+                    b_tile[2 * t + e, g] = frag[:, e]           # b0
+                    b_tile[2 * t + 8 + e, g] = frag[:, 2 + e]   # b1
+                c[:, 8 * jj:8 * jj + 8] += a_tile @ b_tile
     np.testing.assert_allclose(c, a @ w, rtol=1e-5, atol=1e-4)

@@ -140,9 +140,9 @@ def test_topk_path_runs_on_cuda(cuda):
     assert _build.LAUNCHES["class_layer"] > 0 and _build.LAUNCHES["decoder"] > 0
     dropped = sorted(set(range(6)) - set(classes[0].tolist()))
     assert (full[0, dropped] == -100.0).all()
-    # two runs: the decoder kernel sums GroupNorm statistics with atomics, in
-    # an order that changes from run to run
-    torch.testing.assert_close(full[0, classes[0]], logits[0], atol=1e-5, rtol=1e-5)
+    # two runs: the decoder kernel sums its GroupNorm statistics in a fixed
+    # order (each warp's partials in its own slot), so they are bit-equal
+    assert torch.equal(full[0, classes[0]], logits[0])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -489,3 +489,147 @@ def test_swin_block_refuses_misaligned_rows(cuda, dtype):
         with pytest.raises(ValueError, match="16-byte"):
             swin_block._swin_block_cuda(x, qg, kg, p, 0)
     assert _build.LAUNCHES["swin_block"] == before
+
+
+def _class_params(g, cuda, C=128):
+    def u(*shape, bound=None):
+        bound = shape[0] ** -0.5 if bound is None else bound
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * bound).to(cuda)
+
+    return {"ln1_g": 1 + u(C, bound=0.1), "ln1_b": u(C, bound=0.1), "q_w": u(2 * C, C), "q_b": u(C),
+            "k_w": u(2 * C, C), "k_b": u(C), "v_w": u(C, C), "v_b": u(C), "ln2_g": 1 + u(C, bound=0.1),
+            "ln2_b": u(C, bound=0.1), "mlp1_w": u(C, 4 * C), "mlp1_b": u(4 * C), "mlp2_w": u(4 * C, C),
+            "mlp2_b": u(C)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("guided", [False, True], ids=["plain", "guided"])
+@pytest.mark.parametrize("grid", [4, 24], ids=["4x4", "24x24"])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("T", [1, 5, 150, 256])
+def test_class_layer_geometries(cuda, T, B, grid, guided, dtype):
+    """One class layer (bf16: the tensor-core kernel, rows padded to 16;
+    fp32: CUDA cores) on B images x T classes over a 4 x 4 or a 24 x 24 grid,
+    with and without guidance, pad_len 256, against the plain layer: 2^-5
+    (bf16) and 1e-4 (fp32) of max(1, |plain|).  The launch count rises by
+    one and two runs are bit-equal."""
+    C, Tp = 128, 256
+    g = torch.Generator().manual_seed(T * 10 + B + grid)
+    cp = _class_params(g, cuda)
+    x = torch.randn(B, T, grid, grid, C, generator=g).to(cuda, dtype)
+    qg, kg = (None, None) if not guided else (
+        (torch.randn(B, T, C, generator=g) * 0.3).to(cuda, dtype) for _ in range(2))
+    pkv, pks = class_layer.pad_contributions(torch.randn(C, generator=g).to(cuda),
+                                             torch.randn(C, generator=g).to(cuda), cp, Tp - T, Tp, 4)
+    before = _build.LAUNCHES["class_layer"]
+    got = class_layer.fused_class_layer(x, qg, kg, pkv, pks, cp, 4, Tp)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["class_layer"] == before + 1
+    want = class_layer.class_layer_plain(x, qg, kg, pkv, pks, cp, 4, Tp)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err, rel = selfcheck.rel_err(got, want)
+    assert rel <= selfcheck.BOUND[dtype], (err, rel)
+    assert torch.equal(got, class_layer.fused_class_layer(x, qg, kg, pkv, pks, cp, 4, Tp))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_class_layer_refuses_misaligned_rows(cuda, dtype):
+    """The bf16 kernel reads class rows by 16-byte copies: an x or a guidance
+    view that starts one element into its storage raises before any launch
+    (in both dtypes, one check)."""
+    C = 128
+    g = torch.Generator().manual_seed(12)
+    cp = _class_params(g, cuda)
+    n = 5 * 4 * 4 * C
+    buf = torch.randn(n + 1, generator=g).to(cuda, dtype)
+    odd, good = buf[1:].view(1, 5, 4, 4, C), buf[:n].view(1, 5, 4, 4, C)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    gbuf = torch.randn(5 * C + 1, generator=g).to(cuda, dtype)
+    godd, ggood = gbuf[1:].view(1, 5, C), gbuf[:5 * C].view(1, 5, C)
+    pkv, pks = torch.zeros(C, C, device=cuda), torch.zeros(1, C, device=cuda)
+    before = _build.LAUNCHES["class_layer"]
+    for x, qg, kg in ((odd, None, None), (good, godd, ggood), (good, ggood, godd)):
+        with pytest.raises(ValueError, match="16-byte"):
+            class_layer.fused_class_layer(x, qg, kg, pkv, pks, cp, 4, 8)
+    assert _build.LAUNCHES["class_layer"] == before
+
+
+def _decoder_inputs(g, cuda, images, T, dtype):
+    def u(*shape, bound):
+        return ((torch.rand(*shape, generator=g) * 2 - 1) * bound).to(cuda)
+
+    def up(cin, cup, mid):
+        return {"up_w": u(cin, cup, 2, 2, bound=(4 * cin) ** -0.5), "up_b": u(cup, bound=0.05),
+                "conv1_w": u(mid, cin, 3, 3, bound=(9 * cin) ** -0.5),
+                "gn1_g": 1 + u(mid, bound=0.1), "gn1_b": u(mid, bound=0.1),
+                "conv2_w": u(mid, mid, 3, 3, bound=(9 * mid) ** -0.5),
+                "gn2_g": 1 + u(mid, bound=0.1), "gn2_b": u(mid, bound=0.1)}
+
+    d1, d2 = up(128, 96, 64), up(64, 48, 32)
+    head = {"w": u(1, 32, 3, 3, bound=(9 * 32) ** -0.5), "b": u(1, bound=0.1)}
+    x = torch.randn(images * T, 24, 24, 128, generator=g).to(cuda, dtype)
+    g1 = (torch.randn(images, 48, 48, 32, generator=g) * 0.5).to(cuda, dtype)
+    g2 = (torch.randn(images, 96, 96, 16, generator=g) * 0.5).to(cuda, dtype)
+    return x, g1, g2, d1, d2, head
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("images,T", [(1, 5), (3, 45)], ids=["1x5", "3x45"])
+def test_decoder_slab_counts(cuda, images, T, dtype):
+    """The decoder kernel on 1 image x 5 classes and on 3 images x 45 (135
+    slabs: the persistent grid of one CTA an SM does not divide them evenly
+    on a 132-SM card) against the plain decoder: 2^-5 (bf16) and 1e-4 (fp32)
+    of max(1, |plain|); the launch count rises by one."""
+    from catseg_tpu_torch.kernels import decoder
+
+    g = torch.Generator().manual_seed(images * 100 + T)
+    x, g1, g2, d1, d2, head = _decoder_inputs(g, cuda, images, T, dtype)
+    before = _build.LAUNCHES["decoder"]
+    got = decoder.fused_decoder(x, g1, g2, d1, d2, head)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decoder"] == before + 1
+    want = decoder.decoder_plain(x, g1, g2, d1, d2, head)
+    assert got.shape == want.shape == (images * T, 96, 96) and got.dtype == torch.float32
+    err, rel = selfcheck.rel_err(got, want)
+    assert rel <= selfcheck.BOUND[dtype], (err, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_decoder_is_deterministic(cuda, dtype):
+    """GroupNorm sums go through per-warp slots in a fixed order, no atomics:
+    two runs on one input (140 slabs over 2 images) are bit-equal."""
+    from catseg_tpu_torch.kernels import decoder
+
+    g = torch.Generator().manual_seed(21)
+    x, g1, g2, d1, d2, head = _decoder_inputs(g, cuda, 2, 70, dtype)
+    a = decoder.fused_decoder(x, g1, g2, d1, d2, head)
+    b = decoder.fused_decoder(x, g1, g2, d1, d2, head)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_decoder_refuses_misaligned_rows(cuda, dtype):
+    """The bf16 kernel reads slabs by 16-byte copies: an x or a guidance plane
+    that starts one element into its storage raises before any launch (in
+    both dtypes, one check)."""
+    from catseg_tpu_torch.kernels import decoder
+
+    g = torch.Generator().manual_seed(13)
+    x, g1, g2, d1, d2, head = _decoder_inputs(g, cuda, 1, 2, dtype)
+    p = dict(zip(decoder._DK, decoder._params(d1, d2, head)))
+    hg1, hg2 = decoder._guidance_half(d1, g1, 96, dtype), decoder._guidance_half(d2, g2, 48, dtype)
+
+    def odd(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16
+        return v
+
+    before = _build.LAUNCHES["decoder"]
+    with pytest.raises(ValueError, match="16-byte"):
+        decoder.fused_decoder(odd(x), g1, g2, d1, d2, head)
+    for a, b in ((odd(hg1), hg2), (hg1, odd(hg2))):
+        with pytest.raises(ValueError, match="16-byte"):
+            decoder._decoder_cuda(x, a, b, p)
+    assert _build.LAUNCHES["decoder"] == before
