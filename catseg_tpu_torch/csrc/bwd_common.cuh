@@ -1,31 +1,54 @@
 // Building blocks of the backward kernels (swin_block_bwd.cu,
 // class_layer_bwd.cu, decoder_bwd.cu), sm_90a.
 //
-// A backward entry point recomputes its forward into a caller-allocated fp32
-// workspace and then walks the stages in reverse with four kinds of kernel:
+// A backward entry point recomputes its forward into a caller-allocated
+// workspace and then walks the stages in reverse.  Two engines run the
+// matrix products:
 //
-// - gemm: C = A B on CUDA-core FMAs (64x64 or 128x32 tiles, 16-deep k
-//   steps, a 4x4 or 8x2 micro-tile per thread), with A and B read through
-//   loader functors (dense, transposed, im2col of an NHWC plane, GroupNorm +
-//   ReLU applied on the fly) and each output handed to an epilogue functor,
-//   so bias, rounding, activation derivatives and scatters fuse into it;
-// - wgrad: a weight gradient sum_m A(m, r) B(m, c) over every row of the
-//   batch as a split-K gemm into per-split partials, then sum_mid over the
-//   splits in a fixed order, so results do not depend on scheduling (no
-//   atomics anywhere); an optional all-ones row gives the bias gradient;
+// - gemm (the fp32 paths and the class layer's): C = A B on CUDA-core FMAs
+//   (64x64 or 128x32 tiles, 16-deep k steps, a 4x4 or 8x2 micro-tile per
+//   thread), with A and B read element by element through loader functors
+//   (dense, transposed, im2col of an NHWC plane, GroupNorm + ReLU applied on
+//   the fly) and each output handed to an epilogue functor, so bias,
+//   rounding, activation derivatives and scatters fuse into it;
+// - tc::gemm (the bf16 paths of the Swin block and the decoder): bf16
+//   mma.sync m16n8k16 with fp32 accumulation.  A and B tiles land in shared
+//   memory by 16-byte cp.async in a ring of 3 to 6 stages, each 16-byte chunk
+//   eight consecutive elements of one row of a bf16 source (a dense row, a
+//   token's channels, one tap's channel run of an NHWC plane, one phase of a
+//   ConvT's output), XOR-swizzled so that ldmatrix reads them without bank
+//   conflicts.  A is read as stored (m, k) rows by ldmatrix, or as stored
+//   (k, m) rows by ldmatrix.trans (the transposed operand of a weight
+//   gradient), or, for a 3x3 conv's recompute and input grads, from a halo
+//   tile: the input rows a tile of whole output rows touches, landed once,
+//   each tap read by ldmatrix at shifted rows (no 9-fold reload of the
+//   im2col); B always as stored (k, n) rows by ldmatrix.trans.  An operand
+//   the plain version keeps in fp32 arrives as a bf16 pair hi + lo (hi =
+//   bf16(v), lo = bf16(v - hi): 16 significant bits, finer than TF32's 11),
+//   its tile loaded twice and multiplied twice into the same accumulators.
+//   Epilogues get two adjacent columns of the accumulator fragments;
+// - wgrad / tc::wgrad: a weight gradient sum_m A(m, r) B(m, c) over every row
+//   of the batch as a split-K product into per-split partials, then sum_mid
+//   over the splits in a fixed order, so results do not depend on scheduling
+//   (no atomics anywhere); an optional extra row gives the bias gradient
+//   (the fp32 wgrad multiplies an all-ones row in; tc::wgrad sums the B
+//   tiles' columns as they pass through shared memory);
 // - ln_fwd / ln_bwd: 128-wide LayerNorm rows, one warp per row, with the
 //   forward kernels' exact statistics and per-block partials of the
 //   gain/bias gradients;
 // - sum_mid: out[o, r, c] = sum_i in[o, i, r, c] for strided inputs (split
 //   partials, guidance gradients summed over classes or positions).
 //
-// Everything is fp32 in the workspace; values are rounded through the
-// storage type T (rnd<T>) where the forward kernels round, so the bf16
-// recompute sees the forward's numbers.
+// The fp32 paths keep everything fp32 in the workspace; values are rounded
+// through the storage type T (rnd<T>) where the forward kernels round, so the
+// bf16 recompute sees the forward's numbers, and the bf16 paths store those
+// bf16-exact values as bf16.
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
+#include "attn_common.cuh"
 #include "common.cuh"
 
 namespace catseg {
@@ -84,6 +107,9 @@ struct Store {  // C[m, n] at row stride ld
   float* p;
   long long ld;
   __device__ __forceinline__ void operator()(long long m, long long n, float v, int) const { p[m * ld + n] = v; }
+  __device__ __forceinline__ void operator()(long long m, long long n, float v0, float v1, int) const {
+    *reinterpret_cast<float2*>(p + m * ld + n) = make_float2(v0, v1);
+  }
 };
 
 struct Partial {  // split z's partial (rows, cols) block
@@ -91,6 +117,9 @@ struct Partial {  // split z's partial (rows, cols) block
   long long rows, cols;
   __device__ __forceinline__ void operator()(long long m, long long n, float v, int z) const {
     p[(z * rows + m) * cols + n] = v;
+  }
+  __device__ __forceinline__ void operator()(long long m, long long n, float v0, float v1, int z) const {
+    *reinterpret_cast<float2*>(p + (z * rows + m) * cols + n) = make_float2(v0, v1);
   }
 };
 
@@ -166,25 +195,50 @@ cudaError_t gemm(LA la, LB lb, Epi epi, int M, int N, int K, cudaStream_t st, in
 
 // ---------------------------------------------------------------- sum_mid
 
+// element readers of sum_mid: fp32, bf16, or a bf16 pair hi + lo
+// (lo lo elements after hi)
+struct F32In {
+  const float* p;
+  __device__ __forceinline__ float operator()(long long i) const { return p[i]; }
+};
+struct Bf16In {
+  const bf16* p;
+  __device__ __forceinline__ float operator()(long long i) const { return __bfloat162float(p[i]); }
+};
+struct SplitIn {
+  const bf16* p;
+  long long lo;
+  __device__ __forceinline__ float operator()(long long i) const {
+    return __bfloat162float(p[i]) + __bfloat162float(p[i + lo]);
+  }
+};
+
 // out[(o * R + r) * Cc + c] = sum_{i < n} in[((o * n + i) * R + r) * ld + off + c], i in order
-static __global__ void __launch_bounds__(256) sum_mid_kernel(const float* in, float* out, long long outer, int n,
-                                                      long long R, int Cc, long long ld, int off) {
+template <class In>
+__global__ void __launch_bounds__(256) sum_mid_kernel(In in, float* out, long long outer, int n, long long R, int Cc,
+                                                      long long ld, int off) {
   const long long total = outer * R * Cc;
   for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
        idx += (long long)gridDim.x * blockDim.x) {
     const long long c = idx % Cc, r = (idx / Cc) % R, o = idx / (Cc * R);
-    const float* p = in + ((o * n) * R + r) * ld + off + c;
+    const long long p = ((o * n) * R + r) * ld + off + c;
     float s = 0.f;
-    for (int i = 0; i < n; ++i) s += p[(long long)i * R * ld];
+    for (int i = 0; i < n; ++i) s += in(p + (long long)i * R * ld);
     out[idx] = s;
   }
 }
 
-static inline cudaError_t sum_mid(const float* in, float* out, long long outer, int n, long long R, int Cc, long long ld,
-                           int off, cudaStream_t st) {
+template <class In>
+inline cudaError_t sum_mid_in(In in, float* out, long long outer, int n, long long R, int Cc, long long ld, int off,
+                           cudaStream_t st) {
   const long long total = outer * R * Cc;
-  return launch_k(sum_mid_kernel, dim3(std::min(cdiv(total, 256), 4096)), dim3(256), 0, st, in, out, outer, n, R, Cc,
-                  ld, off);
+  return launch_k(sum_mid_kernel<In>, dim3(std::min(cdiv(total, 256), 4096)), dim3(256), 0, st, in, out, outer, n, R,
+                  Cc, ld, off);
+}
+
+static inline cudaError_t sum_mid(const float* in, float* out, long long outer, int n, long long R, int Cc, long long ld,
+                                  int off, cudaStream_t st) {
+  return sum_mid_in(F32In{in}, out, outer, n, R, Cc, ld, off, st);
 }
 
 // out (rows, Cc), rows = R (+1 with aug) = sum_m A(r, m) B(m, c) (+ the bias
@@ -201,10 +255,11 @@ cudaError_t wgrad(LA la, LB lb, int R, bool aug, int Cc, int Mred, float* out, f
 constexpr int kLNBlocks = 512;  // ln_bwd partials: at most this many blocks
 inline int ln_blocks(long long M) { return std::min(cdiv(M, 8), kLNBlocks); }
 
-// y = rnd<T>(LN(x)) fp32 and stats (mean, rstd) of 128-wide rows; the
-// forward kernels' statistics (single-pass variance for bf16, eps 1e-5)
-template <typename T, typename S>
-__global__ void __launch_bounds__(256) ln_fwd_kernel(const S* x, const float* g, const float* b, float* y,
+// y = rnd<T>(LN(x)) (stored as Y: fp32, or bf16 for the tensor-core
+// products) and stats (mean, rstd) of 128-wide rows; the forward kernels'
+// statistics (single-pass variance for bf16, eps 1e-5)
+template <typename T, typename S, typename Y>
+__global__ void __launch_bounds__(256) ln_fwd_kernel(const S* x, const float* g, const float* b, Y* y,
                                                      float* stats, long long M) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (long long r = (long long)blockIdx.x * 8 + warp; r < M; r += (long long)gridDim.x * 8) {
@@ -225,7 +280,7 @@ __global__ void __launch_bounds__(256) ln_fwd_kernel(const S* x, const float* g,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = lane + 32 * i;
-      y[r * 128 + c] = rnd<T>((v[i] - mean) * rs * g[c] + b[c]);
+      y[r * 128 + c] = from_f<Y>(rnd<T>((v[i] - mean) * rs * g[c] + b[c]));
     }
     if (lane == 0) {
       stats[2 * r] = mean;
@@ -234,10 +289,11 @@ __global__ void __launch_bounds__(256) ln_fwd_kernel(const S* x, const float* g,
   }
 }
 
-template <typename T, typename S>
-cudaError_t ln_fwd(const S* x, const float* g, const float* b, float* y, float* stats, long long M,
+template <typename T, typename S, typename Y>
+cudaError_t ln_fwd(const S* x, const float* g, const float* b, Y* y, float* stats, long long M,
                    cudaStream_t st) {
-  return launch_k(ln_fwd_kernel<T, S>, dim3(std::min(cdiv(M, 8), 4096)), dim3(256), 0, st, x, g, b, y, stats, M);
+  return launch_k(ln_fwd_kernel<T, S, Y>, dim3(std::min(cdiv(M, 8), 4096)), dim3(256), 0, st, x, g, b, y, stats,
+                  M);
 }
 
 // dx = res + LN'(dy) per row (res may be null); block partials of
@@ -295,6 +351,379 @@ cudaError_t ln_bwd(const float* dy, const S* x, const float* stats, const float*
   return sum_mid(part, out, 1, nb, 1, 256, 256, 0, st);
 }
 
+// ---------------------------------------------------- tensor-core engine
+
+namespace tc {
+
+// A source maps (i, j), j a multiple of 8, to the address of eight
+// consecutive bf16 elements (i, j .. j + 7) of its storage, or null for
+// zeros (padding), in two steps: row(i), what depends on i alone, and
+// at(row, j); step(row, d) moves a row's state on to row i + d.  kSplit
+// sources are hi + lo pairs, lo lo elements after hi.  As the A operand a
+// source is read at (m, k) (rows mode) or at (k, m) (transposed mode); as
+// the B operand at (k, n).  A thread lands the same (row, chunk) slots of
+// a tile at every k step, so it takes row() once: in rows mode its rows
+// stay, otherwise they move by one k step each time (step).  Indices are
+// 32-bit.
+
+template <bool S> struct Rows {  // p[i * ld + j]
+  const bf16* p;
+  long long ld, lo;
+  static constexpr bool kSplit = S, kHalo = false;
+  using Row = const bf16*;
+  __device__ __forceinline__ Row row(int i) const { return p + i * ld; }
+  __device__ __forceinline__ void step(Row& r, int d) const { r += d * ld; }
+  __device__ __forceinline__ const bf16* at(Row r, int j) const { return r + j; }
+};
+
+// bf16 rows out[m * ld + n], n and n + 1
+struct StoreBf16 {
+  bf16* p;
+  long long ld;
+  __device__ __forceinline__ void operator()(long long m, long long n, float v0, float v1, int) const {
+    store_bf16x2(p + m * ld + n, v0, v1);
+  }
+};
+
+// an fp32 value as the pair hi = bf16(v), lo = bf16(v - hi)
+__device__ __forceinline__ void split_store(bf16* hi, long long lo, float v0, float v1) {
+  const float2 h = __bfloat1622float2(__floats2bfloat162_rn(v0, v1));
+  store_bf16x2(hi, h.x, h.y);
+  store_bf16x2(hi + lo, v0 - h.x, v1 - h.y);
+}
+
+struct StoreSplit {  // hi / lo planes, row stride ld
+  bf16* p;
+  long long ld, lo;
+  __device__ __forceinline__ void operator()(long long m, long long n, float v0, float v1, int) const {
+    split_store(p + m * ld + n, lo, v0, v1);
+  }
+};
+
+constexpr int kBK = 32, kThreads = 256;
+constexpr int kRingBytes = 96 * 1024;   // shared memory a CTA's tiles may take beyond a halo
+
+// chunks a tile row is allocated: the swizzles below need 2, 4 or a multiple of 8
+constexpr int alloc_chunks(int c) { return c <= 2 ? 2 : c <= 4 ? 4 : (c + 7) / 8 * 8 == c ? c : c <= 8 ? 8 : 16; }
+
+// element offset of (row, chunk) in a tile of RC 16-byte chunks a row, XOR-
+// swizzled so that the 8 rows an ldmatrix reads at one chunk fall in 8
+// distinct 16-byte bank groups
+template <int RC>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  if constexpr (RC >= 8) return row * RC * 8 + ((chunk ^ (row & 7)) << 3);
+  else if constexpr (RC == 4) return row * 32 + ((chunk ^ ((row >> 1) & 3)) << 3);
+  else return row * 16 + ((chunk ^ ((row >> 2) & 1)) << 3);
+}
+
+// the shared-memory layout: a ring of (A, B) tiles, hi then lo of a split
+// operand, as many stages (3 to 6) as kRingBytes holds beside a halo, so
+// small tiles keep more loads in flight; with a halo source (AH elements a
+// tile) its tiles come first, landed once, and the ring holds B alone
+template <int BM, int BN, bool AT, bool SA, bool SB, int AH = 0> struct Tiles {
+  static constexpr int RCA = AT ? alloc_chunks(BM / 8) : kBK / 8;            // chunks a stored row of A
+  static constexpr int A = AH ? 0 : AT ? kBK * RCA * 8 : BM * kBK;           // elements of one A tile
+  static constexpr int RCB = alloc_chunks(BN / 8);
+  static constexpr int B = kBK * RCB * 8;
+  static constexpr int STAGE = (SA ? 2 : 1) * A + (SB ? 2 : 1) * B;
+  static constexpr int HALO = (SA ? 2 : 1) * AH;
+  static constexpr int FIT = (kRingBytes / (int)sizeof(bf16) - HALO) / STAGE;
+  static constexpr int STAGES = FIT < 3 ? 3 : FIT > 6 ? 6 : FIT;
+  static constexpr size_t BYTES = ((size_t)HALO + (size_t)STAGES * STAGE) * sizeof(bf16);
+};
+
+// A halo source (kHalo) is a 3x3 conv's A operand, rows the output pixels of
+// whole image rows of one slab, columns tap * C + c: the kernel lands the
+// input rows a tile of BM outputs touches, with their zero padding, as one
+// (BM / Wd + 2) x (Wd + 2)-pixel tile and reads every tap from it.
+template <class SA, int BM, bool = SA::kHalo> struct HaloGeom {
+  static constexpr int HR = 0, HW = 0, RC = 2, ELEMS = 0;
+};
+template <class SA, int BM> struct HaloGeom<SA, BM, true> {
+  static constexpr int HR = BM / SA::kWd + 2, HW = SA::kWd + 2, RC = alloc_chunks(SA::kC / 8);
+  static constexpr int ELEMS = HR * HW * RC * 8;
+};
+
+template <class S, bool Use> struct RowT { using type = int; };
+template <class S> struct RowT<S, true> { using type = typename S::Row; };
+struct NoMove {
+  template <class S> __device__ __forceinline__ void init(const S&, int) {}
+};
+
+// one tile's chunks by cp.async: R rows of C chunks at (i0 + r, j0 + 8 c),
+// zero-filled where src gives null or the chunk is out of range; a split
+// source's lo tile LO elements after its hi tile
+template <int LO, class Src>
+__device__ __forceinline__ void land_chunk(bf16* d, const Src& src, const bf16* p, const bf16* dummy) {
+  cp_async16(d, p ? p : dummy, p != nullptr);
+  if constexpr (Src::kSplit) cp_async16(d + LO, p ? p + src.lo : dummy, p != nullptr);
+}
+
+// a thread's chunks (r, c) of an R x C-chunk tile whose rows move by one k
+// step a load: chunk e = threadIdx.x + kThreads q, r = e / C, c = e % C
+template <int R, int C, class Src> struct Moving {
+  static constexpr int Q = (R * C + kThreads - 1) / kThreads;
+  typename Src::Row cur[Q];
+
+  __device__ __forceinline__ void init(const Src& src, int i0) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) cur[q] = src.row(i0 + (int)(threadIdx.x + kThreads * q) / C);
+  }
+
+  // rows i0 .. i0 + R - 1 (valid below i1), columns j0 + 8 c (below j1)
+  template <int RC, int LO>
+  __device__ __forceinline__ void land(bf16* tile, const Src& src, int i0, int i1, int j0, int j1,
+                                       const bf16* dummy) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int e = threadIdx.x + kThreads * q;
+      if (e < R * C) {
+        const int r = e / C, c = e % C, j = j0 + 8 * c;
+        land_chunk<LO>(tile + swz<RC>(r, c), src, (i0 + r < i1 && j < j1) ? src.at(cur[q], j) : nullptr, dummy);
+        src.step(cur[q], R);
+      }
+    }
+  }
+};
+
+// C (M, N) = A (M, K) B (K, N) for the k range of split blockIdx.z, each pair
+// of adjacent outputs handed to epi(m, n, c(m, n), c(m, n + 1), split).
+// 8 warps in WM x (8 / WM), a warp tile (BM / WM) x (BN * WM / 8); k steps
+// of 32 in a ring of L::STAGES tiles.  M, N, K are multiples of 8; element
+// offsets below 2^31.
+// RN: each mma sums its 16 products into zeroed accumulators and an fp32
+// add (round to nearest) takes them into the running sums, where an mma
+// adding into the running sums would align them with truncation at every k
+// step; for a product whose outputs are rounded to bf16 and feed a ReLU,
+// as the plain version's round-to-nearest sums do.
+// BIAS: the CTAs of m tile 0 also sum B's columns over their k range and
+// hand each sum to epi(M, n, sum, split), row M of a weight gradient.
+template <int BM, int BN, int WM, bool AT, bool RN, bool BIAS, class SA, class SB, class Epi>
+__global__ void __launch_bounds__(kThreads) gemm_kernel(SA sa, SB sb, Epi epi, int M, int N, int K, int kchunk,
+                                                        const bf16* dummy) {
+  constexpr bool HALO = SA::kHalo;
+  using H = HaloGeom<SA, BM>;
+  using L = Tiles<BM, BN, AT, SA::kSplit, SB::kSplit, H::ELEMS>;
+  constexpr int WN = 8 / WM, WTM = BM / WM, WTN = BN / WN, MS = WTM / 16, NT = WTN / 8;
+  constexpr int HA = SA::kSplit ? 2 : 1, HB = SB::kSplit ? 2 : 1;
+  static_assert(WTM % 16 == 0 && WTN % 16 == 0, "warp tiles of whole m16 strips and n16 pairs");
+  static_assert(!BIAS || (kThreads % BN == 0 && kBK % (kThreads / BN) == 0), "bias rows split evenly");
+  constexpr int kBR = kThreads / BN;   // row phases of the bias sums
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  bf16* sm = reinterpret_cast<bf16*>(tc_smem);
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int kb = blockIdx.z * kchunk, ke = min(K, kb + kchunk);
+  const int nk = (ke - kb + kBK - 1) / kBK;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm0 = (warp % WM) * WTM, wn0 = (warp / WM) * WTN;
+
+  // rows mode: thread t lands chunk t % 4 of A rows t / 4 + 64 q, the same every k step
+  constexpr bool ROWS = !AT && !HALO;
+  constexpr int QA = ROWS ? BM / 64 : 1;
+  static_assert(!ROWS || BM % 64 == 0, "rows-mode A tiles of whole 64-row groups");
+  typename RowT<SA, ROWS>::type arow[QA];
+  std::conditional_t<AT, Moving<kBK, BM / 8, SA>, NoMove> amov;   // transposed mode
+  Moving<kBK, BN / 8, SB> bmov;
+  bf16* ring = sm + L::HALO;
+  if constexpr (AT)
+    amov.init(sa, kb);
+  if constexpr (ROWS)
+#pragma unroll
+    for (int q = 0; q < QA; ++q) arow[q] = sa.row(min(m0 + (int)threadIdx.x / 4 + 64 * q, M - 1));
+  bmov.init(sb, kb);
+  int hb[MS];   // halo: the tile pixel of this lane's A row in strip s at tap (0, 0)
+  if constexpr (HALO) {
+    constexpr int C = SA::kC, Wd = SA::kWd, P = Wd * Wd, CC = C / 8;
+    static_assert(!AT && !BIAS && BM % Wd == 0 && P % BM == 0 && C % 16 == 0, "halo tiles of whole rows");
+    const int y0 = (m0 % P) / Wd;
+    const bf16* slab = sa.p + (long long)(m0 - m0 % P) * C;
+    for (int e = threadIdx.x; e < H::HR * H::HW * CC; e += kThreads) {   // in the first commit group
+      const int hp = e / CC, c = e % CC, y = y0 - 1 + hp / H::HW, x = hp % H::HW - 1;
+      land_chunk<H::ELEMS>(sm + swz<H::RC>(hp, c), sa,
+                           y >= 0 && y < Wd && x >= 0 && x < Wd ? slab + (y * Wd + x) * C + 8 * c : nullptr, dummy);
+    }
+#pragma unroll
+    for (int s = 0; s < MS; ++s) {
+      const int m = wm0 + 16 * s + (lane & 7) + ((lane >> 3) & 1) * 8;
+      hb[s] = m / Wd * H::HW + m % Wd;
+    }
+  }
+  auto load = [&](int slot, int kt) {   // called for kt = 0, 1, 2, ... in turn
+    bf16* As = ring + slot * L::STAGE;
+    bf16* Bs = As + HA * L::A;
+    const int k0 = kb + kt * kBK;
+    if constexpr (AT) {
+      amov.template land<L::RCA, L::A>(As, sa, k0, ke, m0, M, dummy);
+    } else if constexpr (ROWS) {
+      const int c = threadIdx.x % 4, k = k0 + 8 * c;
+#pragma unroll
+      for (int q = 0; q < QA; ++q) {
+        const int r = threadIdx.x / 4 + 64 * q;
+        land_chunk<L::A>(As + swz<L::RCA>(r, c), sa, (m0 + r < M && k < ke) ? sa.at(arow[q], k) : nullptr, dummy);
+      }
+    }
+    bmov.template land<L::RCB, L::B>(Bs, sb, k0, ke, n0, N, dummy);
+  };
+
+  float acc[MS][NT][4], bsum = 0.f;
+#pragma unroll
+  for (int s = 0; s < MS; ++s)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[s][j][0] = acc[s][j][1] = acc[s][j][2] = acc[s][j][3] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < L::STAGES - 1; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<L::STAGES - 2>();
+    __syncthreads();   // tile kt landed for every thread; slot (kt - 1) % L::STAGES is free
+    if (kt + L::STAGES - 1 < nk) load((kt + L::STAGES - 1) % L::STAGES, kt + L::STAGES - 1);
+    cp_async_commit();
+    const bf16* As = ring + (kt % L::STAGES) * L::STAGE;
+    const bf16* Bs = As + HA * L::A;
+    if constexpr (BIAS) {   // thread t: column t % BN, rows t / BN + kBR i
+      if (blockIdx.x == 0) {
+        float v[kBK / kBR];
+#pragma unroll
+        for (int i = 0; i < kBK / kBR; ++i) {
+          const int o = swz<L::RCB>(threadIdx.x / BN + kBR * i, (threadIdx.x % BN) >> 3) + (threadIdx.x & 7);
+          v[i] = __bfloat162float(Bs[o]);
+          if constexpr (HB == 2) v[i] += __bfloat162float(Bs[L::B + o]);
+        }
+#pragma unroll
+        for (int i = 0; i < kBK / kBR; ++i) bsum += v[i];
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      unsigned a[HA][MS][4], b[HB][NT][2];
+      int sh = 0, hc = 0;   // halo: the tap's pixel shift and this lane's channel chunk
+      if constexpr (HALO) {
+        const int k = kb + kt * kBK + 16 * kk, tap = k / SA::kC;
+        if (k >= ke) continue;   // past the last tap: nothing to read
+        sh = tap / 3 * H::HW + tap % 3;
+        hc = (k - tap * SA::kC) / 8 + (lane >> 4);
+      }
+#pragma unroll
+      for (int h = 0; h < HA; ++h)
+#pragma unroll
+        for (int s = 0; s < MS; ++s) {
+          const int r0 = wm0 + 16 * s;
+          if constexpr (HALO)
+            ldmatrix_x4(a[h][s], sm + h * H::ELEMS + swz<H::RC>(hb[s] + sh, hc));
+          else if constexpr (AT)
+            ldmatrix_x4_trans(a[h][s], As + h * L::A + swz<L::RCA>(16 * kk + (lane & 7) + ((lane >> 4) & 1) * 8,
+                                                                  r0 / 8 + ((lane >> 3) & 1)));
+          else
+            ldmatrix_x4(a[h][s], As + h * L::A + swz<L::RCA>(r0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                            2 * kk + (lane >> 4)));
+        }
+#pragma unroll
+      for (int h = 0; h < HB; ++h)
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          unsigned r[4];
+          ldmatrix_x4_trans(r, Bs + h * L::B + swz<L::RCB>(16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                                           (wn0 + 16 * p) / 8 + (lane >> 4)));
+          b[h][2 * p][0] = r[0];
+          b[h][2 * p][1] = r[1];
+          b[h][2 * p + 1][0] = r[2];
+          b[h][2 * p + 1][1] = r[3];
+        }
+#pragma unroll
+      for (int s = 0; s < MS; ++s)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if constexpr (RN) {
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(d, a[0][s], b[0][j][0], b[0][j][1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[s][j][e] += d[e];
+          } else {
+            mma_bf16(acc[s][j], a[0][s], b[0][j][0], b[0][j][1]);
+          }
+          if constexpr (HB == 2) mma_bf16(acc[s][j], a[0][s], b[1][j][0], b[1][j][1]);
+          if constexpr (HA == 2) mma_bf16(acc[s][j], a[1][s], b[0][j][0], b[0][j][1]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+  if constexpr (BIAS) {   // the kBR row phases of each column, summed in order
+    if (blockIdx.x == 0) {
+      float* red = reinterpret_cast<float*>(tc_smem);
+      __syncthreads();
+      red[threadIdx.x] = bsum;
+      __syncthreads();
+      if (threadIdx.x < BN && n0 + (int)threadIdx.x < N) {
+        float v = 0.f;
+#pragma unroll
+        for (int r = 0; r < kBR; ++r) v += red[r * BN + threadIdx.x];
+        epi((long long)M, (long long)(n0 + threadIdx.x), v, (int)blockIdx.z);
+      }
+    }
+  }
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int s = 0; s < MS; ++s)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int m = m0 + wm0 + 16 * s + g, n = n0 + wn0 + 8 * j + 2 * t;
+      if (n < N) {
+        if (m < M) epi(m, n, acc[s][j][0], acc[s][j][1], (int)blockIdx.z);
+        if (m + 8 < M) epi(m + 8, n, acc[s][j][2], acc[s][j][3], (int)blockIdx.z);
+      }
+    }
+}
+
+// epi over C = A B (see gemm_kernel); AT: A read from stored (k, m) rows.
+// K split in `splits` k ranges (multiples of the k step), blockIdx.z each.
+inline int split_chunk(int K, int splits) { return cdiv(cdiv(K, splits), kBK) * kBK; }
+inline int split_count(int K, int splits) { return cdiv(K, split_chunk(K, splits)); }
+
+template <int BM, int BN, int WM, bool AT = false, bool RN = false, bool BIAS = false, class SA, class SB, class Epi>
+cudaError_t gemm(SA sa, SB sb, Epi epi, int M, int N, int K, const void* dummy, cudaStream_t st, int splits = 1) {
+  if (M % 8 || N % 8 || K % 8 || (SA::kHalo && (M % BM || splits != 1))) return cudaErrorInvalidValue;
+  const int kc = split_chunk(K, splits), z = split_count(K, splits);
+  return launch_k(gemm_kernel<BM, BN, WM, AT, RN, BIAS, SA, SB, Epi>, dim3(cdiv(M, BM), cdiv(N, BN), z), dim3(kThreads),
+                  Tiles<BM, BN, AT, SA::kSplit, SB::kSplit, HaloGeom<SA, BM>::ELEMS>::BYTES, st, sa, sb, epi, M, N,
+                  K, kc, static_cast<const bf16*>(dummy));
+}
+
+// out (M (+1 with BIAS), N) = sum_k A(k, m) B(k, n) over the K rows of the
+// batch (the bias row: sum_k B(k, n)): kWSplits split-K partials (part:
+// kWSplits * (M + 1) * N floats), summed in order
+template <int BM, int BN, int WM, bool BIAS = false, class SA, class SB>
+cudaError_t wgrad(SA sa, SB sb, int M, int N, int K, float* out, float* part, const void* dummy, cudaStream_t st) {
+  const long long rows = M + (BIAS ? 1 : 0);
+  CATSEG_TRY((gemm<BM, BN, WM, true, false, BIAS>(sa, sb, Partial{part, rows, N}, M, N, K, dummy, st, kWSplits)));
+  return sum_mid(part, out, 1, split_count(K, kWSplits), 1, rows * N, rows * N, 0, st);
+}
+
+// a bf16 (K, N) weight from its fp32 copy (already rounded through bf16):
+// mode 0 as it is; 1 transposed, (N, K); 2 a 3x3 conv's (9 Cin, Cout) taps
+// flipped with channels transposed, (9 Cout, Cin): row t Cout + co, column ci
+// = W[(8 - t) Cin + ci, co], the input gradient's B operand
+static __global__ void __launch_bounds__(256) pack_kernel(const float* w, bf16* out, int K, int N, int mode) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < K * N; e += gridDim.x * blockDim.x) {
+    int src = e;
+    if (mode == 1) src = (e % K) * N + e / K;
+    if (mode == 2) {
+      const int cin = K / 9, r = e / cin, ci = e % cin, t = r / N, co = r % N;
+      src = ((8 - t) * cin + ci) * N + co;
+    }
+    out[e] = __float2bfloat16(w[src]);
+  }
+}
+
+static inline cudaError_t pack(const float* w, bf16* out, int K, int N, int mode, cudaStream_t st) {
+  return launch_k(pack_kernel, dim3(std::min(cdiv((long long)K * N, 256), 1024)), dim3(256), 0, st, w, out, K, N,
+                  mode);
+}
+
+}  // namespace tc
+
 // consecutive fp32 regions of a workspace; with a null base it only counts
 struct Carve {
   float* base;
@@ -304,6 +733,7 @@ struct Carve {
     used += (n + 63) / 64 * 64;
     return r;
   }
+  bf16* take16(long long n) { return reinterpret_cast<bf16*>(take((n + 1) / 2)); }
 };
 
 }  // namespace bwd

@@ -10,25 +10,59 @@
 // bias grad (Cout) beside it, convs (9 Cin, Cout), GroupNorms (2 C: gain,
 // bias), head (289: the 288 taps, then the bias).
 //
-// Design (bwd_common.cuh): the forward is recomputed over all slabs into an
-// fp32 workspace that keeps every stage (u1, c1, c2, u2, c3, c4 and the GN
-// statistics per slab and group; ReLU(GN(c)) is applied on the fly by the
-// loaders), then each stage is reversed:
-// - 3x3 convs: weight grads sum_p im2col(X)_p^T dY_p as split-K gemms; input
-//   grads as convs of dY with flipped taps and transposed channels (implicit
-//   im2col, nothing materialized); the head's single output channel gets
-//   its own weight-grad kernel (one thread per tap and channel, 1024 pixel
-//   splits) instead of a gemm tile 32 columns wide;
+// The forward is recomputed over all slabs into a workspace that keeps
+// every stage (u1, c1, c2, u2, c3, c4 and the GN statistics per slab and
+// group), then each stage is reversed:
+// - 3x3 convs: weight grads sum_p im2col(X)_p^T dY_p as split-K products;
+//   input grads as convs of dY with flipped taps and transposed channels
+//   (implicit im2col, nothing materialized);
 // - GN + ReLU: one CTA per (slab, group) forms sum dy xhat and sum dy, then
 //   dx = rstd (dy g - mean(dy g) - xhat mean(dy g xhat)); per-slab gain and
 //   bias partials are summed in a fixed order;
-// - ConvT k2s2: a per-pixel gemm over the four phases (dX = dU W^T,
+// - ConvT k2s2: a per-pixel product over the four phases (dX = dU W^T,
 //   dW = X^T dU).
-// bf16 recomputes the forward's roundings (ConvT outputs, pre-GN conv
-// outputs, GN + ReLU outputs) and its single-pass GN statistics.
 //
-// Bound on the card: ~3x the forward's 0.97 GFLOP per slab, on fp32
-// CUDA-core FMAs here; the workspace holds ~2.6 M fp32 values per slab.
+// fp32 (run): the CUDA-core engine (bwd::gemm), everything fp32 in the
+// workspace, ReLU(GN(c)) applied by the loaders on every read; the head's
+// single output channel gets its own weight-grad kernel (one thread per tap
+// and channel, 1024 pixel splits) instead of a gemm tile 32 columns wide.
+// Bound on the card: ~3x the forward's 0.97 GFLOP per slab on fp32 FMAs;
+// ~2.6 M fp32 values of workspace per slab.
+//
+// bf16 (run_tc): the tensor-core engine (bwd::tc::gemm).  The recomputed
+// stages are bf16 planes (u1, c1..c4 are rnd<bf16> values, so bf16 holds them
+// exactly), and each GN stage writes h = rnd(ReLU(GN(c))) once, beside c,
+// where the fp32 path recomputes it on each of a conv's 9 tap reads.  Every
+// product reads its operands by 16-byte cp.async: a k step of 8 is one
+// tap's contiguous channel run of an NHWC plane (all channel counts are
+// multiples of 8), or 8 channels of one phase of a ConvT output.  A conv's
+// recompute and input grad land the input rows of 192 output pixels (2 or
+// 4 image rows) once as a halo tile and read all 9 taps from it; its weight
+// grad reads the im2col by 8-channel chunks.  The recompute runs on this
+// engine, not on decoder.cu's band pipeline: that one keeps each stage on
+// chip and stores only the logits, where the backward needs every stage in
+// device memory, and one engine serves all 19 products.  Weights are
+// packed once per call into bf16 (K, N) matrices: as they are for the
+// recompute, transposed for the ConvT input grads, flipped with channels
+// transposed for the conv input grads.  Operand precision per product, by
+// the plain version (kernels/decoder.py _plain_vjp_target: bf16 values,
+// fp32 cotangents):
+// - recompute (ConvT 1, conv 11, conv 12, ConvT 2, conv 21, conv 22): bf16
+//   activations x bf16 weights;
+// - weight grads: bf16 recomputed activations (x, u1, h1, h2, u2, h3) x the
+//   fp32 cotangent as hi + lo;
+// - input grads: the fp32 cotangent as hi + lo x bf16 weights;
+// - the head (one output channel): its weight grad h4's im2col x dout as
+//   hi + lo, a product 8 columns wide of which column 0 is dout; its input
+//   grad on CUDA cores in fp32, a 9-tap stencil of dout, not a product;
+// - GN statistics, GN backward, guidance sums: fp32 on CUDA cores, 16-byte
+//   accesses (passes over device memory that no product would shorten);
+//   the GN backward writes its result as the hi + lo pair the next products
+//   read, a conv's input grad into a ConvT's output likewise; bias grads are
+//   summed from the weight grads' B tiles in shared memory.
+// Bound on the card: 2.0 ms at the train step's 684 slabs with bf16
+// operands throughout; the hi + lo products of the backward double its
+// tensor-core work (~3.4 ms); ~4.6 M bf16-sized values of workspace a slab.
 #include "bwd_common.cuh"
 
 using namespace catseg;
@@ -350,12 +384,443 @@ cudaError_t run(const T* x, const T* hg1, const T* hg2, const float* dout, T* dx
   return gemm(PhaseGather<24, 96>{b.gC}, DenseT<F>{w.up1_w, 384}, StoreT<T>{dx, 128}, M0, 128, 384, st);
 }
 
+// ------------------------------------------------------------ bf16 path
+
+// tensor-core source: an NHWC plane's zero-padded 3x3 im2col, row i a slab
+// pixel, column j = tap * C + c (read as A by the input grads and the
+// recompute, as transposed A by the weight grads)
+template <int C, int Wd, bool S> struct Im2col16 {
+  const bf16* p;
+  long long lo;
+  static constexpr bool kSplit = S, kHalo = false;
+  struct Row {
+    const bf16* slab;
+    int y, x;
+  };
+  __device__ __forceinline__ Row row(int i) const {
+    const int pix = i % (Wd * Wd);
+    return {p + (long long)(i - pix) * C, pix / Wd, pix % Wd};
+  }
+  __device__ __forceinline__ void step(Row& r, int d) const {
+    for (r.x += d; r.x >= Wd; r.x -= Wd)
+      if (++r.y == Wd) {
+        r.y = 0;
+        r.slab += Wd * Wd * C;
+      }
+  }
+  __device__ __forceinline__ const bf16* at(Row r, int j) const {
+    const int tap = j / C, y = r.y + tap / 3 - 1, x = r.x + tap % 3 - 1;
+    return (y >= 0 && y < Wd && x >= 0 && x < Wd) ? r.slab + (y * Wd + x) * C + (j - tap * C) : nullptr;
+  }
+};
+
+// tensor-core halo source (bwd_common.cuh): a 3x3 conv's im2col as the A
+// operand of the recompute and the input grads, landed once a tile as the
+// input rows its outputs touch
+template <int C, int Wd, bool S> struct Halo16 {
+  const bf16* p;
+  long long lo;
+  static constexpr bool kSplit = S, kHalo = true;
+  static constexpr int kC = C, kWd = Wd;
+};
+
+// tensor-core source: a ConvT k2s2's output gradient by input pixel i and
+// column j = ph * Cout + co, at output pixel (2y + ph / 2, 2x + ph % 2)
+template <int Win, int Cout, bool S> struct Phase16 {
+  const bf16* p;
+  long long lo;
+  static constexpr bool kSplit = S, kHalo = false;
+  struct Row {
+    const bf16* slab;
+    int y, x;
+  };
+  __device__ __forceinline__ Row row(int i) const {
+    const int pix = i % (Win * Win);
+    return {p + (long long)(i / (Win * Win)) * (4 * Win * Win * Cout), 2 * (pix / Win), 2 * (pix % Win)};
+  }
+  __device__ __forceinline__ void step(Row& r, int d) const {
+    for (r.x += 2 * d; r.x >= 2 * Win; r.x -= 2 * Win)
+      if ((r.y += 2) == 2 * Win) {
+        r.y = 0;
+        r.slab += 4 * Win * Win * Cout;
+      }
+  }
+  __device__ __forceinline__ const bf16* at(Row r, int j) const {
+    const int ph = j / Cout;
+    return r.slab + ((r.y + ph / 2) * 2 * Win + r.x + ph % 2) * Cout + (j - ph * Cout);
+  }
+};
+
+// ConvT k2s2 forward into a bf16 plane: phase ph of input pixel m,
+// rnd(rnd(acc) + rnd(b)) for columns n, n + 1
+template <int Win, int Cout> struct ConvTEpi16 {
+  bf16* u;
+  const float* b;
+  __device__ __forceinline__ void operator()(long long m, long long n, float v0, float v1, int) const {
+    constexpr int P = Win * Win;
+    const int i = (int)m, pix = i % P, ph = (int)n / Cout, co = (int)n - ph * Cout;
+    const int y = 2 * (pix / Win) + ph / 2, x = 2 * (pix % Win) + ph % 2;
+    store_bf16x2(u + (long long)(i / P) * (4 * P * Cout) + (y * 2 * Win + x) * Cout + co,
+                 rnd<bf16>(v0) + rnd<bf16>(b[co]), rnd<bf16>(v1) + rnd<bf16>(b[co + 1]));
+  }
+};
+
+// pre-GN conv output rnd(acc (+ the image's guidance plane)) into a bf16 plane
+template <int Cout, int P> struct ConvEpi16 {
+  bf16* c;
+  const bf16* hg;
+  int nT;
+  __device__ __forceinline__ void operator()(long long m, long long n, float v0, float v1, int) const {
+    if (hg) {
+      const int i = (int)m;
+      const float2 g = unpack_bf16(hg + ((long long)(i / P / nT) * P + i % P) * Cout + n);
+      v0 += g.x;
+      v1 += g.y;
+    }
+    store_bf16x2(c + m * Cout + n, v0, v1);
+  }
+};
+
+__device__ __forceinline__ void load8(float (&v)[8], const bf16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                                            pack_bf16(v[6], v[7]));
+}
+
+// GN statistics (mean, rstd) of one (slab, group) of a bf16 pre-GN plane (the
+// forward's single-pass variance, eps 1e-5), then h = rnd(ReLU(GN(c))) written
+// once for the products.  Thread t holds channels 8 (t % 2) .. + 7 of the
+// group, 16-byte accesses.
+template <int C, int P>
+__global__ void __launch_bounds__(256) gn_apply_kernel(const bf16* c, float* stats, const float* g, const float* b,
+                                                       bf16* h) {
+  __shared__ float red[256];
+  const long long base = (long long)blockIdx.x * P * C;
+  const int grp = blockIdx.y, ch0 = grp * 16 + (threadIdx.x & 1) * 8;
+  float s1 = 0.f, s2 = 0.f, v[8];
+#pragma unroll 4
+  for (int p = threadIdx.x >> 1; p < P; p += blockDim.x >> 1) {
+    load8(v, c + base + (long long)p * C + ch0);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      s1 += v[k];
+      s2 += v[k] * v[k];
+    }
+  }
+  s1 = block_sum(s1, red);
+  s2 = block_sum(s2, red);
+  const float cnt = 16.f * P, mean = s1 / cnt, rs = rsqrtf(s2 / cnt - mean * mean + 1e-5f);
+  if (threadIdx.x == 0) {
+    stats[(blockIdx.x * (C / 16) + grp) * 2] = mean;
+    stats[(blockIdx.x * (C / 16) + grp) * 2 + 1] = rs;
+  }
+  float sc[8], sh[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    sc[k] = rs * g[ch0 + k];
+    sh[k] = b[ch0 + k] - mean * sc[k];
+  }
+#pragma unroll 4
+  for (int p = threadIdx.x >> 1; p < P; p += blockDim.x >> 1) {
+    const long long i = base + (long long)p * C + ch0;
+    load8(v, c + i);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = fmaxf(v[k] * sc[k] + sh[k], 0.f);
+    store8(h + i, v);
+  }
+}
+
+// GN + ReLU backward of one (slab, group), as gn_bwd_kernel, reading the bf16
+// pre-GN plane and writing the pre-GN grad as the pair hi + lo (lo lo
+// elements after); thread t holds channels 8 (t % 2) .. + 7, 16-byte
+// accesses; gain / bias partials of this slab to gpart[slab][2][C]
+template <int C, int P>
+__global__ void __launch_bounds__(256) gn_bwd16_kernel(const float* dh, const bf16* c, const float* stats,
+                                                       const float* g, const float* b, bf16* out, long long lo,
+                                                       float* gpart) {
+  __shared__ float red[256];
+  __shared__ float part[2][8][16];
+  const long long slab = blockIdx.x, base = slab * P * C;
+  const int grp = blockIdx.y, tid = threadIdx.x, ch0 = grp * 16 + (tid & 1) * 8;
+  const float mean = stats[(slab * (C / 16) + grp) * 2], rs = stats[(slab * (C / 16) + grp) * 2 + 1];
+  float gam[8], sc[8], sh[8], ag[8], ab[8], v[8], d[8], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    gam[k] = g[ch0 + k];
+    sc[k] = rs * gam[k];
+    sh[k] = b[ch0 + k] - mean * sc[k];
+    ag[k] = ab[k] = 0.f;
+  }
+  auto grads = [&](long long i) {   // v = c, d = the ReLU-masked dh at pixel offset i
+    load8(v, c + i);
+    const float4 d0 = *reinterpret_cast<const float4*>(dh + i), d1 = *reinterpret_cast<const float4*>(dh + i + 4);
+    const float dd[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) d[k] = v[k] * sc[k] + sh[k] > 0.f ? dd[k] : 0.f;
+  };
+#pragma unroll 4
+  for (int p = tid >> 1; p < P; p += blockDim.x >> 1) {
+    grads(base + (long long)p * C + ch0);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float xh = (v[k] - mean) * rs;
+      ag[k] = fmaf(d[k], xh, ag[k]);
+      ab[k] += d[k];
+      s1 = fmaf(d[k], gam[k], s1);
+      s2 = fmaf(d[k] * gam[k], xh, s2);
+    }
+  }
+  // per channel over the lanes of one parity (xor butterfly), then over the warps in order
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int o = 2; o < 32; o <<= 1) {
+      ag[k] += __shfl_xor_sync(0xffffffffu, ag[k], o);
+      ab[k] += __shfl_xor_sync(0xffffffffu, ab[k], o);
+    }
+  if (lane < 2)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      part[0][warp][lane * 8 + k] = ag[k];
+      part[1][warp][lane * 8 + k] = ab[k];
+    }
+  __syncthreads();
+  if (tid < 32) {   // channel j = tid % 16 of the group, gain (tid < 16) or bias
+    const int j = tid & 15, q = tid >> 4;
+    float a = 0.f;
+    for (int w = 0; w < 8; ++w) a += part[q][w][j];
+    gpart[(slab * 2 + q) * C + grp * 16 + j] = a;
+  }
+  const float cnt = 16.f * P, m1 = block_sum(s1, red) / cnt, m2 = block_sum(s2, red) / cnt;
+#pragma unroll 4
+  for (int p = tid >> 1; p < P; p += blockDim.x >> 1) {
+    const long long i = base + (long long)p * C + ch0;
+    grads(i);
+    float hi[8], r[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float x = rs * (d[k] * gam[k] - m1 - (v[k] - mean) * rs * m2);
+      hi[k] = __bfloat162float(__float2bfloat16(x));
+      r[k] = x - hi[k];
+    }
+    store8(out + i, hi);
+    store8(out + lo + i, r);
+  }
+}
+
+// the head's input grad dh4 (M2, 32) fp32: its one input channel makes each
+// output the 9 taps of dout around the pixel times the tap weights, a
+// stencil; a thread per pixel, the 288 weights in shared memory.  Also dout
+// as the head weight grad's B operand: rows of 8 bf16 (dout's hi, then
+// zeros) in dp, the lo rows lo elements after.
+__global__ void __launch_bounds__(256) head_dgrad_kernel(const float* dout, const float* w, float* dh, bf16* dp,
+                                                         long long lo, int M2) {
+  __shared__ float ws[288];
+  for (int e = threadIdx.x; e < 288; e += blockDim.x) ws[e] = w[e];
+  __syncthreads();
+  for (int m = blockIdx.x * blockDim.x + threadIdx.x; m < M2; m += gridDim.x * blockDim.x) {
+    const int pix = m % kP2, y = pix / 96, x = pix % 96;
+    float d[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const int yy = y + 1 - t / 3, xx = x + 1 - t % 3;
+      d[t] = yy >= 0 && yy < 96 && xx >= 0 && xx < 96 ? dout[m - pix + yy * 96 + xx] : 0.f;
+    }
+    const bf16 h = __float2bfloat16(d[4]), l = __float2bfloat16(d[4] - __bfloat162float(h));
+    *reinterpret_cast<uint4*>(dp + (long long)m * 8) = make_uint4(__bfloat16_as_ushort(h), 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(dp + lo + (long long)m * 8) = make_uint4(__bfloat16_as_ushort(l), 0u, 0u, 0u);
+#pragma unroll
+    for (int c = 0; c < 32; c += 4) {
+      float o[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        o[k] = 0.f;
+#pragma unroll
+        for (int t = 0; t < 9; ++t) o[k] = fmaf(d[t], ws[t * 32 + c + k], o[k]);
+      }
+      *reinterpret_cast<float4*>(dh + (long long)m * 32 + c) = make_float4(o[0], o[1], o[2], o[3]);
+    }
+  }
+}
+
+// bf16 weights of the products, (K, N) row-major: the recompute's as the
+// forward's, the ConvTs' transposed, the convs' flipped and transposed
+struct Packed {
+  bf16 *up1, *up1t, *c11, *c11f, *c12, *c12f, *up2, *up2t, *c21, *c21f, *c22, *c22f;
+};
+
+struct Bufs16 {
+  bf16 *u1, *c1, *h1, *c2, *h2, *u2, *c3, *h3, *c4, *h4;   // recomputed stages
+  float *s1, *s2, *s3, *s4;
+  float* dh;       // fp32 grad of a GN + ReLU output
+  bf16 *dc, *du;   // a pre-GN grad, a ConvT output's grad: hi planes, lo planes dc_lo / du_lo after
+  bf16* dp;        // dout as rows of 8 (hi, zeros), lo rows M2 * 8 after
+  long long dc_lo, du_lo;
+  Packed w;
+  float *gpart, *part;
+};
+
+Bufs16 carve16(float* ws, long long N, long long* used) {
+  Carve c{ws};
+  Bufs16 b;
+  b.u1 = c.take16(N * kP1 * 96);
+  b.c1 = c.take16(N * kP1 * 64);
+  b.h1 = c.take16(N * kP1 * 64);
+  b.c2 = c.take16(N * kP1 * 64);
+  b.h2 = c.take16(N * kP1 * 64);
+  b.u2 = c.take16(N * kP2 * 48);
+  b.c3 = c.take16(N * kP2 * 32);
+  b.h3 = c.take16(N * kP2 * 32);
+  b.c4 = c.take16(N * kP2 * 32);
+  b.h4 = c.take16(N * kP2 * 32);
+  b.s1 = c.take(N * 8);
+  b.s2 = c.take(N * 8);
+  b.s3 = c.take(N * 4);
+  b.s4 = c.take(N * 4);
+  b.dh = c.take(N * kP2 * 32);
+  b.dc_lo = N * kP2 * 32;   // the largest pre-GN grad: stage 2's (stage 1's is N kP1 64)
+  b.dc = c.take16(2 * b.dc_lo);
+  b.du_lo = N * kP2 * 48;   // du2; du1 (N kP1 96) is smaller
+  b.du = c.take16(2 * b.du_lo);
+  b.dp = c.take16(2 * N * kP2 * 8);
+  Packed& w = b.w;
+  w.up1 = c.take16(128 * 384);
+  w.up1t = c.take16(384 * 128);
+  w.c11 = c.take16(864 * 64);
+  w.c11f = c.take16(576 * 96);
+  w.c12 = c.take16(576 * 64);
+  w.c12f = c.take16(576 * 64);
+  w.up2 = c.take16(64 * 192);
+  w.up2t = c.take16(192 * 64);
+  w.c21 = c.take16(432 * 32);
+  w.c21f = c.take16(288 * 48);
+  w.c22 = c.take16(288 * 32);
+  w.c22f = c.take16(288 * 32);
+  b.gpart = c.take(N * 2 * 64);
+  b.part = c.take(kParts);
+  if (used) *used = c.used;
+  return b;
+}
+
+cudaError_t run_tc(const bf16* x, const bf16* hg1, const bf16* hg2, const float* dout, bf16* dx, float* dhg1,
+                   float* dhg2, float* const* g, const W& w, float* ws, int N, int nT, cudaStream_t st) {
+  using tc::Rows;
+  float *g_up1w = g[0], *g_up1b = g[1], *g_c11 = g[2], *g_gn11 = g[3], *g_c12 = g[4], *g_gn12 = g[5];
+  float *g_up2w = g[6], *g_up2b = g[7], *g_c21 = g[8], *g_gn21 = g[9], *g_c22 = g[10], *g_gn22 = g[11];
+  float* g_hd = g[12];
+  const Bufs16 b = carve16(ws, N, nullptr);
+  const Packed& pw = b.w;
+  const int M0 = N * 576, M1 = N * kP1, M2 = N * kP2, B = N / nT;
+  const void* dm = x;   // a mapped address for the zero-filled chunks
+  const long long dl = b.dc_lo, ul = b.du_lo;
+  const bf16* nohg = nullptr;
+
+  CATSEG_TRY(tc::pack(w.up1_w, pw.up1, 128, 384, 0, st));
+  CATSEG_TRY(tc::pack(w.up1_w, pw.up1t, 128, 384, 1, st));
+  CATSEG_TRY(tc::pack(w.c11_w, pw.c11, 864, 64, 0, st));
+  CATSEG_TRY(tc::pack(w.c11_w, pw.c11f, 864, 64, 2, st));
+  CATSEG_TRY(tc::pack(w.c12_w, pw.c12, 576, 64, 0, st));
+  CATSEG_TRY(tc::pack(w.c12_w, pw.c12f, 576, 64, 2, st));
+  CATSEG_TRY(tc::pack(w.up2_w, pw.up2, 64, 192, 0, st));
+  CATSEG_TRY(tc::pack(w.up2_w, pw.up2t, 64, 192, 1, st));
+  CATSEG_TRY(tc::pack(w.c21_w, pw.c21, 432, 32, 0, st));
+  CATSEG_TRY(tc::pack(w.c21_w, pw.c21f, 432, 32, 2, st));
+  CATSEG_TRY(tc::pack(w.c22_w, pw.c22, 288, 32, 0, st));
+  CATSEG_TRY(tc::pack(w.c22_w, pw.c22f, 288, 32, 2, st));
+
+  // forward recompute: bf16 stages, h = rnd(ReLU(GN(c))) beside each c
+  CATSEG_TRY((tc::gemm<128, 128, 2, false, true>(Rows<false>{x, 128, 0}, Rows<false>{pw.up1, 384, 0},
+                                    ConvTEpi16<24, 96>{b.u1, w.up1_b}, M0, 384, 128, dm, st)));
+  CATSEG_TRY((tc::gemm<192, 64, 4, false, true>(Halo16<96, 48, false>{b.u1, 0}, Rows<false>{pw.c11, 64, 0},
+                                   ConvEpi16<64, kP1>{b.c1, hg1, nT}, M1, 64, 864, dm, st)));
+  CATSEG_TRY(launch_k(gn_apply_kernel<64, kP1>, dim3(N, 4), dim3(256), 0, st, (const bf16*)b.c1, b.s1, w.gn11_g,
+                      w.gn11_b, b.h1));
+  CATSEG_TRY((tc::gemm<192, 64, 4, false, true>(Halo16<64, 48, false>{b.h1, 0}, Rows<false>{pw.c12, 64, 0},
+                                   ConvEpi16<64, kP1>{b.c2, nohg, nT}, M1, 64, 576, dm, st)));
+  CATSEG_TRY(launch_k(gn_apply_kernel<64, kP1>, dim3(N, 4), dim3(256), 0, st, (const bf16*)b.c2, b.s2, w.gn12_g,
+                      w.gn12_b, b.h2));
+  CATSEG_TRY((tc::gemm<128, 64, 4, false, true>(Rows<false>{b.h2, 64, 0}, Rows<false>{pw.up2, 192, 0},
+                                   ConvTEpi16<48, 48>{b.u2, w.up2_b}, M1, 192, 64, dm, st)));
+  CATSEG_TRY((tc::gemm<192, 32, 4, false, true>(Halo16<48, 96, false>{b.u2, 0}, Rows<false>{pw.c21, 32, 0},
+                                   ConvEpi16<32, kP2>{b.c3, hg2, nT}, M2, 32, 432, dm, st)));
+  CATSEG_TRY(launch_k(gn_apply_kernel<32, kP2>, dim3(N, 2), dim3(256), 0, st, (const bf16*)b.c3, b.s3, w.gn21_g,
+                      w.gn21_b, b.h3));
+  CATSEG_TRY((tc::gemm<192, 32, 4, false, true>(Halo16<32, 96, false>{b.h3, 0}, Rows<false>{pw.c22, 32, 0},
+                                   ConvEpi16<32, kP2>{b.c4, nohg, nT}, M2, 32, 288, dm, st)));
+  CATSEG_TRY(launch_k(gn_apply_kernel<32, kP2>, dim3(N, 2), dim3(256), 0, st, (const bf16*)b.c4, b.s4, w.gn22_g,
+                      w.gn22_b, b.h4));
+
+  // head: dh4, then taps + bias grads (column 0 of a product 8 wide)
+  const long long pl = (long long)M2 * 8;
+  CATSEG_TRY(launch_k(head_dgrad_kernel, dim3(std::min(cdiv(M2, 256), 8192)), dim3(256), 0, st, dout, w.hd_w, b.dh,
+                      b.dp, pl, M2));
+  CATSEG_TRY((tc::gemm<128, 16, 8, true, false, true>(Im2col16<32, 96, false>{b.h4, 0}, Rows<true>{b.dp, 8, pl},
+                                                      Partial{b.part, 289, 8}, 288, 8, M2, dm, st, kWSplits)));
+  CATSEG_TRY(sum_mid(b.part, g_hd, 1, tc::split_count(M2, kWSplits), 289, 1, 8, 0, st));
+  // stage 2: GN4, conv4, GN3, guidance, conv3, ConvT2
+  CATSEG_TRY(launch_k(gn_bwd16_kernel<32, kP2>, dim3(N, 2), dim3(256), 0, st, (const float*)b.dh,
+                      (const bf16*)b.c4, b.s4, w.gn22_g, w.gn22_b, b.dc, dl, b.gpart));
+  CATSEG_TRY(sum_mid(b.gpart, g_gn22, 1, N, 1, 64, 64, 0, st));
+  CATSEG_TRY((tc::wgrad<128, 32, 4>(Im2col16<32, 96, false>{b.h3, 0}, Rows<true>{b.dc, 32, dl}, 288, 32, M2, g_c22,
+                                    b.part, dm, st)));
+  CATSEG_TRY((tc::gemm<192, 32, 4>(Halo16<32, 96, true>{b.dc, dl}, Rows<false>{pw.c22f, 32, 0}, Store{b.dh, 32},
+                                   M2, 32, 288, dm, st)));
+  CATSEG_TRY(launch_k(gn_bwd16_kernel<32, kP2>, dim3(N, 2), dim3(256), 0, st, (const float*)b.dh,
+                      (const bf16*)b.c3, b.s3, w.gn21_g, w.gn21_b, b.dc, dl, b.gpart));
+  CATSEG_TRY(sum_mid(b.gpart, g_gn21, 1, N, 1, 64, 64, 0, st));
+  CATSEG_TRY(sum_mid_in(SplitIn{b.dc, dl}, dhg2, B, nT, 1, kP2 * 32, kP2 * 32, 0, st));
+  CATSEG_TRY((tc::wgrad<128, 32, 4>(Im2col16<48, 96, false>{b.u2, 0}, Rows<true>{b.dc, 32, dl}, 432, 32, M2, g_c21,
+                                    b.part, dm, st)));
+  CATSEG_TRY((tc::gemm<192, 64, 4>(Halo16<32, 96, true>{b.dc, dl}, Rows<false>{pw.c21f, 48, 0},
+                                   tc::StoreSplit{b.du, 48, ul}, M2, 48, 288, dm, st)));
+  CATSEG_TRY((tc::wgrad<64, 64, 2, true>(Rows<false>{b.h2, 64, 0}, Phase16<48, 48, true>{b.du, ul}, 64, 192, M1,
+                                         g_up2w, b.part, dm, st)));
+  CATSEG_TRY(sum_mid(g_up2w, g_up2b, 1, 4, 1, 48, 48, 64 * 192, st));
+  CATSEG_TRY((tc::gemm<128, 64, 4>(Phase16<48, 48, true>{b.du, ul}, Rows<false>{pw.up2t, 64, 0}, Store{b.dh, 64},
+                                   M1, 64, 192, dm, st)));
+  // stage 1: GN2, conv2, GN1, guidance, conv1, ConvT1
+  CATSEG_TRY(launch_k(gn_bwd16_kernel<64, kP1>, dim3(N, 4), dim3(256), 0, st, (const float*)b.dh,
+                      (const bf16*)b.c2, b.s2, w.gn12_g, w.gn12_b, b.dc, dl, b.gpart));
+  CATSEG_TRY(sum_mid(b.gpart, g_gn12, 1, N, 1, 128, 128, 0, st));
+  CATSEG_TRY((tc::wgrad<128, 64, 4>(Im2col16<64, 48, false>{b.h1, 0}, Rows<true>{b.dc, 64, dl}, 576, 64, M1, g_c12,
+                                    b.part, dm, st)));
+  CATSEG_TRY((tc::gemm<192, 64, 4>(Halo16<64, 48, true>{b.dc, dl}, Rows<false>{pw.c12f, 64, 0}, Store{b.dh, 64},
+                                   M1, 64, 576, dm, st)));
+  CATSEG_TRY(launch_k(gn_bwd16_kernel<64, kP1>, dim3(N, 4), dim3(256), 0, st, (const float*)b.dh,
+                      (const bf16*)b.c1, b.s1, w.gn11_g, w.gn11_b, b.dc, dl, b.gpart));
+  CATSEG_TRY(sum_mid(b.gpart, g_gn11, 1, N, 1, 128, 128, 0, st));
+  CATSEG_TRY(sum_mid_in(SplitIn{b.dc, dl}, dhg1, B, nT, 1, kP1 * 64, kP1 * 64, 0, st));
+  CATSEG_TRY((tc::wgrad<128, 64, 4>(Im2col16<96, 48, false>{b.u1, 0}, Rows<true>{b.dc, 64, dl}, 864, 64, M1, g_c11,
+                                    b.part, dm, st)));
+  CATSEG_TRY((tc::gemm<192, 96, 4>(Halo16<64, 48, true>{b.dc, dl}, Rows<false>{pw.c11f, 96, 0},
+                                   tc::StoreSplit{b.du, 96, ul}, M1, 96, 576, dm, st)));
+  CATSEG_TRY((tc::wgrad<128, 128, 2, true>(Rows<false>{x, 128, 0}, Phase16<24, 96, true>{b.du, ul}, 128, 384, M0,
+                                           g_up1w, b.part, dm, st)));
+  CATSEG_TRY(sum_mid(g_up1w, g_up1b, 1, 4, 1, 96, 96, 128 * 384, st));
+  return tc::gemm<128, 128, 2>(Phase16<24, 96, true>{b.du, ul}, Rows<false>{pw.up1t, 128, 0},
+                               tc::StoreBf16{dx, 128}, M0, 128, 384, dm, st);
+}
+
 }  // namespace
 
-// fp32 workspace elements the backward of N slabs needs
-extern "C" long long catseg_decoder_bwd_workspace(int N) {
+// workspace elements (fp32-sized) the backward of N slabs needs
+extern "C" long long catseg_decoder_bwd_workspace(int N, int is_bf16) {
   long long used = 0;
-  carve(nullptr, N, &used);
+  if (is_bf16)
+    carve16(nullptr, N, &used);
+  else
+    carve(nullptr, N, &used);
   return used;
 }
 
@@ -377,9 +842,9 @@ extern "C" int catseg_decoder_bwd(const void* x, const void* hg1, const void* hg
   for (int i = 0; i < 13; ++i) g[i] = static_cast<float*>(gv[i]);
   auto st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)run<bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(hg1), static_cast<const bf16*>(hg2),
-                          c(dout), static_cast<bf16*>(dx), static_cast<float*>(dhg1), static_cast<float*>(dhg2), g,
-                          w, static_cast<float*>(ws), N, nT, st);
+    return (int)run_tc(static_cast<const bf16*>(x), static_cast<const bf16*>(hg1), static_cast<const bf16*>(hg2),
+                       c(dout), static_cast<bf16*>(dx), static_cast<float*>(dhg1), static_cast<float*>(dhg2), g, w,
+                       static_cast<float*>(ws), N, nT, st);
   return (int)run<float>(static_cast<const float*>(x), static_cast<const float*>(hg1), static_cast<const float*>(hg2),
                          c(dout), static_cast<float*>(dx), static_cast<float*>(dhg1), static_cast<float*>(dhg2), g, w,
                          static_cast<float*>(ws), N, nT, st);

@@ -64,9 +64,9 @@ _SIGNATURES = {
     "catseg_mlp": "pppppp" + "iiiiii",
     "catseg_linear_attention": "pppp" + "iiii" + "fi",
 }
-# fp32 workspace sizes of the backward entry points (int arguments)
-_WORKSPACE = {"catseg_swin_block_bwd_workspace": 4, "catseg_class_layer_bwd_workspace": 3,
-              "catseg_decoder_bwd_workspace": 1}
+# workspace sizes (fp32 elements) of the backward entry points (int arguments)
+_WORKSPACE = {"catseg_swin_block_bwd_workspace": 5, "catseg_class_layer_bwd_workspace": 3,
+              "catseg_decoder_bwd_workspace": 2}
 # entry points that take each tensor's row stride as an argument
 ROW_STRIDED = frozenset({"catseg_window_attention"})
 _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

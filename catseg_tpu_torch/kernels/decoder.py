@@ -29,8 +29,9 @@ per-image guidance planes (conv1's guidance halves, computed outside it by
 ``F.conv2d``, so autograd carries their gradients into ``conv1_w[:, Cup:]``
 and the guidance, as the reference's ``_prep_guidance_w``) and the torch-
 layout parameters.  Its backward on CUDA is csrc/decoder_bwd.cu (replaces
-the reference's ``_fused_bwd``); on the CPU autograd through the plain
-version.
+the reference's ``_fused_bwd``; in bf16 on mma.sync tensor cores, every
+fp32 cotangent a product reads as a bf16 pair hi + lo, its note there says
+more); on the CPU autograd through the plain version.
 """
 
 from __future__ import annotations
@@ -161,9 +162,7 @@ def decoder_args(x, hg1, hg2, p: dict) -> tuple[torch.Tensor, tuple]:
     w = _kernel_weights(p, dt, f32=False)
     x = x.contiguous()
     # the bf16 kernel reads x by 16-byte cp.async, the guidance planes by channel pairs
-    if any(t.data_ptr() % 16 for t in (x, hg1, hg2)):
-        raise ValueError("decoder kernel reads slabs by 16-byte copies: x, hg1 and hg2 must start 16-byte "
-                         f"aligned; got addresses mod 16 {[t.data_ptr() % 16 for t in (x, hg1, hg2)]}")
+    _check_rows_aligned(x=x, hg1=hg1, hg2=hg2)
     lib = _build.library()
     with torch.cuda.device(x.device):
         blocks = lib.catseg_decoder_blocks(int(dt == torch.bfloat16))
@@ -193,6 +192,14 @@ def _from_taps(g: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
     return g.reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
 
 
+def _check_rows_aligned(**ts) -> None:
+    """The bf16 kernels read slabs by 16-byte copies: raise for a view that
+    does not start 16-byte aligned (in both dtypes, one check)."""
+    if any(t.data_ptr() % 16 for t in ts.values()):
+        raise ValueError(f"decoder kernels read slabs by 16-byte copies: {', '.join(ts)} must start 16-byte "
+                         f"aligned; got addresses mod 16 {[t.data_ptr() % 16 for t in ts.values()]}")
+
+
 def _decoder_bwd_cuda(x, hg1, hg2, dout, p: dict):
     N = x.shape[0]
     dt = x.dtype
@@ -200,13 +207,14 @@ def _decoder_bwd_cuda(x, hg1, hg2, dout, p: dict):
     f32 = dict(dtype=torch.float32, device=x.device)
     x, dout = x.contiguous(), dout.float().contiguous()
     hg1, hg2 = hg1.to(dt).contiguous(), hg2.to(dt).contiguous()
+    _check_rows_aligned(x=x, hg1=hg1, hg2=hg2)
     w = _kernel_weights(p, dt, f32=True)
     dx = torch.empty_like(x)
     dhg1, dhg2 = torch.empty((B, 48, 48, 64), **f32), torch.empty((B, 96, 96, 32), **f32)
     shapes = [(129, 384), (96,), (864, 64), (128,), (576, 64), (128,),
               (65, 192), (48,), (432, 32), (64,), (288, 32), (64,), (289,)]
     g = [torch.empty(s, **f32) for s in shapes]
-    ws = torch.empty(_build.library().catseg_decoder_bwd_workspace(N), **f32)
+    ws = torch.empty(_build.library().catseg_decoder_bwd_workspace(N, int(dt == torch.bfloat16)), **f32)
     _build.launch("catseg_decoder_bwd", x, hg1, hg2, dout, dx, dhg1, dhg2, *g, *w, ws, N, N // B,
                   int(dt == torch.bfloat16))
     _build.count("decoder_bwd")

@@ -17,9 +17,10 @@ activation dtype, picks the forms in the kernel and in the plain version.
 
 Gradients: each block is a ``torch.autograd.Function``.  Its backward on
 CUDA is csrc/swin_block_bwd.cu (replaces the reference's ``_bwd`` /
-``_pallas_pair_bwd``); on the CPU it is autograd through the plain block, as
-the reference's ``_bwd_xla``.  The pair's backward runs block 2, then block
-1, each from its saved input.
+``_pallas_pair_bwd``; in bf16 on mma.sync tensor cores, its note there
+says which operands go as bf16 and which as a hi + lo pair); on the CPU it
+is autograd through the plain block, as the reference's ``_bwd_xla``.  The
+pair's backward runs block 2, then block 1, each from its saved input.
 """
 
 from __future__ import annotations
@@ -186,12 +187,18 @@ def _swin_block_bwd_cuda(x, qg, kg, dout, p: dict, shift: int):
     has_guid = qg is not None
     if has_guid:
         qg, kg = qg.to(dt).contiguous(), kg.to(dt).contiguous()
+    # the bf16 backward reads dout's token rows by 16-byte cp.async
+    rows = (x, dout, qg, kg) if has_guid else (x, dout)
+    if any(t.data_ptr() % 16 for t in rows):
+        raise ValueError(f"swin backward reads token rows by 16-byte copies: x, dout, qg and kg must start "
+                         f"16-byte aligned; got addresses mod 16 {[t.data_ptr() % 16 for t in rows]}")
     dx = torch.empty_like(x)
     dqg, dkg = (torch.empty((B, H, W, C), **f32) for _ in range(2)) if has_guid else (None, None)
     g_ln1, g_ln2 = torch.empty(2 * C, **f32), torch.empty(2 * C, **f32)
     g_qkv, g_proj = torch.empty(C + 1, 3 * C, **f32), torch.empty(C + 1, C, **f32)
     g_fc1, g_fc2 = torch.empty(C + 1, 4 * C, **f32), torch.empty(4 * C + 1, C, **f32)
-    ws = torch.empty(_build.library().catseg_swin_block_bwd_workspace(B, T, H, W), **f32)
+    ws_elems = _build.library().catseg_swin_block_bwd_workspace(B, T, H, W, int(dt == torch.bfloat16))
+    ws = torch.empty(ws_elems, **f32)
     _build.launch("catseg_swin_block_bwd", x, qg, kg, dout, dx, dqg, dkg, g_ln1, g_qkv, g_proj, g_ln2,
                   g_fc1, g_fc2, *w, ws, B, T, H, W, shift, int(has_guid), int(dt == torch.bfloat16))
     _build.count("swin_block_bwd")

@@ -51,8 +51,9 @@ Phases (any failure raises and the script exits non-zero):
    decoder, CLIP q/v finetune, AdamW recipe), seed 0, the 171 COCO-Stuff
    train prompts, 4 synthetic 384^2 crops with targets in [0, 171) and ~10%
    ignore: one counted warm-up step (every forward and backward kernel
-   launched, the unfused stages' never; finite loss), 5 timed steps
-   (ms/step, images/s), frozen parameters bit-equal and > 90% of the
+   launched, the unfused stages' never; finite loss), 20 steps each timed
+   on the host clock to a synchronize (ms/step as median, min and max;
+   images/s at the median), frozen parameters bit-equal and > 90% of the
    trainable tensors moved.
 9. fp32 train-step parity, vitb384(compute_dtype="float32"), 1 crop, the
    first 8 classes (pad terms live), the same weights on the GPU (kernels)
@@ -69,8 +70,8 @@ Phases (any failure raises and the script exits non-zero):
    max |d prob| below 5e-4, as [5].
 12. The train step at vitb384(attention_type="full") (pooling 2x2, B = 4,
    T = 171): the MLP kernel forward at 147,456 rows with the plain
-   backward, the class-layer kernels never; finite loss, ms/step,
-   trainables moved.
+   backward, the class-layer kernels never; finite loss, ms/step over 20
+   steps as [8], trainables moved.
 13. The unfused stages against the fused kernels at full width, in fp32 and
    bf16, as catseg_tpu's own tests hold them equal: the unfused Swin pair
    (window attention twice, the GELU MLP twice) against fused_swin_pair on
@@ -275,9 +276,13 @@ def synthetic_batch(B: int, T: int, seed: int):
     return torch.from_numpy(images), torch.from_numpy(targets)
 
 
+TRAIN_STEPS = 20   # timed train steps after the warm-up, [8] and [12]
+
+
 def train_step_phase(dev, smi, _build, cfg, expect, absent) -> dict:
     """Phases 8 and 12: one counted step (every kernel in ``expect`` launched,
-    none in ``absent``), 5 timed steps; returns the counted step's launches."""
+    none in ``absent``), TRAIN_STEPS timed steps; returns the counted step's
+    launches."""
     from catseg_tpu_torch.configs import class_names
     from catseg_tpu_torch.train.loop import class_tokens, init_train_state, make_train_step
 
@@ -292,14 +297,17 @@ def train_step_phase(dev, smi, _build, cfg, expect, absent) -> dict:
     if not torch.isfinite(loss) or min(counts[k] for k in expect) == 0 or any(counts[k] for k in absent):
         raise AssertionError("train step: non-finite loss, a kernel of the path never launched, or one "
                              f"of {absent} did")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         loss = step(model, images, targets)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / 5 * 1e3
-    log(f"    {ms:.1f} ms/step, {4e3 / ms:.3f} images/s (mean of 5 steps after the warm-up) on {smi}; "
-        f"last loss {loss.item():.6f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(steps)
+    log(f"    {ms:.1f} ms/step median, min {min(steps):.1f}, max {max(steps):.1f} ({TRAIN_STEPS} steps after the "
+        f"warm-up), {4e3 / ms:.3f} images/s on {smi}; last loss {loss.item():.6f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     frozen = [n for n, lbl in opt.labels.items() if lbl == "frozen"]
     trainable = [n for n, lbl in opt.labels.items() if lbl != "frozen"]
     params = dict(model.named_parameters())
@@ -513,6 +521,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     checks = {dt: check_kernels(dev, dt, selfcheck, _build) for dt in (torch.float32, torch.bfloat16)}
+    for name in ("swin_block_bwd", "decoder_bwd"):   # the bf16 backward kernels on the tensor cores
+        c = checks[torch.bfloat16][name]
+        log(f"    {name} bf16 (tensor cores): kernel {c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms, bound "
+            f"{c['bound_ms']:.4f} ms, worst gradient {c['rel_err']:.2e} (bound {c['rel_bound']:.1e})")
 
     log("[4] sliding-window Predictor, default vitb384 eval preset (fused decoder), bf16, T=150")
     cfg = eval_preset(vitb384())

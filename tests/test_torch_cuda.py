@@ -633,3 +633,95 @@ def test_decoder_refuses_misaligned_rows(cuda, dtype):
         with pytest.raises(ValueError, match="16-byte"):
             decoder._decoder_cuda(x, a, b, p)
     assert _build.LAUNCHES["decoder"] == before
+
+
+@pytest.mark.parametrize("images,T", [(1, 1), (1, 5), (3, 15)], ids=["1", "5", "45"])
+def test_decoder_backward_slab_counts(cuda, images, T):
+    """The bf16 decoder backward (tensor cores) on 1, 5 and 45 slabs (1 and 3
+    images; 45 spreads unevenly over the weight grads' 128 K splits)
+    against the plain backward within selfcheck's bound on every gradient;
+    the launch count rises by one and a rerun is bit-equal."""
+    from catseg_tpu_torch.kernels import decoder
+
+    dt = torch.bfloat16
+    g = torch.Generator().manual_seed(images * 1000 + T)
+    x, g1, g2, d1, d2, head = _decoder_inputs(g, cuda, images, T, dt)
+    p = dict(zip(decoder._DK, decoder._params(d1, d2, head)))
+    hg1, hg2 = decoder._guidance_half(d1, g1, 96, dt), decoder._guidance_half(d2, g2, 48, dt)
+    dout = torch.randn(images * T, 96, 96, generator=g).to(cuda)
+    names = ("dx", "dhg1", "dhg2")
+    before = _build.LAUNCHES["decoder_bwd"]
+    got = selfcheck._grads(names, decoder.decoder_backward(x, hg1, hg2, dout, p))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decoder_bwd"] == before + 1
+    want = selfcheck._grads(names, decoder.decoder_backward_plain(x, hg1, hg2, dout, p))
+    err, rel = selfcheck.rel_err(got, want)
+    assert rel <= selfcheck.bound("decoder_bwd", dt), (err, rel)
+    again = selfcheck._grads(names, decoder.decoder_backward(x, hg1, hg2, dout, p))
+    assert all(torch.equal(got[k], again[k]) for k in got)
+
+
+@pytest.mark.parametrize("guided", [False, True], ids=["plain", "guided"])
+@pytest.mark.parametrize("shift", [0, 6])
+@pytest.mark.parametrize("grid", [(24, 24), (24, 48)], ids=["24x24", "24x48"])
+@pytest.mark.parametrize("T", [1, 5])
+def test_swin_block_backward_geometries(cuda, T, grid, shift, guided):
+    """The bf16 Swin block backward (tensor cores) on 2 images x T classes
+    over a 24 x 24 or a 24 x 48 grid, at shift 0 and 6, with and without
+    guidance, against the plain backward within selfcheck's bound on every
+    gradient; the launch count rises by one and a rerun is bit-equal."""
+    from catseg_tpu_torch.kernels import swin_block
+
+    dt = torch.bfloat16
+    g = torch.Generator().manual_seed(T * 100 + grid[1] + shift + 7 * guided)
+    x = torch.randn(2, T, *grid, 128, generator=g).to(cuda, dt)
+    qg, kg = (None, None) if not guided else (
+        (torch.randn(2, *grid, 128, generator=g) * 0.5).to(cuda, dt) for _ in range(2))
+    dout = torch.randn(2, T, *grid, 128, generator=g).to(cuda, dt)
+    p = _swin_params(g, cuda)
+    names = ("dx", "dqg", "dkg")
+    before = _build.LAUNCHES["swin_block_bwd"]
+    got = selfcheck._grads(names, swin_block.swin_block_backward(x, qg, kg, dout, p, 4, 12, shift))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["swin_block_bwd"] == before + 1
+    want = selfcheck._grads(names, swin_block.swin_block_backward_plain(x, qg, kg, dout, p, 4, 12, shift))
+    err, rel = selfcheck.rel_err(got, want)
+    assert rel <= selfcheck.bound("swin_block_bwd", dt), (err, rel)
+    again = selfcheck._grads(names, swin_block.swin_block_backward(x, qg, kg, dout, p, 4, 12, shift))
+    assert all(torch.equal(got[k], again[k]) for k in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_backward_kernels_refuse_misaligned_rows(cuda, dtype):
+    """The bf16 backward kernels read rows by 16-byte copies: an input that
+    starts one element into its storage raises a ValueError before any
+    launch, for the decoder (x, hg1, hg2) and the Swin block (x, dout, qg,
+    kg), in both dtypes (one check)."""
+    from catseg_tpu_torch.kernels import decoder, swin_block
+
+    def odd(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16
+        return v
+
+    g = torch.Generator().manual_seed(14)
+    x, g1, g2, d1, d2, head = _decoder_inputs(g, cuda, 1, 2, dtype)
+    p = dict(zip(decoder._DK, decoder._params(d1, d2, head)))
+    hg1, hg2 = decoder._guidance_half(d1, g1, 96, dtype), decoder._guidance_half(d2, g2, 48, dtype)
+    dout = torch.randn(2, 96, 96, generator=g).to(cuda)
+    before = _build.LAUNCHES["decoder_bwd"]
+    for args in ((odd(x), hg1, hg2), (x, odd(hg1), hg2), (x, hg1, odd(hg2))):
+        with pytest.raises(ValueError, match="16-byte"):
+            decoder.decoder_backward(*args, dout, p)
+    assert _build.LAUNCHES["decoder_bwd"] == before
+    xs = torch.randn(1, 2, 24, 24, 128, generator=g).to(cuda, dtype)
+    gs = torch.randn(1, 24, 24, 128, generator=g).to(cuda, dtype)
+    ds = torch.randn(1, 2, 24, 24, 128, generator=g).to(cuda, dtype)
+    ps = _swin_params(g, cuda)
+    before = _build.LAUNCHES["swin_block_bwd"]
+    for args in ((odd(xs), gs, gs, ds), (xs, gs, gs, odd(ds)), (xs, odd(gs), gs, ds), (xs, gs, odd(gs), ds)):
+        with pytest.raises(ValueError, match="16-byte"):
+            swin_block.swin_block_backward(*args, ps, 4, 12, 0)
+    assert _build.LAUNCHES["swin_block_bwd"] == before
