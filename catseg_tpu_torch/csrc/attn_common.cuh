@@ -108,6 +108,19 @@ __device__ __forceinline__ int sw(int row, int chunk) {
   return row * RC * 8 + ((chunk ^ (row & 7)) << 3);
 }
 
+// chunks a tile row is allocated where RC may be below 8: swz needs 2, 4 or a multiple of 8
+constexpr int alloc_chunks(int c) { return c <= 2 ? 2 : c <= 4 ? 4 : (c + 7) / 8 * 8 == c ? c : c <= 8 ? 8 : 16; }
+
+// sw for any such RC: rows of 2 or 4 chunks XOR their chunk by higher row
+// bits, so that the 8 rows an ldmatrix reads at one chunk still fall in 8
+// distinct 16-byte bank groups (bwd_common.cuh's tiles, mlp.cu's weight chunks)
+template <int RC>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  if constexpr (RC >= 8) return sw<RC>(row, chunk);
+  else if constexpr (RC == 4) return row * 32 + ((chunk ^ ((row >> 1) & 3)) << 3);
+  else return row * 16 + ((chunk ^ ((row >> 2) & 1)) << 3);
+}
+
 template <int RC>
 __device__ __forceinline__ bf16* at(bf16* tile, int row, int col) {
   return tile + sw<RC>(row, col >> 3) + (col & 7);

@@ -5,13 +5,13 @@
 // workspace and then walks the stages in reverse.  Two engines run the
 // matrix products:
 //
-// - gemm (the fp32 paths and the class layer's): C = A B on CUDA-core FMAs
+// - gemm (the fp32 paths): C = A B on CUDA-core FMAs
 //   (64x64 or 128x32 tiles, 16-deep k steps, a 4x4 or 8x2 micro-tile per
 //   thread), with A and B read element by element through loader functors
 //   (dense, transposed, im2col of an NHWC plane, GroupNorm + ReLU applied on
 //   the fly) and each output handed to an epilogue functor, so bias,
 //   rounding, activation derivatives and scatters fuse into it;
-// - tc::gemm (the bf16 paths of the Swin block and the decoder): bf16
+// - tc::gemm (the bf16 paths of all three backward kernels): bf16
 //   mma.sync m16n8k16 with fp32 accumulation.  A and B tiles land in shared
 //   memory by 16-byte cp.async in a ring of 3 to 6 stages, each 16-byte chunk
 //   eight consecutive elements of one row of a bf16 source (a dense row, a
@@ -298,8 +298,8 @@ cudaError_t ln_fwd(const S* x, const float* g, const float* b, Y* y, float* stat
 
 // dx = res + LN'(dy) per row (res may be null); block partials of
 // sum dy * xhat (gain) and sum dy (bias) -> part[block][256]
-template <typename S, typename Rs, typename D>
-__global__ void __launch_bounds__(256) ln_bwd_kernel(const float* dy, const S* x, const float* stats,
+template <typename DY, typename S, typename Rs, typename D>
+__global__ void __launch_bounds__(256) ln_bwd_kernel(const DY* dy, const S* x, const float* stats,
                                                      const float* g, const Rs* res, D* dx, float* part,
                                                      long long M) {
   __shared__ float red[8][256];
@@ -312,7 +312,7 @@ __global__ void __launch_bounds__(256) ln_bwd_kernel(const float* dy, const S* x
     for (int i = 0; i < 4; ++i) {
       const int c = lane + 32 * i;
       xh[i] = (to_f(x[r * 128 + c]) - mean) * rs;
-      const float d = dy[r * 128 + c];
+      const float d = to_f(dy[r * 128 + c]);
       ag[i] += d * xh[i];
       ab[i] += d;
       dh[i] = d * g[c];
@@ -343,11 +343,11 @@ __global__ void __launch_bounds__(256) ln_bwd_kernel(const float* dy, const S* x
 }
 
 // dx and out[256] = (d gain (128), d bias (128)); part: kLNBlocks * 256 floats
-template <typename S, typename Rs, typename D>
-cudaError_t ln_bwd(const float* dy, const S* x, const float* stats, const float* g, const Rs* res, D* dx,
+template <typename DY, typename S, typename Rs, typename D>
+cudaError_t ln_bwd(const DY* dy, const S* x, const float* stats, const float* g, const Rs* res, D* dx,
                    float* out, float* part, long long M, cudaStream_t st) {
   const int nb = ln_blocks(M);
-  CATSEG_TRY(launch_k(ln_bwd_kernel<S, Rs, D>, dim3(nb), dim3(256), 0, st, dy, x, stats, g, res, dx, part, M));
+  CATSEG_TRY(launch_k(ln_bwd_kernel<DY, S, Rs, D>, dim3(nb), dim3(256), 0, st, dy, x, stats, g, res, dx, part, M));
   return sum_mid(part, out, 1, nb, 1, 256, 256, 0, st);
 }
 
@@ -402,19 +402,6 @@ struct StoreSplit {  // hi / lo planes, row stride ld
 
 constexpr int kBK = 32, kThreads = 256;
 constexpr int kRingBytes = 96 * 1024;   // shared memory a CTA's tiles may take beyond a halo
-
-// chunks a tile row is allocated: the swizzles below need 2, 4 or a multiple of 8
-constexpr int alloc_chunks(int c) { return c <= 2 ? 2 : c <= 4 ? 4 : (c + 7) / 8 * 8 == c ? c : c <= 8 ? 8 : 16; }
-
-// element offset of (row, chunk) in a tile of RC 16-byte chunks a row, XOR-
-// swizzled so that the 8 rows an ldmatrix reads at one chunk fall in 8
-// distinct 16-byte bank groups
-template <int RC>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  if constexpr (RC >= 8) return row * RC * 8 + ((chunk ^ (row & 7)) << 3);
-  else if constexpr (RC == 4) return row * 32 + ((chunk ^ ((row >> 1) & 3)) << 3);
-  else return row * 16 + ((chunk ^ ((row >> 2) & 1)) << 3);
-}
 
 // the shared-memory layout: a ring of (A, B) tiles, hi then lo of a split
 // operand, as many stages (3 to 6) as kRingBytes holds beside a halo, so
@@ -489,8 +476,10 @@ template <int R, int C, class Src> struct Moving {
 // C (M, N) = A (M, K) B (K, N) for the k range of split blockIdx.z, each pair
 // of adjacent outputs handed to epi(m, n, c(m, n), c(m, n + 1), split).
 // 8 warps in WM x (8 / WM), a warp tile (BM / WM) x (BN * WM / 8); k steps
-// of 32 in a ring of L::STAGES tiles.  M, N, K are multiples of 8; element
-// offsets below 2^31.
+// of 32 in a ring of L::STAGES tiles.  N and the dimension A's chunks run
+// along (K in rows mode, M transposed) are multiples of 8; the batch rows
+// (M in rows mode, K transposed) may be ragged: their tiles are zero-filled
+// past the end.  Element offsets below 2^31.
 // RN: each mma sums its 16 products into zeroed accumulators and an fp32
 // add (round to nearest) takes them into the running sums, where an mma
 // adding into the running sums would align them with truncation at every k
@@ -684,7 +673,7 @@ inline int split_count(int K, int splits) { return cdiv(K, split_chunk(K, splits
 
 template <int BM, int BN, int WM, bool AT = false, bool RN = false, bool BIAS = false, class SA, class SB, class Epi>
 cudaError_t gemm(SA sa, SB sb, Epi epi, int M, int N, int K, const void* dummy, cudaStream_t st, int splits = 1) {
-  if (M % 8 || N % 8 || K % 8 || (SA::kHalo && (M % BM || splits != 1))) return cudaErrorInvalidValue;
+  if (N % 8 || (AT ? M : K) % 8 || (SA::kHalo && (M % BM || splits != 1))) return cudaErrorInvalidValue;
   const int kc = split_chunk(K, splits), z = split_count(K, splits);
   return launch_k(gemm_kernel<BM, BN, WM, AT, RN, BIAS, SA, SB, Epi>, dim3(cdiv(M, BM), cdiv(N, BN), z), dim3(kThreads),
                   Tiles<BM, BN, AT, SA::kSplit, SB::kSplit, HaloGeom<SA, BM>::ELEMS>::BYTES, st, sa, sb, epi, M, N,

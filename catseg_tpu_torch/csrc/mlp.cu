@@ -2,146 +2,212 @@
 //
 // Replaces catseg_tpu/kernels/mlp.py:fused_mlp (_kernel).  x (M, C) row-major
 // in T, W1 (C, H) and W2 (H, Co) row-major (the reference's (in, out) layout),
-// b1 / b2 fp32; out (M, Co) in T.  act 0 is GELU (tanh form in bf16, erf in
-// fp32: the reference's dtype predicate), 1 is ReLU.  The hidden is rounded to
-// T before the second product, as the reference rounds it to x's dtype.
+// b1 / b2 fp32; out (M, Co) in T.  act 0 is GELU (tanh form in bf16, as v
+// sigmoid(2u) = 0.5 v (1 + tanh u); erf in fp32: the reference's dtype
+// predicate), 1 is ReLU.  The hidden is rounded to T before the second
+// product, as the reference rounds it to x's dtype.
 //
-// Each CTA takes a tile of rows and walks the hidden width in 128-wide chunks:
-// a chunk is produced (x tile . W1 chunk), biased, activated, rounded, and at
-// once contracted into the tile's fp32 output accumulator, so the 4x hidden
-// never reaches device memory.  bf16: wmma m16n16k16 tensor-core products
-// (64-row tiles, 8 warps; each chunk's W1 columns and W2 rows are copied to
-// shared memory once per CTA with 16-byte loads; the output accumulators stay
-// in fragments across the chunks).  fp32: CUDA-core FMAs (32-row tiles; each
-// thread owns one output column and Co / 8 rows, one weight load feeding
-// Co / 8 FMAs, float4 reads of the shared rows).  Co is 32, 64, 128 or 256.
+// Each CTA takes a tile of rows and walks the hidden width in chunks: a chunk
+// is produced (x tile . W1 chunk), biased, activated, rounded, and at once
+// contracted into the tile's fp32 output accumulators, so the 4x hidden never
+// reaches device memory.
+//
+// bf16: mma.sync m16n8k16 tensor cores, 8 warps, 256 rows a CTA (128 for Co =
+// 256, whose accumulators take the registers of a second strip).  The x tile
+// lands once by 16-byte cp.async into a swizzled tile; W1's and W2's 32-wide
+// hidden chunks stream through a 3-stage cp.async ring, so the next chunks'
+// loads run under this chunk's products, one barrier a chunk.  A warp owns 16
+// or 32 rows and all Co outputs: its hidden chunk's fp32 C fragments take
+// bias, activation and the bf16 rounding in registers and are repacked as the
+// A fragments of the W2 product (the C -> A identity of attn_common.cuh), so
+// the hidden never leaves registers; A fragments by ldmatrix from the x tile,
+// B fragments by ldmatrix.trans from the chunk tiles.  The output tile goes
+// out through the warp's own rows of the x tile, 16 bytes a store.  Each CTA
+// reads all of W1 and W2 once from L2: 5760 CTAs x 256 KB = 1.47 GB for the
+// class MLP (1,474,560 rows, C = Co = 128, H = 512).
+//
+// fp32: CUDA-core FMAs (32-row tiles; each thread owns one output column and
+// Co / 8 rows, one weight load feeding Co / 8 FMAs, float4 reads of the
+// shared rows).  Co is 32, 64, 128 or 256.
 //
 // Bound on the card: operations (2 M C H + 2 M H Co, ~386 GFLOP for the class
-// MLP at M = 1.47 M rows against 0.4-0.6 GB of x and out).  Every CTA still
-// reads all the weights from L2 (256 KB in bf16 per 64 rows); TMA multicast
-// across a cluster and wgmma tiles are the next step.
-#include <mma.h>
-
+// MLP, 0.39 ms at the bf16 tensor cores' peak, against 0.4-0.6 GB of x and
+// out).  mma.sync reads every B fragment from shared memory once per warp
+// (no multicast), ~200 bytes of ldmatrix per mma; wgmma would read it once
+// per warpgroup.
+#include "attn_common.cuh"
 #include "common.cuh"
 
 using namespace catseg;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kHC = 128;   // hidden chunk
-constexpr int kBM16 = 64;  // rows per CTA, bf16
-constexpr int kBM32 = 32;  // rows per CTA, fp32
+constexpr int kThreads = 256, kWarps = kThreads / 32;
+constexpr int kBM32 = 32, kHC32 = 128;  // rows per CTA and hidden chunk, fp32
 
-__device__ __forceinline__ float act_fn(float v, int act, bool fast) {
-  if (act == 1) return fmaxf(v, 0.f);
-  if (fast) return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
-  return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+// fp32's activations: ReLU (act 1) or the exact erf GELU
+__device__ __forceinline__ float act_fp32(float v, int act) {
+  return act == 1 ? fmaxf(v, 0.f) : 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+}
+
+// bf16's activations: ReLU (ACT 1), or the tanh-form GELU 0.5 v (1 + tanh(u))
+// written as v sigmoid(2 u), two SFU operations (ex2, rcp) where tanhf takes
+// a long FMA sequence; the hidden is rounded to bf16 after it
+template <int ACT> __device__ __forceinline__ float act_bf16(float v) {
+  if constexpr (ACT == 1) return fmaxf(v, 0.f);
+  else return __fdividef(v, 1.f + __expf(-1.5957691216057308f * (v + 0.044715f * v * v * v)));
 }
 
 // ---- bf16: tensor cores -------------------------------------------------
-// shared: xs (kBM16, C + 8) | w1s (C, kHC + 8) | w2s (kHC, Co + 8) | hs (kBM16, kHC + 8), all bf16;
-// then one 16 x 16 fp32 staging tile per warp.  Row pitches are 16-byte multiples off the
-// 32-byte wmma alignment, which spreads the fragment loads over the banks.
-template <int NTH>  // output column tiles of 16 per warp: Co = 32 NTH
-__global__ void __launch_bounds__(kThreads)
+// shared: xs (BM rows of kXC 16-byte chunks: x, then the output tile) | a
+// ring of kStages (W1 chunk (C rows of 4 chunks) | W2 chunk (kHC rows of Co / 8
+// chunks)), every tile XOR-swizzled for conflict-free ldmatrix.
+constexpr int kHC = 32;                      // hidden columns a chunk
+constexpr int kStages = 3;                   // weight chunks in flight
+constexpr int kMaxC = 256, kXC = kMaxC / 8;  // x and output rows: at most 256 columns
+constexpr int kW1 = kMaxC * kHC;             // elements of a W1 chunk slot
+
+template <int CO> struct TileGeom {
+  static constexpr int MS = CO <= 128 ? 2 : 1;   // 16-row strips a warp
+  static constexpr int BM = 16 * MS * kWarps;   // rows a CTA
+  static constexpr int RC2 = CO / 8;            // chunks a W2 chunk row
+  static constexpr int STAGE = kW1 + kHC * CO;  // elements of a ring slot
+  static constexpr size_t BYTES = ((size_t)BM * kXC * 8 + (size_t)kStages * STAGE) * sizeof(bf16);
+};
+
+// KC: C / 16 where known at compile time (the k loop unrolled whole), else
+// 0; ACT the activation (act_bf16), compiled into each kernel
+template <int CO, int KC, int ACT>
+__global__ void __launch_bounds__(kThreads, 1)
 mlp_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1, const float* __restrict__ b1,
                 const bf16* __restrict__ w2, const float* __restrict__ b2, bf16* __restrict__ out, int M,
-                int C, int H, int act) {
-  namespace wm = nvcuda::wmma;
-  constexpr int Co = 32 * NTH;
-  constexpr int ldw1 = kHC + 8, ldw2 = Co + 8, ldh = kHC + 8;
+                int C, int H) {
+  using G = TileGeom<CO>;
+  constexpr int MS = G::MS, NO = CO / 8, RC2 = G::RC2;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ldx = C + 8;
   bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* w1s = xs + kBM16 * ldx;
-  bf16* w2s = w1s + C * ldw1;
-  bf16* hs = w2s + kHC * ldw2;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* stage = reinterpret_cast<float*>(hs + kBM16 * ldh) + warp * 256;
-  const long row0 = (long)blockIdx.x * kBM16;
+  bf16* ring = xs + G::BM * kXC * 8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const long long row0 = (long long)blockIdx.x * G::BM;
+  const int wr0 = warp * 16 * MS;   // this warp's first row in the tile
+  const int nch = H / kHC, xc = C / 8, nk = KC ? KC : C / 16;
 
-  // 16-byte copies: 8 bf16 each
-  const int xv = C / 8;
-  for (int e = tid; e < kBM16 * xv; e += kThreads) {
-    const int r = e / xv, c = (e % xv) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < M) val = *reinterpret_cast<const uint4*>(x + (row0 + r) * C + c);
-    *reinterpret_cast<uint4*>(xs + r * ldx + c) = val;
-  }
-
-  // warp w: row tile w / 2; hidden-chunk column tiles 4 (w % 2) ..+4, output column tiles NTH (w % 2) ..+NTH
-  const int rt = warp >> 1, half = warp & 1;
-  wm::fragment<wm::accumulator, 16, 16, 16, float> acc_o[NTH];
-#pragma unroll
-  for (int j = 0; j < NTH; ++j) wm::fill_fragment(acc_o[j], 0.f);
-
-  for (int h0 = 0; h0 < H; h0 += kHC) {
-    __syncthreads();  // every warp is done with the last chunk's w1s, w2s and hs
+  // hidden chunk c's W1 columns and W2 rows into ring slot c % kStages
+  auto load_w = [&](int c) {
+    bf16* w1s = ring + (c % kStages) * G::STAGE;
+    bf16* w2s = w1s + kW1;
+    const int h0 = c * kHC;
     for (int e = tid; e < C * (kHC / 8); e += kThreads) {
-      const int k = e / (kHC / 8), c = (e % (kHC / 8)) * 8;
-      *reinterpret_cast<uint4*>(w1s + k * ldw1 + c) =
-          *reinterpret_cast<const uint4*>(w1 + (size_t)k * H + h0 + c);
+      const int k = e >> 2, ch = e & 3;
+      cp_async16(w1s + swz<4>(k, ch), w1 + (size_t)k * H + h0 + 8 * ch);
     }
-    for (int e = tid; e < kHC * (Co / 8); e += kThreads) {
-      const int k = e / (Co / 8), c = (e % (Co / 8)) * 8;
-      *reinterpret_cast<uint4*>(w2s + k * ldw2 + c) =
-          *reinterpret_cast<const uint4*>(w2 + (size_t)(h0 + k) * Co + c);
+    for (int e = tid; e < kHC * RC2; e += kThreads) {
+      const int k = e / RC2, ch = e % RC2;
+      cp_async16(w2s + swz<RC2>(k, ch), w2 + (size_t)(h0 + k) * CO + 8 * ch);
     }
-    __syncthreads();
-    wm::fragment<wm::accumulator, 16, 16, 16, float> acc_h[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wm::fill_fragment(acc_h[j], 0.f);
-    for (int k = 0; k < C; k += 16) {
-      wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-      wm::load_matrix_sync(a, xs + rt * 16 * ldx + k, ldx);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> b;
-        wm::load_matrix_sync(b, w1s + k * ldw1 + (half * 4 + j) * 16, ldw1);
-        wm::mma_sync(acc_h[j], a, b, acc_h[j]);
-      }
-    }
-    // bias, activation and the rounding to bf16, one tile at a time through the warp's stage
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c0 = (half * 4 + j) * 16;
-      wm::store_matrix_sync(stage, acc_h[j], 16, wm::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e / 16, c = c0 + e % 16;
-        hs[(rt * 16 + r) * ldh + c] = __float2bfloat16(act_fn(stage[e] + b1[h0 + c], act, true));
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-    for (int k = 0; k < kHC; k += 16) {
-      wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-      wm::load_matrix_sync(a, hs + rt * 16 * ldh + k, ldh);
-#pragma unroll
-      for (int j = 0; j < NTH; ++j) {
-        wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> b;
-        wm::load_matrix_sync(b, w2s + k * ldw2 + (half * NTH + j) * 16, ldw2);
-        wm::mma_sync(acc_o[j], a, b, acc_o[j]);
-      }
-    }
+  };
+  for (int e = tid; e < G::BM * xc; e += kThreads) {   // in chunk 0's commit group
+    const int r = e / xc, ch = e % xc;
+    const bool ok = row0 + r < M;
+    cp_async16(xs + sw<kXC>(r, ch), ok ? x + (row0 + r) * C + 8 * ch : x, ok);
   }
 #pragma unroll
-  for (int j = 0; j < NTH; ++j) {
-    const int c0 = (half * NTH + j) * 16;
-    wm::store_matrix_sync(stage, acc_o[j], 16, wm::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const long r = row0 + rt * 16 + e / 16;
-      const int c = c0 + e % 16;
-      if (r < M) out[r * Co + c] = __float2bfloat16(stage[e] + b2[c]);
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < nch) load_w(c);
+    cp_async_commit();
+  }
+
+  float acc[MS][NO][4];
+#pragma unroll
+  for (int s = 0; s < MS; ++s)
+#pragma unroll
+    for (int j = 0; j < NO; ++j) acc[s][j][0] = acc[s][j][1] = acc[s][j][2] = acc[s][j][3] = 0.f;
+
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // chunk c landed for every thread; slot (c - 1) % kStages is free
+    if (c + kStages - 1 < nch) load_w(c + kStages - 1);
+    cp_async_commit();
+    const bf16* w1s = ring + (c % kStages) * G::STAGE;
+    const bf16* w2s = w1s + kW1;
+
+    // hidden chunk: h (16 MS rows, 32 columns) = x W1[:, chunk]
+    float h[MS][kHC / 8][4];
+#pragma unroll
+    for (int s = 0; s < MS; ++s)
+#pragma unroll
+      for (int j = 0; j < kHC / 8; ++j) h[s][j][0] = h[s][j][1] = h[s][j][2] = h[s][j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < nk; ++kk) {
+      unsigned a[MS][4];
+#pragma unroll
+      for (int s = 0; s < MS; ++s)
+        ldmatrix_x4(a[s], xs + sw<kXC>(wr0 + 16 * s + (lane & 7) + ((lane >> 3) & 1) * 8, 2 * kk + (lane >> 4)));
+#pragma unroll
+      for (int p = 0; p < kHC / 16; ++p) {
+        unsigned r[4];
+        ldmatrix_x4_trans(r, w1s + swz<4>(16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8, 2 * p + (lane >> 4)));
+#pragma unroll
+        for (int s = 0; s < MS; ++s) {
+          mma_bf16(h[s][2 * p], a[s], r[0], r[1]);
+          mma_bf16(h[s][2 * p + 1], a[s], r[2], r[3]);
+        }
+      }
     }
-    __syncwarp();
+    // bias, activation and the bf16 rounding in registers: the A fragments of the W2 product
+    unsigned ha[MS][kHC / 16][4];
+#pragma unroll
+    for (int j = 0; j < kHC / 8; ++j) {
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + c * kHC + 8 * j + 2 * t));
+#pragma unroll
+      for (int s = 0; s < MS; ++s) {
+        h[s][j][0] = act_bf16<ACT>(h[s][j][0] + bb.x);
+        h[s][j][1] = act_bf16<ACT>(h[s][j][1] + bb.y);
+        h[s][j][2] = act_bf16<ACT>(h[s][j][2] + bb.x);
+        h[s][j][3] = act_bf16<ACT>(h[s][j][3] + bb.y);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < MS; ++s)
+#pragma unroll
+      for (int q = 0; q < kHC / 16; ++q) c_to_a(ha[s][q], h[s][2 * q], h[s][2 * q + 1]);
+    // out (16 MS rows, Co) += h W2[chunk, :]
+#pragma unroll
+    for (int q = 0; q < kHC / 16; ++q)
+#pragma unroll
+      for (int p = 0; p < CO / 16; ++p) {
+        unsigned r[4];
+        ldmatrix_x4_trans(r, w2s + swz<RC2>(16 * q + (lane & 7) + ((lane >> 3) & 1) * 8, 2 * p + (lane >> 4)));
+#pragma unroll
+        for (int s = 0; s < MS; ++s) {
+          mma_bf16(acc[s][2 * p], ha[s][q], r[0], r[1]);
+          mma_bf16(acc[s][2 * p + 1], ha[s][q], r[2], r[3]);
+        }
+      }
+  }
+  cp_async_wait<0>();
+
+  // out = bf16(acc + b2) through this warp's own rows of the x tile, then 16-byte stores
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(b2 + 8 * j + 2 * t));
+#pragma unroll
+    for (int s = 0; s < MS; ++s) {
+      const int r = wr0 + 16 * s + g;
+      store_bf16x2(xs + sw<kXC>(r, j) + 2 * t, acc[s][j][0] + bb.x, acc[s][j][1] + bb.y);
+      store_bf16x2(xs + sw<kXC>(r + 8, j) + 2 * t, acc[s][j][2] + bb.x, acc[s][j][3] + bb.y);
+    }
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * MS * NO; e += 32) {
+    const int r = wr0 + e / NO, ch = e % NO;
+    if (row0 + r < M)
+      *reinterpret_cast<uint4*>(out + (row0 + r) * CO + 8 * ch) = *reinterpret_cast<const uint4*>(xs + sw<kXC>(r, ch));
   }
 }
 
 // ---- fp32: CUDA cores -----------------------------------------------------
-// shared: xs (kBM32, C) | hs (kBM32, kHC)
+// shared: xs (kBM32, C) | hs (kBM32, kHC32)
 template <int NTH>  // Co = 32 NTH
 __global__ void __launch_bounds__(kThreads)
 mlp_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ b1,
@@ -149,7 +215,7 @@ mlp_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w1, const
                 int C, int H, int act) {
   constexpr int Co = 32 * NTH;
   constexpr int RB = kBM32 * Co / kThreads;  // output rows per thread (4 NTH)
-  constexpr int RH = kBM32 * kHC / kThreads;  // hidden rows per thread (16)
+  constexpr int RH = kBM32 * kHC32 / kThreads;  // hidden rows per thread (16)
   extern __shared__ __align__(16) float fsm[];
   float* xs = fsm;
   float* hs = xs + kBM32 * C;
@@ -162,13 +228,13 @@ mlp_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w1, const
   }
   __syncthreads();
 
-  const int ch = tid % kHC, rh0 = (tid / kHC) * RH;  // hidden column, first row
+  const int ch = tid % kHC32, rh0 = (tid / kHC32) * RH;  // hidden column, first row
   const int co = tid % Co, ro0 = (tid / Co) * RB;    // output column, first row
   float acc_o[RB];
 #pragma unroll
   for (int i = 0; i < RB; ++i) acc_o[i] = 0.f;
 
-  for (int h0 = 0; h0 < H; h0 += kHC) {
+  for (int h0 = 0; h0 < H; h0 += kHC32) {
     float acc[RH];
 #pragma unroll
     for (int i = 0; i < RH; ++i) acc[i] = 0.f;
@@ -188,15 +254,15 @@ mlp_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w1, const
     __syncthreads();  // every thread is done reading hs from the last chunk
     const float bias = b1[h0 + ch];
 #pragma unroll
-    for (int i = 0; i < RH; ++i) hs[(rh0 + i) * kHC + ch] = act_fn(acc[i] + bias, act, false);
+    for (int i = 0; i < RH; ++i) hs[(rh0 + i) * kHC32 + ch] = act_fp32(acc[i] + bias, act);
     __syncthreads();
-    for (int k = 0; k < kHC; k += 4) {
+    for (int k = 0; k < kHC32; k += 4) {
       float w[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) w[u] = __ldg(w2 + (size_t)(h0 + k + u) * Co + co);
 #pragma unroll
       for (int i = 0; i < RB; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(hs + (ro0 + i) * kHC + k);
+        const float4 a = *reinterpret_cast<const float4*>(hs + (ro0 + i) * kHC32 + k);
         acc_o[i] = fmaf(a.x, w[0], acc_o[i]);
         acc_o[i] = fmaf(a.y, w[1], acc_o[i]);
         acc_o[i] = fmaf(a.z, w[2], acc_o[i]);
@@ -210,20 +276,22 @@ mlp_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w1, const
     if (row0 + ro0 + i < M) out[(row0 + ro0 + i) * Co + co] = acc_o[i] + bias;
 }
 
-template <int NTH>
+template <int NTH>  // Co = 32 NTH
 int run(const void* x, const void* w1, const void* b1, const void* w2, const void* b2, void* out, int M, int C,
         int H, int act, int is_bf16, cudaStream_t st) {
   cudaError_t e;
   if (is_bf16) {
-    const size_t smem = 2 * ((size_t)kBM16 * (C + 8) + (size_t)C * (kHC + 8) + (size_t)kHC * (32 * NTH + 8) +
-                             (size_t)kBM16 * (kHC + 8)) + (size_t)(kThreads / 32) * 256 * 4;
-    e = cudaFuncSetAttribute(mlp_bf16_kernel<NTH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    using G = TileGeom<32 * NTH>;
+    constexpr int CO = 32 * NTH;
+    auto k = C == 128 ? (act ? mlp_bf16_kernel<CO, 8, 1> : mlp_bf16_kernel<CO, 8, 0>)   // the model's MLPs
+                      : (act ? mlp_bf16_kernel<CO, 0, 1> : mlp_bf16_kernel<CO, 0, 0>);
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::BYTES);
     if (e != cudaSuccess) return (int)e;
-    mlp_bf16_kernel<NTH><<<(M + kBM16 - 1) / kBM16, kThreads, smem, st>>>(
+    k<<<(M + G::BM - 1) / G::BM, kThreads, G::BYTES, st>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-        static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<bf16*>(out), M, C, H, act);
+        static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<bf16*>(out), M, C, H);
   } else {
-    const size_t smem = (size_t)kBM32 * (C + kHC) * 4;
+    const size_t smem = (size_t)kBM32 * (C + kHC32) * 4;
     e = cudaFuncSetAttribute(mlp_fp32_kernel<NTH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     mlp_fp32_kernel<NTH><<<(M + kBM32 - 1) / kBM32, kThreads, smem, st>>>(
@@ -238,7 +306,7 @@ int run(const void* x, const void* w1, const void* b1, const void* w2, const voi
 // Takes C a multiple of 16 up to 256, H a multiple of 128, Co 32, 64, 128 or 256.
 extern "C" int catseg_mlp(const void* x, const void* w1, const void* b1, const void* w2, const void* b2, void* out,
                           int M, int C, int H, int Co, int act, int is_bf16, void* stream) {
-  if (M <= 0 || C <= 0 || C % 16 || C > 256 || H <= 0 || H % kHC || (act != 0 && act != 1))
+  if (M <= 0 || C <= 0 || C % 16 || C > kMaxC || H <= 0 || H % kHC32 || (act != 0 && act != 1))
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   switch (Co) {

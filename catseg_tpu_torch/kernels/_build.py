@@ -65,7 +65,7 @@ _SIGNATURES = {
     "catseg_linear_attention": "pppp" + "iiii" + "fi",
 }
 # workspace sizes (fp32 elements) of the backward entry points (int arguments)
-_WORKSPACE = {"catseg_swin_block_bwd_workspace": 5, "catseg_class_layer_bwd_workspace": 3,
+_WORKSPACE = {"catseg_swin_block_bwd_workspace": 5, "catseg_class_layer_bwd_workspace": 4,
               "catseg_decoder_bwd_workspace": 2}
 # entry points that take each tensor's row stride as an argument
 ROW_STRIDED = frozenset({"catseg_window_attention"})

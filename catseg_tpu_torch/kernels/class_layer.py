@@ -17,7 +17,9 @@ parameter layout (:func:`kernel_params`: q/k/v weights of the x rows
 concatenated, (in, out)), so the guidance rows q_w[C:], k_w[C:] get their
 gradients through qg / kg outside it, as in the reference.  Its backward on
 CUDA is csrc/class_layer_bwd.cu (replaces the reference's ``_bwd`` /
-``_pallas_bwd``); on the CPU autograd through the plain version.  Both
+``_pallas_bwd``; in bf16 on mma.sync tensor cores, its note there says
+which operands go as bf16 and which as a hi + lo pair); on the CPU autograd
+through the plain version.  Both
 return the pad_kv / pad_ksum cotangents, which flow on through the plain
 :func:`pad_contributions` into the padding rows, ln1 and k / v.
 """
@@ -169,6 +171,10 @@ def _class_layer_bwd_cuda(x, qg, kg, pad_kv, pad_ksum, dout, kp: dict, Tp: int):
     has_guid = qg is not None
     if has_guid:
         qg, kg = qg.to(dt).contiguous(), kg.to(dt).contiguous()
+    # the bf16 backward reads dout's class rows by 16-byte cp.async
+    if dout.data_ptr() % 16:
+        raise ValueError(f"class layer backward reads class rows by 16-byte copies: dout must start 16-byte "
+                         f"aligned; got address mod 16 {dout.data_ptr() % 16}")
     pkv = pad_kv.float().contiguous()
     pks = pad_ksum.float().reshape(C).contiguous()
     dx = torch.empty_like(x)
@@ -177,7 +183,8 @@ def _class_layer_bwd_cuda(x, qg, kg, pad_kv, pad_ksum, dout, kp: dict, Tp: int):
     g_ln1, g_ln2 = torch.empty(2 * C, **f32), torch.empty(2 * C, **f32)
     g_qkv, g_m1, g_m2 = (torch.empty(C + 1, 3 * C, **f32), torch.empty(C + 1, 4 * C, **f32),
                          torch.empty(4 * C + 1, C, **f32))
-    ws = torch.empty(_build.library().catseg_class_layer_bwd_workspace(B, T, H * W), **f32)
+    ws = torch.empty(_build.library().catseg_class_layer_bwd_workspace(B, T, H * W, int(dt == torch.bfloat16)),
+                     **f32)
     _build.launch("catseg_class_layer_bwd", x, qg, kg, dout, pkv, pks, dx, dqg, dkg, dpad, g_ln1, g_qkv,
                   g_ln2, g_m1, g_m2, *w, ws, B, T, H * W, int(has_guid), float(Tp), int(dt == torch.bfloat16))
     _build.count("class_layer_bwd")

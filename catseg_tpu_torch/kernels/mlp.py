@@ -2,14 +2,18 @@
 
 Replaces catseg_tpu/kernels/mlp.py:fused_mlp (Pallas _kernel).  The kernel
 (csrc/mlp.cu) walks the hidden width in chunks per row tile, so the 4x
-hidden never reaches device memory; its note there says what bounds it on the
-card.  Weights use the reference's (in, out) layout.  GELU takes the tanh
-form in bf16 and erf in fp32 (the reference's dtype predicate); the hidden is
-rounded to x's dtype before the second product.
+hidden never reaches device memory.  In bf16 it runs both products on
+mma.sync tensor cores, 256 rows a CTA, the weight chunks streaming through
+a cp.async ring and each hidden chunk going from the first product's
+accumulators to the second's A fragments in registers; its note there says
+what bounds it on the card.  Weights use the reference's (in, out) layout,
+read as they are (no packing).  GELU takes the tanh form in bf16 and erf in
+fp32 (the reference's dtype predicate); the hidden is rounded to x's dtype
+before the second product.
 
 Every call on a CUDA tensor launches the kernel, which takes C a multiple of
 16 up to 256, H a multiple of 128 and 32, 64, 128 or 256 outputs, any row
-count; it raises outside them.  The reference's own gate (C and H multiples
+count; it raises outside them, and for x, w1 or w2 not 16-byte aligned.  The reference's own gate (C and H multiples
 of 128, one 1024-row tile) is a TPU tiling limit and is not repeated here.
 
 Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
@@ -47,11 +51,14 @@ def _mlp_cuda(x, w1, b1, w2, b2, act: str) -> torch.Tensor:
         raise NotImplementedError(f"mlp kernel takes C a multiple of 16 up to 256, H a multiple of 128 and "
                                   f"32, 64, 128 or 256 outputs; got {C}->{H}->{Co}")
     x2 = x.reshape(-1, C).contiguous()
-    if x2.data_ptr() % 16:
-        raise ValueError("mlp kernel reads x in 16-byte vectors: pass an aligned tensor")
+    w1, w2 = w1.to(dt).contiguous(), w2.to(dt).contiguous()
+    # the bf16 kernel lands x rows and weight chunks by 16-byte cp.async
+    if any(t.data_ptr() % 16 for t in (x2, w1, w2)):
+        raise ValueError("mlp kernel reads x, w1 and w2 in 16-byte vectors: each must start 16-byte aligned; got "
+                         f"addresses mod 16 {[t.data_ptr() % 16 for t in (x2, w1, w2)]}")
     out = torch.empty((x2.shape[0], Co), dtype=dt, device=x.device)
-    _build.launch("catseg_mlp", x2, w1.to(dt).contiguous(), b1.float().contiguous(), w2.to(dt).contiguous(),
-                  b2.float().contiguous(), out, x2.shape[0], C, H, Co, _ACT[act], int(dt == torch.bfloat16))
+    _build.launch("catseg_mlp", x2, w1, b1.float().contiguous(), w2, b2.float().contiguous(), out, x2.shape[0], C, H,
+                  Co, _ACT[act], int(dt == torch.bfloat16))
     _build.count("mlp")
     return out.view(*x.shape[:-1], Co)
 

@@ -36,7 +36,7 @@ expf/erff/rsqrtf where torch has its own); bf16 2^-5.  Gradients, fp32: one
 bound per kernel, between its sound fp32 reading and its bf16 one at the
 train shapes (chip_smoke.py phase [3], H100 80GB HBM3, 700 W), so that a
 backward that rounded through bf16 or TF32 fails: swin 1e-4 (read 2.1e-6
-fp32, 4.1e-3 bf16), class layer 1e-3 (1.2e-4, 3.2e-3), decoder 3e-3
+fp32, 4.1e-3 bf16), class layer 1e-3 (2.8e-4, 2.2e-3), decoder 3e-3
 (1.2e-3, the ReLU flips; 2.0e-2); bf16 2^-5."""
 
 from __future__ import annotations

@@ -1,22 +1,25 @@
-"""Where the two largest backward kernels spend their time, launch by launch.
+"""Where the three backward kernels spend their time, launch by launch.
 
     python -m catseg_tpu_torch.tools.bwd_phases [--dtype bf16|fp32] [--out profile_out/bwd_phases]
 
 At the train step's shapes (``vitb384()``: 4 crops x 171 COCO-Stuff
-classes, so 684 decoder slabs and Swin blocks of (4, 171, 24, 24, 128)) and
-seeded random inputs, runs the decoder backward (``decoder.decoder_backward``,
-C entry point ``catseg_decoder_bwd``) and one Swin block's backward
-(``swin_block.swin_block_backward``, shift 6 with guidance, C entry point
-``catseg_swin_block_bwd``) once to warm up, times each call with CUDA events
-(median of ``REPS``), then runs each once more under ``torch.profiler`` and
-reads every kernel of that call from the exported chrome trace.  Each launch
-gets a stage: a category from its kernel's name (``STAGES``, first match),
-numbered within the call where the category repeats, the numbers named by
-the order in which both the first version and the tensor-core redesign run
-their stages (``ORDINALS``: recompute in forward order, then the backward in
-reverse).  Prints, per entry point, one JSON object: the call's ms, the
-device time of its kernels, per stage the launches and device ms, and every
-launch in order with its shortened name.  Needs an NVIDIA GPU.
+classes, so 684 decoder slabs, Swin blocks of (4, 171, 24, 24, 128) and
+class layers of (4, 171, 12, 12, 128) on the 2x2-pooled grid, pad_len 256)
+and seeded random inputs, runs the decoder backward
+(``decoder.decoder_backward``, C entry point ``catseg_decoder_bwd``), one
+Swin block's backward (``swin_block.swin_block_backward``, shift 6 with
+guidance, ``catseg_swin_block_bwd``) and one class layer's backward
+(``class_layer.class_layer_backward``, guided, ``catseg_class_layer_bwd``)
+once to warm up, times each call with CUDA events (median of ``REPS``),
+then runs each once more under ``torch.profiler`` and reads every kernel of
+that call from the exported chrome trace.  Each launch gets a stage: a
+category from its kernel's name (``STAGES``, first match), numbered within
+the call where the category repeats, the numbers named by the order in
+which both the first version and the tensor-core redesign run their stages
+(``ORDINALS``: recompute in forward order, then the backward in reverse).
+Prints, per entry point, one JSON object: the call's ms, the device time of
+its kernels, per stage the launches and device ms, and every launch in
+order with its shortened name.  Needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ import torch
 
 REPS = 3
 ENTRIES = {"decoder": ("catseg_decoder_bwd", "684 slabs"),
-           "swin": ("catseg_swin_block_bwd", "(4, 171, 24, 24, 128), shift 6, guided")}
+           "swin": ("catseg_swin_block_bwd", "(4, 171, 24, 24, 128), shift 6, guided"),
+           "class": ("catseg_class_layer_bwd", "(4, 171, 12, 12, 128), guided, pad_len 256")}
 
 # kernel name -> stage category, first match wins
 STAGES = {
@@ -59,6 +63,17 @@ STAGES = {
         ("dgrad", r"gemm"),
         ("torch (wrapper casts, copies)", r""),
     ),
+    "class": (
+        ("LN forward (recompute)", r"ln_fwd"),
+        ("LN backward", r"ln_bwd"),
+        ("linear attention", r"lin_attn"),
+        ("weight packing", r"pack_"),
+        ("reductions (split partials, pad cotangents, guidance, bias)", r"sum_mid"),
+        ("wgrad", r"Partial"),
+        ("recompute product", r"QkvEpi|ReluEpi"),
+        ("dgrad", r"gemm"),
+        ("torch (wrapper casts, copies)", r""),
+    ),
 }
 ORDINALS = {
     "decoder": {
@@ -75,6 +90,14 @@ ORDINALS = {
         "LN backward": ("LN 2", "LN 1"),
         "wgrad": ("fc2", "fc1", "proj", "qkv"),
         "dgrad": ("fc2", "fc1", "proj", "qkv"),
+    },
+    "class": {
+        "recompute product": ("qkv", "fc1"),
+        "linear attention": ("forward (recompute)", "backward"),
+        "LN forward (recompute)": ("LN 1", "LN 2"),
+        "LN backward": ("LN 2", "LN 1"),
+        "wgrad": ("fc2", "fc1", "qkv"),
+        "dgrad": ("fc2", "fc1", "qkv"),
     },
 }
 
@@ -93,9 +116,9 @@ def short(name: str) -> str:
 
 
 def inputs(dev, dtype: torch.dtype, seed: int = 0):
-    """(decoder call, swin call): thunks of the two backward wrappers on
-    seeded inputs at the train step's shapes."""
-    from ..kernels import decoder, swin_block
+    """{entry: thunk} of the three backward wrappers on seeded inputs at the
+    train step's shapes."""
+    from ..kernels import class_layer, decoder, swin_block
 
     g = torch.Generator().manual_seed(seed)
 
@@ -126,8 +149,20 @@ def inputs(dev, dtype: torch.dtype, seed: int = 0):
     xs = torch.randn(B, T, 24, 24, C, generator=g).to(dev, dtype)
     qg, kg = ((torch.randn(B, 24, 24, C, generator=g) * 0.5).to(dev, dtype) for _ in range(2))
     ds = torch.randn(B, T, 24, 24, C, generator=g).to(dev, dtype)
+    cp = {"ln1_g": 1 + u(C, bound=0.1), "ln1_b": u(C, bound=0.1), "q_w": u(2 * C, C), "q_b": u(C),
+          "k_w": u(2 * C, C), "k_b": u(C), "v_w": u(C, C), "v_b": u(C), "ln2_g": 1 + u(C, bound=0.1),
+          "ln2_b": u(C, bound=0.1), "mlp1_w": u(C, 4 * C), "mlp1_b": u(4 * C), "mlp2_w": u(4 * C, C),
+          "mlp2_b": u(C)}
+    Tp = 256
+    xc = torch.randn(B, T, 12, 12, C, generator=g).to(dev, dtype)
+    qc, kc = ((torch.randn(B, T, C, generator=g) * 0.3).to(dev, dtype) for _ in range(2))
+    pkv, pks = class_layer.pad_contributions(torch.randn(C, generator=g).to(dev),
+                                             torch.randn(C, generator=g).to(dev), cp, Tp - T, Tp, 4)
+    dc = torch.randn(B, T, 12, 12, C, generator=g).to(dev, dtype)
+    kp = class_layer.kernel_params(cp)
     return {"decoder": lambda: decoder.decoder_backward(xd, hg1, hg2, dd, p),
-            "swin": lambda: swin_block.swin_block_backward(xs, qg, kg, ds, ps, 4, 12, 6)}
+            "swin": lambda: swin_block.swin_block_backward(xs, qg, kg, ds, ps, 4, 12, 6),
+            "class": lambda: class_layer.class_layer_backward(xc, qc, kc, pkv, pks, dc, kp, 4, Tp)}
 
 
 def call_ms(fn) -> float:

@@ -521,10 +521,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     checks = {dt: check_kernels(dev, dt, selfcheck, _build) for dt in (torch.float32, torch.bfloat16)}
-    for name in ("swin_block_bwd", "decoder_bwd"):   # the bf16 backward kernels on the tensor cores
+    for name in ("swin_block_bwd", "class_layer_bwd", "decoder_bwd", "mlp", "mlp@swin"):   # bf16 on the tensor cores
         c = checks[torch.bfloat16][name]
+        what = "worst gradient" if name.endswith("_bwd") else "error"
         log(f"    {name} bf16 (tensor cores): kernel {c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms, bound "
-            f"{c['bound_ms']:.4f} ms, worst gradient {c['rel_err']:.2e} (bound {c['rel_bound']:.1e})")
+            f"{c['bound_ms']:.4f} ms, {what} {c['rel_err']:.2e} (bound {c['rel_bound']:.1e})")
 
     log("[4] sliding-window Predictor, default vitb384 eval preset (fused decoder), bf16, T=150")
     cfg = eval_preset(vitb384())

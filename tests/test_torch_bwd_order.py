@@ -1,12 +1,14 @@
 """The bf16 backward kernels' order of arithmetic, on the CPU.
 
-csrc/decoder_bwd.cu and csrc/swin_block_bwd.cu run their bf16 paths on
-mma.sync tensor cores: each product's operands are bf16 where the plain
-version's operand is a bf16 value (recomputed activations, weights, and in
-the Swin block dout, P, q/k/v, dO, dx2, dqkv), and a bf16 pair hi + lo (hi =
-bf16(v), lo = bf16(v - hi)) where the plain version keeps it fp32 (the
-decoder's cotangents, the fc1 pre-activation gradient dh1, the attention's
-dS); sums are fp32.  The kernels run only on the card.  Here:
+csrc/decoder_bwd.cu, csrc/swin_block_bwd.cu and csrc/class_layer_bwd.cu
+run their bf16 paths on mma.sync tensor cores: each product's operands are
+bf16 where the plain version's operand is a bf16 value (recomputed
+activations, weights, and in the Swin block dout, P, q/k/v, dO, dx2, dqkv;
+in the class layer dout, dh1, dy2, dy1, d(x + attention)), and a bf16 pair
+hi + lo (hi = bf16(v), lo = bf16(v - hi)) where the plain version keeps it
+fp32 (the decoder's cotangents, the Swin fc1 pre-activation gradient dh1,
+the attention's dS, the class layer's dqkv); sums are fp32.  The kernels
+run only on the card.  Here:
 
 - the pair's rounding, and TF32's (cvt.rna.tf32.f32: to nearest, ties away,
   on the 13 dropped bits), held bit for bit against numpy bit-pattern
@@ -23,19 +25,28 @@ dS); sums are fp32.  The kernels run only on the card.  Here:
   test_decoder_grads_match_jax runs it), whose bf16 gradients even
   catseg_tpu and the port's plain version decide only to ~10% here, at
   2^-5 from the port's plain version and at 2^-5 beyond the plain version's
-  own distance from catseg_tpu's bf16 backward.
+  own distance from catseg_tpu's bf16 backward; and for
+  ``fused_class_layer`` (B 1, T 6, 8 x 8, with and without guidance,
+  through ``pad_contributions``, as test_class_layer_grads_match_jax runs
+  it) in the same two-sided form as the decoder, because catseg_tpu's bf16
+  class-layer backward rounds dh1 and dqkv to bf16 and normalises LN2 over
+  the unrounded x + attention, where the port's plain version keeps dqkv
+  fp32 and normalises the bf16 sum its forward stores.
 """
 
 import numpy as np
+import pytest
 import torch
 
 import jax
 import jax.numpy as jnp
 
 from catseg_tpu.core.aggregator import _shift_mask
+from catseg_tpu.kernels import class_layer as jcl
 from catseg_tpu.kernels import decoder as jdec
 from catseg_tpu.kernels import swin_block as jsw
 
+from catseg_tpu_torch.kernels import class_layer as tcl
 from catseg_tpu_torch.kernels import decoder as tdec
 from catseg_tpu_torch.kernels import swin_block as tsw
 from catseg_tpu_torch.kernels.layer_norm import layer_norm_fp32
@@ -45,7 +56,7 @@ from catseg_tpu_torch.ops.window import window_partition, window_reverse
 from test_torch_decoder import _inputs as _dec_inputs
 from test_torch_decoder import _jax_params as _dec_params
 from test_torch_decoder import _port as _dec_port
-from test_torch_kernels import _swin_inputs
+from test_torch_kernels import _class_inputs, _swin_inputs
 
 BOUND = 2.0 ** -5
 
@@ -356,3 +367,130 @@ def test_swin_emulation_forward_is_the_plain_block():
     P = {k: v if k.startswith("ln") else bf(v) for k, v in tp.items()}
     got = _swin_trunk(tx.float(), qg, kg, P, 6)
     assert torch.equal(got, tsw.swin_block_plain(tx, qg, kg, tp, 4, 12, 6).float())
+
+
+def _class_trunk(x, qg, kg, pad_kv, pad_ksum, P, Tp):
+    """One class layer as csrc/class_layer_bwd.cu's bf16 path recomputes and
+    reverses it: _plain's forward, its roundings straight-through, and each
+    cotangent at the precision the kernel hands it to its product: dy1, dy2,
+    d(x + attention) and dh1 in bf16, dqkv (after the guidance add, so the
+    guidance sums read it too) as hi + lo."""
+    B, T, H, W, C = x.shape
+    heads, D = 4, C // 4
+    to16 = lambda t: _Cot.apply(t, bf)  # noqa: E731
+    x32 = x.permute(0, 2, 3, 1, 4).reshape(B, H * W, T, C)
+    y = to16(r(layer_norm_fp32(x32, P["ln1_g"], P["ln1_b"], True)))
+    qkv = y @ P["qkv_w"] + P["qkv_b"]
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    if qg is not None:
+        q = q + qg[:, None]
+        k = k + kg[:, None]
+    q, k, v = (_Cot.apply(a, split) for a in (q, k, v))
+    Qh = tcl._elu1(q).reshape(B, H * W, T, heads, D)
+    Kh = tcl._elu1(k).reshape(B, H * W, T, heads, D)
+    Vh = (v / Tp).reshape(B, H * W, T, heads, D)
+    hi = torch.arange(heads)
+    kv = torch.einsum("bnthd,bnthe->bnhde", Kh, Vh) + pad_kv.reshape(heads, D, heads, D)[hi, :, hi, :]
+    ksum = Kh.sum(2) + pad_ksum.reshape(heads, D)
+    z = torch.einsum("bnthd,bnhd->bnth", Qh, ksum)
+    attn = torch.einsum("bnthd,bnhde->bnthe", Qh, kv) * (Tp / (z[..., None] + tcl._EPS))
+    seq = to16(r(x32 + attn.reshape(B, H * W, T, C)))
+    y2 = to16(r(layer_norm_fp32(seq, P["ln2_g"], P["ln2_b"], True)))
+    h = to16(r(torch.relu(y2 @ P["mlp1_w"] + P["mlp1_b"])))
+    out = r(seq + r(h @ P["mlp2_w"] + P["mlp2_b"]))
+    return out.reshape(B, H, W, T, C).permute(0, 3, 1, 2, 4)
+
+
+class _ClassKernelOrder(torch.autograd.Function):
+    """One class layer with the plain forward and the bf16 kernel's backward order."""
+
+    @staticmethod
+    def forward(ctx, x, qg, kg, pad_kv, pad_ksum, Tp, *params):
+        ctx.save_for_backward(x, qg, kg, pad_kv, pad_ksum, *params)
+        ctx.Tp = Tp
+        return tcl._plain(x, qg, kg, pad_kv, pad_ksum, dict(zip(tcl._KP, params)), 4, Tp)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().float().requires_grad_() for t in saved]
+            P = {k: r(t) if k.endswith("_w") else t for k, t in zip(tcl._KP, ins[5:])}
+            out = _class_trunk(*ins[:5], P, ctx.Tp)
+            live = [t for t in ins if t is not None]
+            got = iter(torch.autograd.grad(out, live, dout.float()))
+            grads = [None if t is None else next(got) for t in ins]
+        return (bf(grads[0]).to(saved[0].dtype), *(None if g is None else g.to(t.dtype)
+                                                    for g, t in zip(grads[1:5], saved[1:5])), None,
+                *(g.to(t.dtype) for g, t in zip(grads[5:], saved[5:])))
+
+
+def _class_grads(x, qg, kg, tok, guid, p, dy, fn) -> dict:
+    """Every gradient of one bf16 class layer (x, the guidance, the padding
+    token and its guidance, each parameter) through pad_contributions and
+    the port's layer, its Function's backward replaced by fn (None: the
+    port's own, the plain version on the CPU)."""
+    bf16 = torch.bfloat16
+    tx = torch.from_numpy(x).to(bf16).requires_grad_()
+    tq, tk = ((torch.from_numpy(a).to(bf16).requires_grad_() for a in (qg, kg)) if qg is not None
+              else (None, None))
+    ttok = torch.from_numpy(tok).requires_grad_()
+    tguid = None if guid is None else torch.from_numpy(guid).requires_grad_()
+    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+    pkv, pks = tcl.pad_contributions(ttok, tguid, tp, 2, 8, 4)
+    if fn is None:
+        out = tcl.fused_class_layer(tx, tq, tk, pkv, pks, tp, 4, 8)
+    else:
+        kp = tcl.kernel_params(tp)
+        out = fn.apply(tx, tq, tk, pkv, pks, 8, *(kp[k] for k in tcl._KP))
+    out.backward(torch.from_numpy(dy).to(bf16))
+    g = {"dx": tx.grad, "dtok": ttok.grad, **{f"d{k}": v.grad for k, v in tp.items()}}
+    if qg is not None:
+        g.update(dqg=tq.grad, dkg=tk.grad, dguid=tguid.grad)
+    return g
+
+
+@pytest.mark.parametrize("guided", [False, True], ids=["plain", "guided"])
+def test_class_bwd_order_matches_jax_bf16(guided):
+    """The bf16 class-layer backward's order against the port's plain
+    backward and jax.vjp of catseg_tpu's fused_class_layer in bf16 (its
+    Pallas backward in interpret mode), through pad_contributions, B 1, T 6
+    on 8 x 8 positions: per gradient within 2^-5 of the plain version and
+    within 2^-5 beyond the plain version's own distance from catseg_tpu."""
+    x, qg, kg, p, tok, guid = _class_inputs(6)
+    if not guided:
+        qg = kg = guid = None
+    dy = np.random.RandomState(7).randn(*x.shape).astype(np.float32)
+    jb = lambda a: None if a is None else jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+
+    def jfn(x, qg, kg, tok, guid, p):
+        pkv, pks = jcl.pad_contributions(tok, guid, p, 2, 8, 4)
+        return jcl.fused_class_layer(x, qg, kg, pkv, pks, p, 4, 8)
+
+    jins = (jb(x), jb(qg), jb(kg), jnp.asarray(tok), None if guid is None else jnp.asarray(guid))
+    _, vjp = jax.vjp(jfn, *jins, {k: jnp.asarray(v) for k, v in p.items()})
+    jdx, jdqg, jdkg, jdtok, jdguid, jdp = vjp(jb(dy))
+    want = {"dx": jdx, "dtok": jdtok, **{f"d{k}": v for k, v in jdp.items()}}
+    if guided:
+        want.update(dqg=jdqg, dkg=jdkg, dguid=jdguid)
+    got = _class_grads(x, qg, kg, tok, guid, p, dy, _ClassKernelOrder)
+    plain = _class_grads(x, qg, kg, tok, guid, p, dy, None)
+    assert set(got) == set(want) == set(plain)
+    bad = {k: (f"{_rel(got[k], plain[k].float().numpy()):.2e}", f"{_rel(got[k], w):.2e}",
+               f"{_rel(plain[k], w):.2e}") for k, w in want.items()
+           if not (_rel(got[k], plain[k].float().numpy()) <= BOUND and _rel(got[k], w) <= _rel(plain[k], w) + BOUND)}
+    assert not bad, bad   # (order vs plain, order vs catseg_tpu, plain vs catseg_tpu)
+
+
+def test_class_emulation_forward_is_the_plain_layer():
+    """The emulation's hooks round cotangents only: the class trunk's forward
+    is class_layer_plain's in bf16, bit for bit, so the comparison above
+    judges the backward's order alone."""
+    x, qg, kg, p, tok, guid = _class_inputs(3)
+    tx, tq, tk = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, qg, kg))
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    pkv, pks = tcl.pad_contributions(torch.from_numpy(tok), torch.from_numpy(guid), tp, 2, 8, 4)
+    kp = tcl.kernel_params(tp)
+    P = {k: bf(kp[k]) if k.endswith("_w") else kp[k].float() for k in tcl._KP}
+    got = _class_trunk(tx.float(), tq.float(), tk.float(), pkv, pks, P, 8)
+    assert torch.equal(got, tcl.class_layer_plain(tx, tq, tk, pkv, pks, tp, 4, 8).float())

@@ -725,3 +725,106 @@ def test_backward_kernels_refuse_misaligned_rows(cuda, dtype):
         with pytest.raises(ValueError, match="16-byte"):
             swin_block.swin_block_backward(*args, ps, 4, 12, 0)
     assert _build.LAUNCHES["swin_block_bwd"] == before
+
+
+@pytest.mark.parametrize("guided", [False, True], ids=["plain", "guided"])
+@pytest.mark.parametrize("grid", [12, 24, 5], ids=["12x12", "24x24", "5x5"])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("T", [5, 171, 256])
+def test_class_layer_backward_geometries(cuda, T, B, grid, guided):
+    """The bf16 class-layer backward (tensor cores) on B images x T classes
+    over the train step's 12 x 12 pooled grid, a 24 x 24 one and a 5 x 5 one
+    (125 class rows at B 1, T 5: products over a batch-row count that is no
+    multiple of 8), with and without guidance, pad_len 256, against the
+    plain backward within selfcheck's bound on every gradient; the launch
+    count rises by one and a rerun is bit-equal."""
+    dt, C, Tp = torch.bfloat16, 128, 256
+    g = torch.Generator().manual_seed(T * 100 + B * 10 + grid + guided)
+    cp = _class_params(g, cuda)
+    x = torch.randn(B, T, grid, grid, C, generator=g).to(cuda, dt)
+    qg, kg = (None, None) if not guided else (
+        (torch.randn(B, T, C, generator=g) * 0.3).to(cuda, dt) for _ in range(2))
+    pkv, pks = class_layer.pad_contributions(torch.randn(C, generator=g).to(cuda),
+                                             torch.randn(C, generator=g).to(cuda), cp, Tp - T, Tp, 4)
+    dout = torch.randn(B, T, grid, grid, C, generator=g).to(cuda, dt)
+    kp = class_layer.kernel_params(cp)
+    names = ("dx", "dqg", "dkg", "dpad_kv", "dpad_ksum")
+    before = _build.LAUNCHES["class_layer_bwd"]
+    got = selfcheck._grads(names, class_layer.class_layer_backward(x, qg, kg, pkv, pks, dout, kp, 4, Tp))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["class_layer_bwd"] == before + 1
+    want = selfcheck._grads(names, class_layer.class_layer_backward_plain(x, qg, kg, pkv, pks, dout, kp, 4, Tp))
+    err, rel = selfcheck.rel_err(got, want)
+    assert rel <= selfcheck.bound("class_layer_bwd", dt), (err, rel)
+    again = selfcheck._grads(names, class_layer.class_layer_backward(x, qg, kg, pkv, pks, dout, kp, 4, Tp))
+    assert all(torch.equal(got[k], again[k]) for k in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_class_layer_backward_refuses_misaligned_dout(cuda, dtype):
+    """The bf16 class-layer backward reads dout's class rows by 16-byte
+    copies: a dout that starts one element into its storage raises a
+    ValueError before any launch (in both dtypes, one check)."""
+    C = 128
+    g = torch.Generator().manual_seed(15)
+    kp = class_layer.kernel_params(_class_params(g, cuda))
+    x = torch.randn(1, 5, 12, 12, C, generator=g).to(cuda, dtype)
+    buf = torch.randn(x.numel() + 1, generator=g).to(cuda, dtype)
+    dout = buf[1:].view(x.shape)
+    assert dout.is_contiguous() and dout.data_ptr() % 16
+    pkv, pks = torch.zeros(C, C, device=cuda), torch.zeros(1, C, device=cuda)
+    before = _build.LAUNCHES["class_layer_bwd"]
+    with pytest.raises(ValueError, match="16-byte"):
+        class_layer.class_layer_backward(x, None, None, pkv, pks, dout, kp, 4, 8)
+    assert _build.LAUNCHES["class_layer_bwd"] == before
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("Co", [32, 64, 128, 256])
+@pytest.mark.parametrize("C", [32, 128, 256])
+def test_mlp_kernel_geometries(cuda, C, Co, act):
+    """The bf16 MLP kernel (tensor cores, 256- or 128-row tiles) at input
+    widths 32, 128 (the model's, its k loop unrolled) and 256, every output
+    width and both activations, on a ragged 1000 rows, against mlp_plain
+    within 2^-5 of max(1, |plain|); the launch count rises by one."""
+    from catseg_tpu_torch.kernels import mlp
+
+    dt, H = torch.bfloat16, 4 * C
+    g = torch.Generator().manual_seed(C + Co + (act == "gelu"))
+    x = torch.randn(1000, C, generator=g).to(cuda, dt)
+    w1, b1 = (torch.randn(C, H, generator=g) * C ** -0.5).to(cuda), (torch.randn(H, generator=g) * 0.1).to(cuda)
+    w2, b2 = (torch.randn(H, Co, generator=g) * H ** -0.5).to(cuda), (torch.randn(Co, generator=g) * 0.1).to(cuda)
+    before = _build.LAUNCHES["mlp"]
+    got = mlp.fused_mlp(x, w1, b1, w2, b2, act)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mlp"] == before + 1
+    want = mlp.mlp_plain(x, w1, b1, w2, b2, act)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dt]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_mlp_refuses_misaligned_rows(cuda, dtype):
+    """The bf16 MLP kernel lands x rows and weight chunks by 16-byte
+    cp.async: an x or a weight that starts one element into its storage
+    raises a ValueError before any launch (in both dtypes, one check)."""
+    from catseg_tpu_torch.kernels import mlp
+
+    g = torch.Generator().manual_seed(16)
+    C, H = 128, 512
+
+    def odd(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16
+        return v
+
+    x = torch.randn(64, C, generator=g).to(cuda, dtype)
+    w1, b1 = (torch.randn(C, H, generator=g) * C ** -0.5).to(cuda, dtype), torch.zeros(H, device=cuda)
+    w2, b2 = (torch.randn(H, C, generator=g) * H ** -0.5).to(cuda, dtype), torch.zeros(C, device=cuda)
+    before = _build.LAUNCHES["mlp"]
+    for args in ((odd(x), w1, w2), (x, odd(w1), w2), (x, w1, odd(w2))):
+        with pytest.raises(ValueError, match="16-byte"):
+            mlp.fused_mlp(args[0], args[1], b1, args[2], b2, "relu")
+    assert _build.LAUNCHES["mlp"] == before
