@@ -4,168 +4,258 @@
 // (_kernel).  q, k, v, out: (N, S, C) row-major in T, one sequence of S class
 // rows per spatial position; heads of D = C / heads channels.  With
 // phi(x) = x + 1 for x > 0, else e^x, Q = phi(q), K = phi(k), V = v / S, all
-// fp32:  KV_h = K_h^T V_h (D x D per head), Ksum = sum_s K,
-// out = (Q_h KV_h) / (Q_h . Ksum_h + eps) * S, rounded to T.
+// fp32:  KV_h = K_h^T V_h (D x D per head), Ksum_h = sum_s K_h,
+// out = (Q_h KV_h) / (Q_h . Ksum_h + eps) * S, rounded to T once.
 //
-// One CTA per sequence.  Pass 1 streams K and V through shared memory in
-// 16-row tiles; each thread accumulates 4 x 4 blocks of the per-head KV
-// (C x D fp32) in registers from float4 reads of a K and a V row, and Ksum
-// in shared memory; the KV lands in shared memory at the end.  Pass 2 streams Q: each
-// thread owns one output channel (h, f), keeps KV_h's column f and Ksum_h in
-// registers, and walks the tile's rows with float4 reads of the shared Q row,
-// so the normalizer and the product share the Q reads.
+// Bound on the card: bytes.  q, k, v read once and out written once are 1.5
+// GB in bf16 at 5760 sequences of 256 x 128 (0.45 ms at 3.35 TB/s); the
+// products below are ~72 GFLOP on the tensor cores (0.07 ms at the bf16 peak).
 //
-// Bound on the card: bytes (q, k, v read once, q read again, out written:
-// 1.5 GB in bf16 at 5760 sequences of 256 x 128); ~36 GFLOP of fp32 FMAs ride
-// along.
+// One CTA per (sequence, 128 channels), one warp per 16 channels; both
+// products on mma.sync m16n8k16 in both dtypes.  Q, K and V are fp32 in the
+// spec (phi and / S make them so even from bf16 input), so every operand goes
+// in as a bf16 pair hi = bf16(x), lo = bf16(x - hi) (bwd_common.cuh's
+// convention) and each product is hi.hi + hi.lo + lo.hi in fp32 accumulators.
+// Rows arrive in 32-row tiles by 16-byte cp.async in a ring of 3 (bf16) or 2
+// (fp32) stages; phi, / S and the split are applied as the fragments are
+// built from the raw tile.
+//  - Pass 1 (K, V tiles): warp w forms KV for its 16 channels' rows against
+//    their head's D columns, plus a ones column of B whose sums are Ksum;
+//    then scatters KV, masked to its head, and the per-head Ksum columns
+//    into shared memory as the B fragments (hi and lo) of pass 2.  A column
+//    group is one head, or two heads of D = 8 (block-diagonal mask).
+//  - Pass 2 (Q tiles): out = Q [KV | Ksum] with N = G + 8, so the normalizer
+//    rides the same product once per row.  A warp overwrites its part of the
+//    Q tile with the rounded output; the tile's whole rows are then stored
+//    16 bytes a thread.
+// No atomics: two runs are bit-equal.
+#include "attn_common.cuh"
 #include "common.cuh"
 
 using namespace catseg;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTS = 16;  // rows per tile
-constexpr int kMaxB = 4;  // 4 x 4 KV blocks per thread: C D <= 16 kThreads kMaxB
+constexpr int kThreads = 256;   // 8 warps for the 128 channels of a CTA
+constexpr int kTR = 32;         // rows per ring tile
+constexpr int kChunk = 128;     // channels per CTA
 
-__device__ __forceinline__ float phi(float x) { return x > 0.f ? x + 1.f : expf(x); }
+template <typename T> struct Ring { static constexpr int kStages = sizeof(T) == 2 ? 3 : 2; };
 
+// e^x by the SFU (ex2.approx: ~2 ulp; results below 2^-126 flushed to 0)
+__device__ __forceinline__ float phi(float x) { return x > 0.f ? x + 1.f : fast_exp2(x * kLog2e); }
+
+// (x0, x1) as bf16 pairs hi = bf16(x), lo = bf16(x - hi), x0 in the low half
+__device__ __forceinline__ void split2(float x0, float x1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 ld2(const bf16* p) { return unpack_bf16(p); }
+__device__ __forceinline__ void st2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
+__device__ __forceinline__ void st2(bf16* p, float a, float b) { store_bf16x2(p, a, b); }
+
+// hi.hi + hi.lo + lo.hi
+__device__ __forceinline__ void mma3(float (&d)[4], const unsigned (&ah)[4], const unsigned (&al)[4], unsigned bh0,
+                                     unsigned bh1, unsigned bl0, unsigned bl1) {
+  mma_bf16(d, ah, bh0, bh1);
+  mma_bf16(d, ah, bl0, bl1);
+  mma_bf16(d, al, bh0, bh1);
+}
+
+// at D <= 32 three bf16 CTAs share an SM (their shared memory fits; <= 80
+// registers): faster than two on the H100 at the selfcheck shape
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && D <= 32 ? 3 : 2)
 linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                         T* __restrict__ out, int S, int C, float eps) {
-  extern __shared__ __align__(16) float sm[];
-  float* kv = sm;             // (heads, D, D) = (C, D)
-  float* ksum = kv + C * D;   // (C,)
-  float* ta = ksum + C;       // (kTS, C): K, then Q tiles
-  float* tb = ta + kTS * C;   // (kTS, C): V tiles
-  const size_t base = (size_t)blockIdx.x * S * C;
-  const int tid = threadIdx.x;
-  const float fS = (float)S;
-  // pass 1: thread tid owns the 4 x 4 blocks tid, tid + kThreads, ... of the heads' D x D KV
-  constexpr int DB = D / 4;
-  const int nblk = C / D * DB * DB;
-  float acc[kMaxB][16];
-#pragma unroll
-  for (int b = 0; b < kMaxB; ++b)
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[b][i] = 0.f;
-  for (int e = tid; e < C; e += kThreads) ksum[e] = 0.f;
+  constexpr int G = D < 16 ? 16 : D;   // channels of a column group
+  constexpr int NB = G / 8;            // n8 tiles of a group's KV columns
+  constexpr int KK = G / 16;           // k16 steps of a group in pass 2
+  constexpr int kStages = Ring<T>::kStages;
+  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Cc = blockDim.x / 2;       // channels of this CTA (16 a warp)
+  const int P = Cc + 8;                // tile row pitch (elements)
+  T* ring = reinterpret_cast<T*>(smem);                                         // stages x (K | Q, V) x kTR x P
+  uint4* Bp = reinterpret_cast<uint4*>(ring + (size_t)kStages * 2 * kTR * P);   // pass 2's B fragments
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int NW = blockDim.x >> 5;
+  const size_t base = (size_t)blockIdx.x * S * C + (size_t)blockIdx.y * Cc;
+  const int nt = (S + kTR - 1) / kTR;
+  const int cpr = Cc / EPC;            // chunks per tile row
+  const float fS = (float)S, invS = 1.f / fS;
 
-  for (int s0 = 0; s0 < S; s0 += kTS) {
-    const int ns = min(kTS, S - s0);
-    __syncthreads();  // the last tile's reads are done (and the zeroing above)
-    for (int e = tid; e < ns * C; e += kThreads) {
-      ta[e] = phi(to_f(k[base + (size_t)s0 * C + e]));
-      tb[e] = to_f(v[base + (size_t)s0 * C + e]) / fS;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int b = 0; b < kMaxB; ++b) {
-      const int blk = tid + b * kThreads;
-      if (blk < nblk) {
-        const int h = blk / (DB * DB), d0 = (blk / DB) % DB * 4, f0 = blk % DB * 4;
-        for (int s = 0; s < ns; ++s) {
-          const float4 kk = *reinterpret_cast<const float4*>(ta + s * C + h * D + d0);
-          const float4 vv = *reinterpret_cast<const float4*>(tb + s * C + h * D + f0);
-          const float ka[4] = {kk.x, kk.y, kk.z, kk.w}, vb[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[b][i * 4 + j] = fmaf(ka[i], vb[j], acc[b][i * 4 + j]);
-        }
+  // a thread copies chunk column cc of rows rr, rr + rstep, ... (blockDim is
+  // 2 EPC chunk rows, so the column is fixed)
+  const int cc = tid % cpr, rr = tid / cpr, rstep = blockDim.x / cpr;
+  // tile i < nt: K and V rows 32 i ..; nt <= i < 2 nt: Q rows 32 (i - nt) ..
+  auto load_tile = [&](int i) {
+    if (i < 2 * nt) {
+      const bool kv = i < nt;
+      const int s0 = (kv ? i : i - nt) * kTR;
+      T* dst0 = ring + (size_t)(i % kStages) * 2 * kTR * P + cc * EPC;
+      for (int r = rr; r < (kv ? 2 : 1) * kTR; r += rstep) {   // rows kTR .. 2 kTR - 1: V
+        const int s = s0 + r % kTR;
+        const T* src = (r >= kTR ? v : kv ? k : q) + base + (size_t)min(s, S - 1) * C + cc * EPC;
+        cp_async16(dst0 + r * P, src, s < S);
       }
     }
-    for (int c = tid; c < C; c += kThreads) {
-      float a = ksum[c];
-      for (int s = 0; s < ns; ++s) a += ta[s * C + c];
-      ksum[c] = a;
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) load_tile(i);
+
+  // ---- pass 1: warp w's channels cs .. cs + 15 (KV rows) against its group's columns
+  const int cs = 16 * warp, gi = cs / G, gc = gi * G;
+  float acc[NB][4], acx[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NB; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const unsigned ones = g == 0 ? 0x3F803F80u : 0u;   // B column 0 of the Ksum tile: bf16 1.0 pairs
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    load_tile(i + kStages - 1);
+    const T* Kt = ring + (size_t)(i % kStages) * 2 * kTR * P;
+    const T* Vt = Kt + kTR * P;
+    const int valid = S - i * kTR;   // rows past S are zero-filled; K must read 0 there, not phi(0)
+#pragma unroll
+    for (int ks = 0; ks < kTR / 16; ++ks) {
+      const int r0 = 16 * ks;
+      // A = K^T: a0 (channel g, rows 2t, 2t + 1), a1 channel g + 8, a2 / a3 rows 2t + 8, 2t + 9
+      auto kf = [&](int r, int c) { return r < valid ? phi(to_f(Kt[r * P + c])) : 0.f; };
+      unsigned ah[4], al[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int r = r0 + 2 * t + 8 * (f >> 1), c = cs + g + 8 * (f & 1);
+        split2(kf(r, c), kf(r + 1, c), ah[f], al[f]);
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        // B = V: b0 (rows 2t, 2t + 1, column g of tile j), b1 rows 2t + 8, 2t + 9
+        const int c = gc + 8 * j + g, r = r0 + 2 * t;
+        unsigned bh0, bl0, bh1, bl1;
+        split2(to_f(Vt[r * P + c]) * invS, to_f(Vt[(r + 1) * P + c]) * invS, bh0, bl0);
+        split2(to_f(Vt[(r + 8) * P + c]) * invS, to_f(Vt[(r + 9) * P + c]) * invS, bh1, bl1);
+        mma3(acc[j], ah, al, bh0, bh1, bl0, bl1);
+      }
+      mma_bf16(acx, ah, ones, ones);
+      mma_bf16(acx, al, ones, ones);
     }
   }
+
+  // scatter KV (masked to the head) and the Ksum columns as pass 2's B
+  // fragments: entry ((gi KK + kk) (NB + 1) + j) 32 + lane holds {b0 hi, b1 hi,
+  // b0 lo, b1 lo} of k-step kk and n-tile j
+  {
+    bf16* Bh = reinterpret_cast<bf16*>(Bp);
+    const int kk = (cs - gc) / 16;
+    const float ks0 = __shfl_sync(0xffffffffu, acx[0], lane & ~3);   // Ksum of channel g
+    const float ks1 = __shfl_sync(0xffffffffu, acx[2], lane & ~3);   // of channel g + 8
+    auto put = [&](int j, int dd, int e, float x) {   // B[k = 16 kk + dd][n = 8 j + e]
+      const size_t entry = ((size_t)(gi * KK + kk) * (NB + 1) + j) * 32 + 4 * e + (dd & 7) / 2;
+      const bf16 hi = __float2bfloat16(x);
+      Bh[entry * 8 + (dd >> 3) * 2 + (dd & 1)] = hi;
+      Bh[entry * 8 + 4 + (dd >> 3) * 2 + (dd & 1)] = __float2bfloat16(x - __bfloat162float(hi));
+    };
 #pragma unroll
-  for (int b = 0; b < kMaxB; ++b) {
-    const int blk = tid + b * kThreads;
-    if (blk < nblk) {
-      const int h = blk / (DB * DB), d0 = (blk / DB) % DB * 4, f0 = blk % DB * 4;
+    for (int f = 0; f < 4; ++f) {
+      const int dd = g + 8 * (f >> 1), hd = (cs - gc + dd) / D, e = 2 * t + (f & 1);
 #pragma unroll
-      for (int i = 0; i < 16; ++i) kv[(h * D + d0 + i / 4) * D + f0 + i % 4] = acc[b][i];
+      for (int j = 0; j < NB; ++j) put(j, dd, e, (8 * j + e) / D == hd ? acc[j][f] : 0.f);
+      put(NB, dd, e, e == hd ? (f >> 1 ? ks1 : ks0) : 0.f);   // column G + hd: Ksum of head hd
     }
   }
   __syncthreads();
 
-  for (int c = tid % C; c < C; c += kThreads) {  // kThreads % C == 0 or C > kThreads
-    // a thread handles channel c on rows r0, r0 + rstep, ... of every tile
-    const int h = c / D, f = c % D;
-    const int r0 = tid / C, rstep = max(1, kThreads / C);
-    float kvc[D], ks[D];
+  // ---- pass 2: task (m-tile mt of the tile, group gj) per warp in turn
+  const int ngroups = Cc / G;
+  for (int i = 0; i < nt; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    load_tile(nt + i + kStages - 1);
+    T* Qt = ring + (size_t)((nt + i) % kStages) * 2 * kTR * P;
+    for (int task = warp; task < (kTR / 16) * ngroups; task += NW) {
+      const int r0 = 16 * (task % (kTR / 16)), gj = task / (kTR / 16), qc = gj * G;
+      unsigned ah[KK][4], al[KK][4];
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      kvc[d] = kv[(h * D + d) * D + f];
-      ks[d] = ksum[h * D + d];
-    }
-    for (int s0 = 0; s0 < S; s0 += kTS) {
-      const int ns = min(kTS, S - s0);
-      __syncthreads();
-      for (int e = tid; e < ns * C; e += kThreads) ta[e] = phi(to_f(q[base + (size_t)s0 * C + e]));
-      __syncthreads();
-      for (int s = r0; s < ns; s += rstep) {
-        const float* qr = ta + s * C + h * D;
-        float acc = 0.f, z = 0.f;
+      for (int kq = 0; kq < KK; ++kq)
 #pragma unroll
-        for (int d = 0; d < D; d += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(qr + d);
-          acc = fmaf(a.x, kvc[d], acc);
-          z = fmaf(a.x, ks[d], z);
-          acc = fmaf(a.y, kvc[d + 1], acc);
-          z = fmaf(a.y, ks[d + 1], z);
-          acc = fmaf(a.z, kvc[d + 2], acc);
-          z = fmaf(a.z, ks[d + 2], z);
-          acc = fmaf(a.w, kvc[d + 3], acc);
-          z = fmaf(a.w, ks[d + 3], z);
+        for (int f = 0; f < 4; ++f) {
+          // a0 (row g, channels 2t, 2t + 1), a1 row g + 8, a2 / a3 channels + 8
+          const float2 x = ld2(Qt + (r0 + g + 8 * (f & 1)) * P + qc + 16 * kq + 2 * t + 8 * (f >> 1));
+          split2(phi(x.x), phi(x.y), ah[kq][f], al[kq][f]);
         }
-        out[base + (size_t)(s0 + s) * C + c] = from_f<T>(acc * (1.f / (z + eps)) * fS);
+      __syncwarp();   // every lane's Q reads are done before the tile is overwritten
+      float o[NB + 1][4];
+#pragma unroll
+      for (int j = 0; j <= NB; ++j) {
+        o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+        for (int kq = 0; kq < KK; ++kq) {
+          const uint4 bb = Bp[((size_t)(gj * KK + kq) * (NB + 1) + j) * 32 + lane];
+          mma3(o[j], ah[kq], al[kq], bb.x, bb.y, bb.z, bb.w);
+        }
+      }
+      // Q . Ksum of head hd sits in column hd of the last tile, lane 4 g
+      float z[2][2];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) z[f >> 1][f & 1] = __shfl_sync(0xffffffffu, o[NB][f], lane & ~3);
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        const int hd = 8 * j / D;   // 0 but for D = 8 (j)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const float rz = 1.f / (z[rr][hd] + eps);
+          st2(Qt + (r0 + g + 8 * rr) * P + qc + 8 * j + 2 * t, o[j][2 * rr] * rz * fS, o[j][2 * rr + 1] * rz * fS);
+        }
       }
     }
+    __syncthreads();
+    for (int r = rr; r < kTR && i * kTR + r < S; r += rstep)
+      *reinterpret_cast<uint4*>(out + base + (size_t)(i * kTR + r) * C + cc * EPC) =
+          *reinterpret_cast<const uint4*>(Qt + r * P + cc * EPC);
   }
 }
 
-template <int D>
-int run(const void* q, const void* k, const void* v, void* out, int N, int S, int C, float eps, int is_bf16,
-        cudaStream_t st) {
-  const size_t smem = (size_t)(C * D + C + 2 * kTS * C) * sizeof(float);
-  cudaError_t e;
-  if (is_bf16) {
-    e = cudaFuncSetAttribute(linear_attention_kernel<bf16, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    linear_attention_kernel<bf16, D><<<N, kThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(out), S, C, eps);
-  } else {
-    e = cudaFuncSetAttribute(linear_attention_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    linear_attention_kernel<float, D><<<N, kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(out), S, C, eps);
-  }
+template <typename T, int D>
+int run(const void* q, const void* k, const void* v, void* out, int N, int S, int C, float eps, cudaStream_t st) {
+  constexpr int G = D < 16 ? 16 : D;
+  const int Cc = C < kChunk ? C : kChunk;
+  const size_t smem = (size_t)Ring<T>::kStages * 2 * kTR * (Cc + 8) * sizeof(T) +
+                      (size_t)(Cc / 16) * (G / 8 + 1) * 32 * sizeof(uint4);
+  auto kern = linear_attention_kernel<T, D>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(N, C / Cc), 2 * Cc, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                              static_cast<const T*>(v), static_cast<T*>(out), S, C, eps);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int run_dt(const void* q, const void* k, const void* v, void* out, int N, int S, int C, float eps, int is_bf16,
+           cudaStream_t st) {
+  return is_bf16 ? run<bf16, D>(q, k, v, out, N, S, C, eps, st) : run<float, D>(q, k, v, out, N, S, C, eps, st);
 }
 
 }  // namespace
 
-// Takes head dims 8, 16, 32 or 64, C dividing 256 or a multiple of 256 up to 512, and C D <= 16384.
+// Takes head dims 8, 16, 32 or 64; C a multiple of 16 (and of the head dim)
+// up to 128, or a multiple of 128; q, k, v, out 16-byte aligned.
 extern "C" int catseg_linear_attention(const void* q, const void* k, const void* v, void* out, int N, int S,
                                        int C, int heads, float eps, int is_bf16, void* stream) {
-  if (N <= 0 || S <= 0 || heads <= 0 || C % heads || C > 512 || (kThreads % C && C % kThreads) ||
-      C * (C / heads) > 16 * kThreads * kMaxB)
-    return (int)cudaErrorInvalidValue;
+  if (N <= 0 || S <= 0 || heads <= 0 || C % heads) return (int)cudaErrorInvalidValue;
+  const int D = C / heads, G = D < 16 ? 16 : D;
+  if (C % 16 || C % G || (C > kChunk && C % kChunk)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  switch (C / heads) {
-    case 8: return run<8>(q, k, v, out, N, S, C, eps, is_bf16, st);
-    case 16: return run<16>(q, k, v, out, N, S, C, eps, is_bf16, st);
-    case 32: return run<32>(q, k, v, out, N, S, C, eps, is_bf16, st);
-    case 64: return run<64>(q, k, v, out, N, S, C, eps, is_bf16, st);
+  switch (D) {
+    case 8: return run_dt<8>(q, k, v, out, N, S, C, eps, is_bf16, st);
+    case 16: return run_dt<16>(q, k, v, out, N, S, C, eps, is_bf16, st);
+    case 32: return run_dt<32>(q, k, v, out, N, S, C, eps, is_bf16, st);
+    case 64: return run_dt<64>(q, k, v, out, N, S, C, eps, is_bf16, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,7 +4,9 @@ PyTorch version.
 Replaces catseg_tpu/kernels/corr_embed.py:fused_corr_embed (Pallas _kernel).
 The kernel (csrc/corr_embed.cu) never writes the (B, T, H, W, P) cost volume;
 its note there says what bounds it on the card.  Weights use the reference's
-HWIO layout so the two packages are called alike.
+HWIO layout so the two packages are called alike; the bf16 kernel takes them
+packed (:func:`pack_taps`).  A CUDA call outside the kernel's geometry
+(24x24, P = 1, C = 128, E a multiple of 32) raises.
 
 Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
 backward is autograd through the plain version (catseg_tpu/kernels/
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .autograd import plain_vjp
+from .swin_block import pack_mma_b
 
 BASE = 24   # feature grid the kernel is written for
 MAX_P = 1   # single prompt per class
@@ -51,6 +54,16 @@ def corr_embed_plain(img_feats: torch.Tensor, text_n: torch.Tensor, w: torch.Ten
     return x.reshape(B, T, -1, H, W).permute(0, 1, 3, 4, 2)
 
 
+def pack_taps(w: torch.Tensor) -> torch.Tensor:
+    """(7, 7, 1, C) HWIO taps -> the bf16 kernel's B operand: the (64, C) tap
+    matrix, row dy * 8 + dx (rows with dy = 7 or dx = 7 zero), rounded to bf16
+    and packed in mma fragment order (``swin_block.pack_mma_b``, depth 16)."""
+    C = w.shape[-1]
+    w64 = torch.zeros(8, 8, C, dtype=torch.bfloat16, device=w.device)
+    w64[:7, :7] = w[:, :, 0, :].to(torch.bfloat16)
+    return pack_mma_b(w64.reshape(64, C), depth=16)
+
+
 def _corr_embed_cuda(img_feats, text_n, w, b) -> torch.Tensor:
     B, H, W, E = img_feats.shape
     T, P = text_n.shape[1], text_n.shape[2]
@@ -58,14 +71,19 @@ def _corr_embed_cuda(img_feats, text_n, w, b) -> torch.Tensor:
     dt = img_feats.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"corr embed kernel takes fp32 or bf16, got {dt}")
-    if (H, W, P, C) != (BASE, BASE, 1, 128):
-        raise NotImplementedError(f"corr embed kernel is built for 24x24, P=1, C=128; got {(H, W, P, C)}")
+    if (H, W, P, C) != (BASE, BASE, 1, 128) or E % 32:
+        raise NotImplementedError(f"corr embed kernel is built for 24x24, P=1, C=128 and E a multiple of 32; "
+                                  f"got {(H, W, P, C)}, E={E}")
     img = img_feats.contiguous()
     txt = text_n.reshape(B, T, E).to(dt).contiguous()
-    w49 = w.to(dt).float().reshape(49, C).contiguous()
+    if img.data_ptr() % 16 or txt.data_ptr() % 16:
+        raise ValueError("corr embed kernel reads image and text rows by 16-byte loads: both must start 16-byte "
+                         f"aligned; got addresses mod 16 {img.data_ptr() % 16}, {txt.data_ptr() % 16}")
+    taps = pack_taps(w) if dt == torch.bfloat16 else w.float().reshape(49, C).contiguous()
     bias = b.float().contiguous()
+    imgn = torch.empty((B, H * W, E), dtype=dt, device=img.device)   # the normalized image, once per image
     out = torch.empty((B, T, H, W, C), dtype=dt, device=img.device)
-    _build.launch("catseg_corr_embed", img, txt, w49, bias, out, B, T, H, W, E, int(dt == torch.bfloat16))
+    _build.launch("catseg_corr_embed", img, txt, taps, bias, imgn, out, B, T, H, W, E, int(dt == torch.bfloat16))
     _build.count("corr_embed")
     return out
 

@@ -43,18 +43,29 @@ def linear_attention_plain(q, k, v, heads: int) -> torch.Tensor:
     return out.to(q.dtype).reshape(N, S, C)
 
 
+def kernel_takes(C: int, heads: int) -> bool:
+    """The kernel's geometry: head dims 8-64; a CTA takes 128 channels (or all
+    of a narrower C) in column groups of max(head dim, 16)."""
+    if C % heads or C // heads not in HEAD_DIMS:
+        return False
+    return C % max(C // heads, 16) == 0 and (C <= 128 or C % 128 == 0)
+
+
 def _linear_attention_cuda(q, k, v, heads: int) -> torch.Tensor:
     N, S, C = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"linear attention kernel takes fp32 or bf16, got {q.dtype}")
     if not (k.shape == v.shape == q.shape and k.dtype == v.dtype == q.dtype):
         raise ValueError("q, k, v must share shape and dtype")
-    if C % heads or C // heads not in HEAD_DIMS or C > 512 or (256 % C and C % 256) or C * (C // heads) > 16384:
-        raise NotImplementedError(f"linear attention kernel takes head dims {HEAD_DIMS}, C dividing 256 or a "
-                                  f"multiple of 256 up to 512, and C * head dim <= 16384; got C={C}, heads={heads}")
+    if not kernel_takes(C, heads):
+        raise NotImplementedError(f"linear attention kernel takes head dims {HEAD_DIMS} and C a multiple of 16 "
+                                  f"and of the head dim up to 128, or a multiple of 128; got C={C}, heads={heads}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("linear attention kernel reads rows by 16-byte cp.async: q, k and v must start 16-byte "
+                         f"aligned; got addresses mod 16 {[t.data_ptr() % 16 for t in (q, k, v)]}")
     out = torch.empty_like(q)
-    _build.launch("catseg_linear_attention", q.contiguous(), k.contiguous(), v.contiguous(), out,
-                  N, S, C, heads, _EPS, int(q.dtype == torch.bfloat16))
+    _build.launch("catseg_linear_attention", q, k, v, out, N, S, C, heads, _EPS, int(q.dtype == torch.bfloat16))
     _build.count("linear_attention")
     return out
 

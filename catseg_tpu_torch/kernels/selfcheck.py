@@ -319,7 +319,8 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
 
     Nl, Sl = (16, 16) if small else (B * 576, 256)
     ql, kl, vl = (rn(Nl, Sl, C).to(dtype) for _ in range(3))
-    # fp32 arithmetic in both dtypes (the spec upcasts): Q.KV and KV, D = 32
+    # the spec's fp32 operations, Q.KV and KV at D = 32, in both dtypes (the
+    # kernel runs them as three bf16 products on the tensor cores); bytes bind
     out["linear_attention"] = Case(lambda: linear_attn.fused_linear_attention(ql, kl, vl, 4),
                                    lambda: linear_attn.linear_attention_plain(ql, kl, vl, 4), None,
                                    4.0 * Nl * Sl * C * 32, 4 * _nbytes(ql), "fp32")

@@ -521,7 +521,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     checks = {dt: check_kernels(dev, dt, selfcheck, _build) for dt in (torch.float32, torch.bfloat16)}
-    for name in ("swin_block_bwd", "class_layer_bwd", "decoder_bwd", "mlp", "mlp@swin"):   # bf16 on the tensor cores
+    for name in ("swin_block_bwd", "class_layer_bwd", "decoder_bwd", "mlp", "mlp@swin", "corr_embed",
+                 "linear_attention"):   # bf16 on the tensor cores
         c = checks[torch.bfloat16][name]
         what = "worst gradient" if name.endswith("_bwd") else "error"
         log(f"    {name} bf16 (tensor cores): kernel {c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms, bound "

@@ -24,6 +24,15 @@ def cuda():
     return torch.device("cuda")
 
 
+def _misaligned(t):
+    """t's values in a contiguous view that starts one element into its storage."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = buf[1:].view(t.shape)
+    v.copy_(t)
+    assert v.is_contiguous() and v.data_ptr() % 16
+    return v
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("name", [k[0] for k in selfcheck.KERNELS])
 def test_kernel_matches_plain(cuda, name, dtype):
@@ -619,17 +628,10 @@ def test_decoder_refuses_misaligned_rows(cuda, dtype):
     p = dict(zip(decoder._DK, decoder._params(d1, d2, head)))
     hg1, hg2 = decoder._guidance_half(d1, g1, 96, dtype), decoder._guidance_half(d2, g2, 48, dtype)
 
-    def odd(t):
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        v = buf[1:].view(t.shape)
-        v.copy_(t)
-        assert v.is_contiguous() and v.data_ptr() % 16
-        return v
-
     before = _build.LAUNCHES["decoder"]
     with pytest.raises(ValueError, match="16-byte"):
-        decoder.fused_decoder(odd(x), g1, g2, d1, d2, head)
-    for a, b in ((odd(hg1), hg2), (hg1, odd(hg2))):
+        decoder.fused_decoder(_misaligned(x), g1, g2, d1, d2, head)
+    for a, b in ((_misaligned(hg1), hg2), (hg1, _misaligned(hg2))):
         with pytest.raises(ValueError, match="16-byte"):
             decoder._decoder_cuda(x, a, b, p)
     assert _build.LAUNCHES["decoder"] == before
@@ -699,20 +701,13 @@ def test_backward_kernels_refuse_misaligned_rows(cuda, dtype):
     kg), in both dtypes (one check)."""
     from catseg_tpu_torch.kernels import decoder, swin_block
 
-    def odd(t):
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        v = buf[1:].view(t.shape)
-        v.copy_(t)
-        assert v.is_contiguous() and v.data_ptr() % 16
-        return v
-
     g = torch.Generator().manual_seed(14)
     x, g1, g2, d1, d2, head = _decoder_inputs(g, cuda, 1, 2, dtype)
     p = dict(zip(decoder._DK, decoder._params(d1, d2, head)))
     hg1, hg2 = decoder._guidance_half(d1, g1, 96, dtype), decoder._guidance_half(d2, g2, 48, dtype)
     dout = torch.randn(2, 96, 96, generator=g).to(cuda)
     before = _build.LAUNCHES["decoder_bwd"]
-    for args in ((odd(x), hg1, hg2), (x, odd(hg1), hg2), (x, hg1, odd(hg2))):
+    for args in ((_misaligned(x), hg1, hg2), (x, _misaligned(hg1), hg2), (x, hg1, _misaligned(hg2))):
         with pytest.raises(ValueError, match="16-byte"):
             decoder.decoder_backward(*args, dout, p)
     assert _build.LAUNCHES["decoder_bwd"] == before
@@ -721,7 +716,8 @@ def test_backward_kernels_refuse_misaligned_rows(cuda, dtype):
     ds = torch.randn(1, 2, 24, 24, 128, generator=g).to(cuda, dtype)
     ps = _swin_params(g, cuda)
     before = _build.LAUNCHES["swin_block_bwd"]
-    for args in ((odd(xs), gs, gs, ds), (xs, gs, gs, odd(ds)), (xs, odd(gs), gs, ds), (xs, gs, odd(gs), ds)):
+    for args in ((_misaligned(xs), gs, gs, ds), (xs, gs, gs, _misaligned(ds)), (xs, _misaligned(gs), gs, ds),
+                 (xs, gs, _misaligned(gs), ds)):
         with pytest.raises(ValueError, match="16-byte"):
             swin_block.swin_block_backward(*args, ps, 4, 12, 0)
     assert _build.LAUNCHES["swin_block_bwd"] == before
@@ -813,18 +809,107 @@ def test_mlp_refuses_misaligned_rows(cuda, dtype):
     g = torch.Generator().manual_seed(16)
     C, H = 128, 512
 
-    def odd(t):
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        v = buf[1:].view(t.shape)
-        v.copy_(t)
-        assert v.is_contiguous() and v.data_ptr() % 16
-        return v
-
     x = torch.randn(64, C, generator=g).to(cuda, dtype)
     w1, b1 = (torch.randn(C, H, generator=g) * C ** -0.5).to(cuda, dtype), torch.zeros(H, device=cuda)
     w2, b2 = (torch.randn(H, C, generator=g) * H ** -0.5).to(cuda, dtype), torch.zeros(C, device=cuda)
     before = _build.LAUNCHES["mlp"]
-    for args in ((odd(x), w1, w2), (x, odd(w1), w2), (x, w1, odd(w2))):
+    for args in ((_misaligned(x), w1, w2), (x, _misaligned(w1), w2), (x, w1, _misaligned(w2))):
         with pytest.raises(ValueError, match="16-byte"):
             mlp.fused_mlp(args[0], args[1], b1, args[2], b2, "relu")
     assert _build.LAUNCHES["mlp"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B", [1, 10])
+@pytest.mark.parametrize("T", [1, 150, 171, 256])
+def test_corr_embed_geometries(cuda, T, B, dtype):
+    """Class counts that fill a CTA's 8 classes or not (171 leaves 3), one
+    image or ten: one launch a call, two runs bit-equal, the plain version
+    within the stated bound."""
+    from catseg_tpu_torch.kernels import corr_embed
+
+    g = torch.Generator().manual_seed(T + B)
+    img = torch.randn(B, 24, 24, 512, generator=g).to(cuda, dtype)
+    txt = corr_embed.l2_normalize(torch.randn(B, T, 1, 512, generator=g)).to(cuda, dtype)
+    w = ((torch.rand(7, 7, 1, 128, generator=g) * 2 - 1) / 7).to(cuda)
+    b = ((torch.rand(128, generator=g) * 2 - 1) / 7).to(cuda)
+    before = _build.LAUNCHES["corr_embed"]
+    got = corr_embed.fused_corr_embed(img, txt, w, b)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["corr_embed"] == before + 1
+    assert torch.equal(got, corr_embed.fused_corr_embed(img, txt, w, b))
+    want = corr_embed.corr_embed_plain(img, txt, w, b)
+    assert got.shape == want.shape == (B, T, 24, 24, 128) and got.dtype == want.dtype
+    assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_corr_embed_refuses_what_it_cannot_take(cuda, dtype):
+    """E not a multiple of 32 raises NotImplementedError, an image or text
+    view not 16-byte aligned a ValueError, both before any launch."""
+    from catseg_tpu_torch.kernels import corr_embed
+
+    g = torch.Generator().manual_seed(3)
+    w, b = torch.zeros(7, 7, 1, 128, device=cuda), torch.zeros(128, device=cuda)
+    img = torch.randn(1, 24, 24, 512, generator=g).to(cuda, dtype)
+    txt = corr_embed.l2_normalize(torch.randn(1, 5, 1, 512, generator=g)).to(cuda, dtype)
+    before = _build.LAUNCHES["corr_embed"]
+    with pytest.raises(NotImplementedError):
+        corr_embed.fused_corr_embed(img[..., :48], txt[..., :48], w, b)
+    for args in ((_misaligned(img), txt), (img, _misaligned(txt))):
+        with pytest.raises(ValueError, match="16-byte"):
+            corr_embed.fused_corr_embed(*args, w, b)
+    assert _build.LAUNCHES["corr_embed"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [8, 16, 32, 64])
+@pytest.mark.parametrize("S", [13, 150, 256])
+def test_linear_attention_geometries(cuda, S, D, dtype):
+    """Every head dim at C = 128, ragged and whole 32-row tiles, an odd
+    number of sequences: one launch a call, two runs bit-equal, the plain
+    version within the stated bound."""
+    from catseg_tpu_torch.kernels import linear_attn
+
+    g = torch.Generator().manual_seed(S + D)
+    q, k, v = (torch.randn(7, S, 128, generator=g).to(cuda, dtype) for _ in range(3))
+    before = _build.LAUNCHES["linear_attention"]
+    got = linear_attn.fused_linear_attention(q, k, v, 128 // D)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["linear_attention"] == before + 1
+    assert torch.equal(got, linear_attn.fused_linear_attention(q, k, v, 128 // D))
+    want = linear_attn.linear_attention_plain(q, k, v, 128 // D)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("C,heads", [(16, 2), (32, 4), (96, 3), (256, 4), (512, 8)])
+def test_linear_attention_widths(cuda, C, heads, dtype):
+    """Widths below one CTA's 128 channels (one to six warps) and above it
+    (two and four CTAs a sequence)."""
+    from catseg_tpu_torch.kernels import linear_attn
+
+    g = torch.Generator().manual_seed(C)
+    q, k, v = (torch.randn(5, 40, C, generator=g).to(cuda, dtype) for _ in range(3))
+    got = linear_attn.fused_linear_attention(q, k, v, heads)
+    want = linear_attn.linear_attention_plain(q, k, v, heads)
+    assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype]
+
+
+def test_linear_attention_refuses_what_it_cannot_take(cuda):
+    """C = 8 (one head of 8: narrower than a warp's 16 channels) and a head
+    dim of 128 raise NotImplementedError, a view not 16-byte aligned a
+    ValueError, before any launch."""
+    from catseg_tpu_torch.kernels import linear_attn
+
+    before = _build.LAUNCHES["linear_attention"]
+    x = torch.zeros(2, 16, 8, device=cuda)
+    with pytest.raises(NotImplementedError):
+        linear_attn.fused_linear_attention(x, x, x, 1)
+    y = torch.zeros(2, 16, 128, device=cuda)
+    with pytest.raises(NotImplementedError):
+        linear_attn.fused_linear_attention(y, y, y, 1)
+    with pytest.raises(ValueError, match="16-byte"):
+        linear_attn.fused_linear_attention(_misaligned(y), y, y, 4)
+    assert _build.LAUNCHES["linear_attention"] == before
