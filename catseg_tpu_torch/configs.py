@@ -207,6 +207,25 @@ def vitg336(**kw) -> CATSegConfig:
     return CATSegConfig(**base)
 
 
+# the fields a CATSeg model is built from: its parameters' shapes, and the
+# function its weights were trained to compute.  A run-time config handed in
+# beside a model (a Predictor's) may differ from the model's only elsewhere:
+# the sliding window, pooling, dtype, prompts, routes and training recipe.
+ARCHITECTURE_FIELDS = ("clip", "clip_resolution", "guidance_layers", "guidance_proj_dim", "text_guidance_dim",
+                       "text_guidance_proj_dim", "appearance_guidance_dim", "appearance_guidance_proj_dim",
+                       "decoder_dims", "decoder_guidance_dims", "decoder_guidance_proj_dims", "num_layers",
+                       "num_heads", "hidden_dim", "feature_resolution", "window_size", "attention_type", "pad_len",
+                       "fusion")
+
+
+def check_same_architecture(cfg: CATSegConfig, model_cfg: CATSegConfig) -> None:
+    """Raise ValueError where ``cfg`` and a model's ``model_cfg`` disagree on
+    an :data:`ARCHITECTURE_FIELDS` field."""
+    bad = [f for f in ARCHITECTURE_FIELDS if getattr(cfg, f) != getattr(model_cfg, f)]
+    if bad:
+        raise ValueError(f"the config disagrees with the model's on {bad}: only run-time fields may differ")
+
+
 def eval_preset(cfg: CATSegConfig) -> CATSegConfig:
     """The eval.sh protocol: sliding window + POOLING_SIZES [1,1]."""
     return cfg.replace(sliding_window=True, pooling_size=(1, 1))

@@ -19,6 +19,12 @@ otherwise it runs the reference's unfused stage under the reference's names
 ``_class_attention_inner`` with the linear-attention kernel or the plain
 ``_full_attention``, then the MLP kernel).  Both routes compute the same
 function; ``attention_type="full"`` always takes the unfused class stage.
+No route picks a plain version for CUDA tensors: a kernel's wrapper is
+called wherever the reference calls its kernel, and on the card a geometry
+outside that kernel's ``kernel_takes`` raises there (hidden 256 or 512, a
+head dim of 128, a text width not a multiple of 32: ROADMAP C1).  Only
+outside the reference's own gates (corr embed's, the decoder's) does the
+port run the reference's plain composition, as the reference does.
 """
 
 from __future__ import annotations
@@ -236,7 +242,10 @@ def _swin_block(x: torch.Tensor, guid, blk: SwinBlock, cfg: CATSegConfig, shift:
         k = (k.reshape(B, T, nW, N, C) + kg[:, None]).reshape(B * T, nW, N, C)
     mask = shift_mask(H, W, win, shift, x.device) if shift > 0 else None
     # v (and q, k without guidance) stay views of qkv, rows 3C apart: the
-    # kernel takes row strides, so nothing is copied
+    # kernel takes row strides, so nothing is copied.  Rows C or 3C apart
+    # that start 0, C or 2C elements into a fresh allocation are multiples
+    # of 8 elements apart and 16-byte aligned wherever kernel_takes holds
+    # (its head dims are multiples of 8): no layout the kernel refuses
     out = fused_window_attention(q.reshape(-1, N, C), k.reshape(-1, N, C), v.reshape(-1, N, C), mask,
                                  heads, (C // heads) ** -0.5)
     out = window_reverse(linear(out, a.proj.weight, a.proj.bias), win, H, W)
@@ -421,6 +430,10 @@ def aggregator_forward(agg: Aggregator, img_feats: torch.Tensor, text_feats: tor
     classes None)."""
     T = text_feats.shape[1]
     w_hwio = agg.conv1.weight.permute(2, 3, 1, 0)
+    # the reference's gate: its kernel there (raising on the card outside
+    # the port's kernel_takes), its plain composition elsewhere.  img_feats
+    # may be a view one token into CLIP's output: E elements, a multiple of
+    # 32 wherever the kernel takes it, so 16-byte aligned
     fused_ok = corr_embed_applicable(img_feats, text_feats, w_hwio)
     classes = None
     if cfg.pad_len > 0 and T > cfg.pad_len:

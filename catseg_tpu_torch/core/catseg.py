@@ -54,10 +54,12 @@ class CATSeg(nn.Module):
     def agg(self) -> Aggregator:
         return self.sem_seg_head.predictor.transformer
 
-    def guidance_features(self, clip_images: torch.Tensor):
+    def guidance_features(self, clip_images: torch.Tensor, cfg: CATSegConfig | None = None):
         """Dense CLIP encode + guidance pyramid of normalized, resized images.
-        Returns (img_feats (B, 24, 24, E), (res3, res4, res5))."""
-        cfg = self.cfg
+        Returns (img_feats (B, 24, 24, E), (res3, res4, res5)).  ``cfg``
+        (default: the model's) may differ from the model's in its run-time
+        fields (sliding_window, pooling_size), as eval_preset's does."""
+        cfg = self.cfg if cfg is None else cfg
         dt = compute_dtype(cfg)
         tokens, taps = encode_image(self.clip, clip_images.to(dt), taps=cfg.guidance_layers,
                                     compute_dtype=dt)
@@ -70,11 +72,13 @@ class CATSeg(nn.Module):
         res5 = conv_transpose2d_nonoverlap(res5, self.upsample2.weight, self.upsample2.bias, kernel=4)
         return res3, (res3, res4, res5)
 
-    def forward(self, images: torch.Tensor, text_feats: torch.Tensor) -> torch.Tensor:
-        """images (B, H, W, 3) raw RGB; text_feats (T, P, E) or (B, T, P, E)."""
-        cfg = self.cfg
+    def forward(self, images: torch.Tensor, text_feats: torch.Tensor,
+                cfg: CATSegConfig | None = None) -> torch.Tensor:
+        """images (B, H, W, 3) raw RGB; text_feats (T, P, E) or (B, T, P, E);
+        ``cfg`` as :meth:`guidance_features` takes it."""
+        cfg = self.cfg if cfg is None else cfg
         clip_images = resize_bilinear(normalize_clip(images), (cfg.clip_resolution,) * 2)
-        img_feats, guidance = self.guidance_features(clip_images)
+        img_feats, guidance = self.guidance_features(clip_images, cfg)
         if text_feats.ndim == 3:
             text_feats = text_feats.expand(images.shape[0], *text_feats.shape)
         return aggregator_forward(self.agg, img_feats, text_feats.to(compute_dtype(cfg)), guidance, cfg)

@@ -150,6 +150,18 @@ class VisualTransformer(nn.Module):
         self.ln_post = LayerNorm(w)
         self.proj = nn.Parameter(torch.empty(w, v.embed_dim))
 
+    @property
+    def prompt_tokens(self) -> torch.Tensor | None:
+        """The VPT prompts (depth, L, width), or None: a model has them only
+        where its loaded parameters carry them (``clip_finetune="prompt"``)."""
+        return getattr(self.transformer, "prompt_tokens", None)
+
+    def add_prompt_tokens(self, depth: int, length: int) -> None:
+        """Give the model zero VPT prompts of this shape, under the
+        checkpoints' key ``visual.transformer.prompt_tokens``."""
+        width = self.class_embedding.shape[0]
+        self.transformer.prompt_tokens = nn.Parameter(torch.zeros(depth, length, width))
+
 
 class CLIP(nn.Module):
     def __init__(self, v: CLIPVariant):
@@ -176,12 +188,17 @@ def resized_pos_embed(pe: torch.Tensor, pretrain_grid: int, grid: int) -> torch.
 
 
 def encode_image(clip: CLIP, images: torch.Tensor, taps: tuple[int, ...] = (),
-                 compute_dtype=torch.float32):
-    """Dense image encoding of (B, H, W, 3) normalized images.
+                 compute_dtype=torch.float32, dense: bool = True):
+    """CLIP image encoding of (B, H, W, 3) normalized images.
 
-    Returns (tokens (B, 1+G^2, embed_dim) after ln_post + proj for every
-    token, [block outputs (B, 1+G^2, width) for each tap]).  Tap t is the
-    output of block t; a tap at the final block sees its dense output."""
+    Returns (tokens, [block outputs (B, 1+G^2, width) for each tap]).  Dense
+    (the default): the final block runs the dense trick and tokens are
+    (B, 1+G^2, embed_dim), every token after ln_post + proj; otherwise the
+    final block is a standard one and tokens are the (B, embed_dim) CLS
+    projection.  Tap t is the output of block t; a tap at the final block
+    sees its output.  With VPT prompts (:attr:`VisualTransformer.prompt_tokens`,
+    depth d) the first min(d, layers - 1) blocks run with their prompts after
+    the CLS token, stripped again after the block (and before its tap)."""
     v = clip.variant
     p = clip.visual
     act = _act(v)
@@ -194,13 +211,23 @@ def encode_image(clip: CLIP, images: torch.Tensor, taps: tuple[int, ...] = (),
     x = x + resized_pos_embed(p.positional_embedding, v.pretrain_grid, grid).to(dt)
     x = p.ln_pre(x)
     blocks = p.transformer.resblocks
+    prompts = p.prompt_tokens
+    n_prompted = 0 if prompts is None else prompts.shape[0]
     tapped = {}
     for i in range(v.layers - 1):
-        x = blocks[i](x, v.heads, None, act)
+        if i < n_prompted:
+            L = prompts.shape[1]
+            xp = torch.cat([x[:, :1], prompts[i].to(x.dtype).expand(B, L, v.width), x[:, 1:]], dim=1)
+            xp = blocks[i](xp, v.heads, None, act)
+            x = torch.cat([xp[:, :1], xp[:, 1 + L:]], dim=1)
+        else:
+            x = blocks[i](x, v.heads, None, act)
         tapped[i] = x
-    x = blocks[-1].dense_final(x, act)
+    x = blocks[-1].dense_final(x, act) if dense else blocks[-1](x, v.heads, None, act)
     tapped[v.layers - 1] = x
     x = p.ln_post(x)
+    if not dense:
+        x = x[:, 0]
     return torch.matmul(x, p.proj.to(dt)), [tapped[t] for t in taps]
 
 

@@ -1,6 +1,7 @@
-"""Sliding-window inference (catseg_tpu/infer/pipeline.py).
+"""Inference (catseg_tpu/infer/pipeline.py): the sliding-window and the
+whole-image branches, and the Predictor that serves them.
 
-Per image: bilinear resize of the true-size image to sw_out_res (640) and
+Sliding window, per image: bilinear resize of the true-size image to sw_out_res (640) and
 sw_kernel (384) -> 4 tiles (kernel 384, stride 256) + 1 global tile -> one
 model forward for all tiles of the batch -> per tile 96 -> 384 bilinear
 logits, sigmoid, fold with the overlap divisor -> average with the global
@@ -9,8 +10,16 @@ classes in chunks with a strict ``>`` running max.
 
 bf16 compute carries the probabilities in bf16 as the reference does
 (sigmoid and the resize arithmetic stay fp32); fp32 compute keeps an fp32
-tail.  The reference's static-canvas machinery exists for XLA's static
-shapes and is not needed here: every image is resized at its own size.
+tail.
+
+Whole image (``cfg.sliding_window=False``, the model's default): the image
+is CLIP-normalized, zero-padded to multiples of crop_size (the reference's
+ImageList size divisibility), resized to clip_resolution, encoded and
+aggregated once; the fp32 sigmoid gives (96, 96, T) probabilities in both
+compute dtypes.
+
+The reference's static-canvas machinery exists for XLA's static shapes and
+is not needed here: every image is resized at its own size.
 """
 
 from __future__ import annotations
@@ -19,8 +28,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..configs import CATSegConfig
-from ..core.catseg import CATSeg, compute_dtype, resolve_device
+from ..configs import CATSegConfig, check_same_architecture
+from ..core.aggregator import aggregator_forward
+from ..core.catseg import CATSeg, compute_dtype, normalize_clip, resolve_device
 from ..ops import fold_divisor, fold_tiles, resize_bilinear, unfold_tiles
 from ..text.embed import forward_text_embeds
 
@@ -38,7 +48,7 @@ def sliding_window_probs_batch(model: CATSeg, image640s: torch.Tensor, image_glo
     n = image640s.shape[0]
     nt = ((out - k) // s + 1) ** 2
     batch = torch.cat([unfold_tiles(image640s, k, s), image_globals], dim=0)
-    logits = model(batch, text_feats)                        # ((nt+1)*n, T, 96, 96) fp32
+    logits = model(batch, text_feats, cfg)                   # ((nt+1)*n, T, 96, 96) fp32
     pdt = compute_dtype(cfg)
     fast = pdt == torch.bfloat16
     div = fold_divisor((out, out), k, s, device=logits.device)[..., 0]
@@ -56,6 +66,40 @@ def sliding_window_probs_batch(model: CATSeg, image640s: torch.Tensor, image_glo
         global_up = _resize_cm(probs[nt:], (out, out))[0]
         res.append((folded + global_up) / 2.0)
     return torch.stack(res)
+
+
+def normalize_clip_padded(image: torch.Tensor, div: int) -> torch.Tensor:
+    """(H, W, 3) raw RGB -> CLIP-normalized fp32, zero-padded at the bottom
+    and right to (ceil(H / div) * div, ceil(W / div) * div)."""
+    H, W = image.shape[:2]
+    img = normalize_clip(image)
+    return F.pad(img, (0, 0, 0, -W % div, 0, -H % div))
+
+
+def whole_image_probs(model: CATSeg, image: torch.Tensor, text_feats: torch.Tensor,
+                      cfg: CATSegConfig) -> torch.Tensor:
+    """(H, W, 3) raw RGB -> (96, 96, T) fp32 sigmoid probabilities of one
+    model forward (resized to clip_resolution without padding)."""
+    logits = model(image[None], text_feats, cfg)[0]
+    return torch.sigmoid(logits.float()).permute(1, 2, 0)
+
+
+def whole_image_probs_padded(model: CATSeg, image: torch.Tensor, text_feats: torch.Tensor,
+                             cfg: CATSegConfig) -> torch.Tensor:
+    """The whole-image branch (cat_seg_model.py:147-155,220-229; catseg_tpu's
+    whole_image_probs_from_canvas at the image's true size): (H, W, 3) raw
+    RGB -> normalized and zero-padded to crop_size multiples -> bilinear
+    resize of the padded tensor to clip_resolution (fp32) -> CLIP with
+    guidance taps -> aggregator with the text in the compute dtype -> fp32
+    sigmoid, (96, 96, T)."""
+    if cfg.fusion is not None:
+        raise NotImplementedError("the fusion branch is not ported (ROADMAP A8)")
+    img = normalize_clip_padded(image, cfg.crop_size)
+    img = resize_bilinear(img[None], (cfg.clip_resolution,) * 2)
+    img_feats, guidance = model.guidance_features(img, cfg)
+    tf = text_feats[None] if text_feats.ndim == 3 else text_feats
+    logits = aggregator_forward(model.agg, img_feats, tf.to(compute_dtype(cfg)), guidance, cfg)[0]
+    return torch.sigmoid(logits.float()).permute(1, 2, 0)
 
 
 def resize_argmax(probs_cm: torch.Tensor, out_hw, chunk: int = 32) -> torch.Tensor:
@@ -76,13 +120,21 @@ def resize_argmax(probs_cm: torch.Tensor, out_hw, chunk: int = 32) -> torch.Tens
 
 
 class Predictor:
-    """Sliding-window prediction for a list of true-size RGB images.
+    """predict(image) -> {"sem_seg": (T, H, W) probs} or an argmax map, and
+    the sliding-window batch paths for lists of true-size RGB images.
 
     The model and the text features move to ``device``, the card unless the
-    caller asks for the CPU; without a card the default raises."""
+    caller asks for the CPU; without a card the default raises.  Unlike
+    catseg_tpu's Predictor it takes no ``input_canvas`` (nor
+    ``predict_argmax``'s ``canvas``): those fix XLA's static shapes, and
+    here every image runs at its own size.  ``mesh`` (tile-sharded latency)
+    waits for the port's multi-GPU work (ROADMAP A6).  ``cfg`` may differ
+    from ``model.cfg`` only in run-time fields (``eval_preset``'s sliding
+    window and pooling, the dtype); an architecture field raises."""
 
     def __init__(self, model: CATSeg, cfg: CATSegConfig, class_names: list[str],
                  text_feats: torch.Tensor | np.ndarray | None = None, device="cuda"):
+        check_same_architecture(cfg, model.cfg)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -97,7 +149,7 @@ class Predictor:
         k, out = self.cfg.sw_kernel, self.cfg.sw_out_res
         big, small = [], []
         for im in images:
-            t = torch.as_tensor(np.ascontiguousarray(im), device=self.device).float()[None]
+            t = self._image(im)[None]
             big.append(resize_bilinear(t, (out, out)))
             small.append(resize_bilinear(t, (k, k)))
         return torch.cat(big), torch.cat(small)
@@ -105,6 +157,36 @@ class Predictor:
     def _probs_cm(self, images: list[np.ndarray]) -> torch.Tensor:
         img640s, imgks = self._inputs(images)
         return sliding_window_probs_batch(self.model, img640s, imgks, self.text_feats, self.cfg)
+
+    def _image(self, image: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(image), device=self.device).float()
+
+    @torch.inference_mode()
+    def probs_whole(self, image: np.ndarray) -> torch.Tensor:
+        """One (H, W, 3) image -> (96, 96, T) fp32 probs, whole-image branch."""
+        return whole_image_probs_padded(self.model, self._image(image), self.text_feats, self.cfg)
+
+    def probs_sliding(self, image: np.ndarray) -> torch.Tensor:
+        """One (H, W, 3) image -> (640, 640, T) probs: the batch path's row."""
+        return self.probs_sliding_batch([image])[0]
+
+    def probs(self, image: np.ndarray) -> torch.Tensor:
+        """The branch cfg.sliding_window names, as the reference meta-arch."""
+        return self.probs_sliding(image) if self.cfg.sliding_window else self.probs_whole(image)
+
+    @torch.inference_mode()
+    def predict(self, image: np.ndarray, out_hw: tuple[int, int] | None = None) -> dict:
+        """Class probabilities at the image's size (or ``out_hw``): {"sem_seg":
+        (T, H, W) fp32 numpy}, a bilinear fp32 resize of :meth:`probs`."""
+        H, W = out_hw or image.shape[:2]
+        up = resize_bilinear(self.probs(image)[None].float(), (H, W))[0]
+        return {"sem_seg": up.permute(2, 0, 1).cpu().numpy()}
+
+    @torch.inference_mode()
+    def predict_argmax(self, image: np.ndarray, out_hw: tuple[int, int] | None = None) -> np.ndarray:
+        """(H, W) int32 argmax map at the image's size (or ``out_hw``)."""
+        H, W = out_hw or image.shape[:2]
+        return resize_argmax(self.probs(image).permute(2, 0, 1), (H, W)).cpu().numpy()
 
     @torch.inference_mode()
     def probs_sliding_batch(self, images: list[np.ndarray]) -> torch.Tensor:

@@ -6,7 +6,8 @@ The kernel (csrc/corr_embed.cu) never writes the (B, T, H, W, P) cost volume;
 its note there says what bounds it on the card.  Weights use the reference's
 HWIO layout so the two packages are called alike; the bf16 kernel takes them
 packed (:func:`pack_taps`).  A CUDA call outside the kernel's geometry
-(24x24, P = 1, C = 128, E a multiple of 32) raises.
+(:func:`kernel_takes`) raises; the aggregator calls it wherever the
+reference's gate (:func:`corr_embed_applicable`) holds.
 
 Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
 backward is autograd through the plain version (catseg_tpu/kernels/
@@ -31,6 +32,12 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     x32 = x.float()
     n = x32.square().sum(dim, keepdim=True).sqrt()
     return (x32 / n.clamp_min(eps)).to(x.dtype)
+
+
+def kernel_takes(H: int, W: int, P: int, C: int, E: int) -> bool:
+    """The geometry the CUDA kernel is built for: a 24x24 grid, one prompt
+    (P = 1), C = 128 embed channels, E a multiple of 32."""
+    return (H, W, P, C) == (BASE, BASE, 1, 128) and E % 32 == 0
 
 
 def corr_embed_applicable(img_feats: torch.Tensor, text_feats: torch.Tensor, w: torch.Tensor) -> bool:
@@ -71,7 +78,7 @@ def _corr_embed_cuda(img_feats, text_n, w, b) -> torch.Tensor:
     dt = img_feats.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"corr embed kernel takes fp32 or bf16, got {dt}")
-    if (H, W, P, C) != (BASE, BASE, 1, 128) or E % 32:
+    if not kernel_takes(H, W, P, C, E):
         raise NotImplementedError(f"corr embed kernel is built for 24x24, P=1, C=128 and E a multiple of 32; "
                                   f"got {(H, W, P, C)}, E={E}")
     img = img_feats.contiguous()

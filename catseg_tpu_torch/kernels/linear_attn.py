@@ -8,7 +8,7 @@ each sequence's per-head KV and K-sum on chip; its note there says what
 bounds it on the card.
 
 Every call on a CUDA tensor launches the kernel, which takes any S and the
-head dims and widths its wrapper names; it raises outside them.  The
+head dims and widths :func:`kernel_takes` names; it raises outside them.  The
 reference's own gate (C % 128 == 0, S % 8 == 0) is a TPU tiling limit and is
 not repeated here.
 

@@ -13,7 +13,8 @@ before the second product.
 
 Every call on a CUDA tensor launches the kernel, which takes C a multiple of
 16 up to 256, H a multiple of 128 and 32, 64, 128 or 256 outputs, any row
-count; it raises outside them, and for x, w1 or w2 not 16-byte aligned.  The reference's own gate (C and H multiples
+count (:func:`kernel_takes`); it raises outside them, and for x, w1 or w2
+not 16-byte aligned.  The reference's own gate (C and H multiples
 of 128, one 1024-row tile) is a TPU tiling limit and is not repeated here.
 
 Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
@@ -41,13 +42,19 @@ def mlp_plain(x: torch.Tensor, w1, b1, w2, b2, act: str) -> torch.Tensor:
     return (h.float() @ w2.to(dt).float() + b2.float()).to(dt)
 
 
+def kernel_takes(C: int, H: int, Co: int) -> bool:
+    """The geometry the CUDA kernel takes: C a multiple of 16 up to 256 in, a
+    hidden width H a multiple of 128, 32, 64, 128 or 256 outputs."""
+    return C % 16 == 0 and 0 < C <= 256 and H % 128 == 0 and Co in (32, 64, 128, 256)
+
+
 def _mlp_cuda(x, w1, b1, w2, b2, act: str) -> torch.Tensor:
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"mlp kernel takes fp32 or bf16, got {dt}")
     C, H = w1.shape
     Co = w2.shape[1]
-    if C % 16 or C > 256 or H % 128 or Co not in (32, 64, 128, 256) or w2.shape[0] != H:
+    if w2.shape[0] != H or not kernel_takes(C, H, Co):
         raise NotImplementedError(f"mlp kernel takes C a multiple of 16 up to 256, H a multiple of 128 and "
                                   f"32, 64, 128 or 256 outputs; got {C}->{H}->{Co}")
     x2 = x.reshape(-1, C).contiguous()

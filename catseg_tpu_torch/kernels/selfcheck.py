@@ -21,6 +21,20 @@ do (``flops`` of the kernel's arithmetic type, ``bytes``: each input read
 once, each output written once), from which a caller bounds its time.
 chip_smoke.py and tests/test_torch_cuda.py both use it.
 
+``ROUTES`` and :func:`route_aggregator` give the aggregator at geometries
+some kernels do not take (hidden width, heads, text width, window, grid),
+with the kernel wrappers its routes call there and those of them whose
+CUDA path refuses the geometry: the CPU tests check both sets,
+chip_smoke.py [17] and tests/test_torch_cuda.py that the card raises where
+one refuses, and elsewhere launches exactly the called kernels and agrees
+with the CPU.
+
+:func:`recorded_calls` records every call the port makes to a forward
+kernel's wrapper while a path runs, and :func:`check_calls` holds each
+recorded call's kernel against its plain version (``FORWARD_PAIRS``) on the
+same inputs: chip_smoke.py [15] checks the whole-image branch's kernels at
+the very shapes and values that path hands them.
+
 A backward case's thunks return a dict of every gradient it produces (dx,
 the guidance or pad cotangents, each parameter's); the plain version there is
 autograd through the plain forward on the same device.
@@ -41,6 +55,8 @@ fp32, 4.1e-3 bf16), class layer 1e-3 (2.8e-4, 2.2e-3), decoder 3e-3
 
 from __future__ import annotations
 
+import contextlib
+import sys
 from typing import Callable, NamedTuple
 
 import torch
@@ -324,4 +340,115 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
     out["linear_attention"] = Case(lambda: linear_attn.fused_linear_attention(ql, kl, vl, 4),
                                    lambda: linear_attn.linear_attention_plain(ql, kl, vl, 4), None,
                                    4.0 * Nl * Sl * C * 32, 4 * _nbytes(ql), "fp32")
+    return out
+
+
+# name: (hidden, heads, text width E, window, grid, pooling, attention type,
+#        the kernel wrappers the aggregator's routes call at that geometry,
+#        those of them whose kernel does not take it: the card raises there)
+ROUTES = {
+    "flagship": (128, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed", "swin_block", "class_layer", "decoder"}, set()),
+    "E48 pool2": (128, 4, 48, 12, 24, (2, 2), "linear", {"corr_embed", "swin_block", "class_layer", "decoder"},
+                  {"corr_embed"}),
+    "heads1": (128, 1, 64, 12, 24, (1, 1), "linear",
+               {"corr_embed", "window_attention", "mlp", "linear_attention", "decoder"},
+               {"window_attention", "linear_attention"}),
+    "hidden256": (256, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed", "window_attention", "mlp", "linear_attention"},
+                  {"corr_embed"}),
+    "hidden256 E40 full": (256, 4, 40, 12, 24, (2, 2), "full", {"corr_embed", "window_attention", "mlp"},
+                           {"corr_embed"}),
+    "hidden512": (512, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed", "window_attention", "mlp", "linear_attention"},
+                  {"corr_embed", "window_attention", "mlp", "linear_attention"}),
+    "hidden96": (96, 4, 64, 12, 24, (1, 1), "linear", {"window_attention", "mlp", "linear_attention"},
+                 {"window_attention", "mlp", "linear_attention"}),
+    "hidden32 win4": (32, 4, 48, 4, 8, (2, 2), "linear", {"window_attention", "mlp", "linear_attention"}, set()),
+    "hidden64 heads8 E24": (64, 8, 24, 4, 8, (1, 1), "linear", {"window_attention", "mlp", "linear_attention"},
+                            set()),
+}
+
+
+def route_aggregator(name: str, T: int = 8, seed: int = 0):
+    """(cfg, aggregator, (img_feats, text_feats, guidance)) for ``ROUTES[name]``:
+    an fp32 eval config (pad_len 8, 2 layers), seeded weights (LN gains near
+    1, the rest U(+-1/sqrt(fan_in))) and seeded inputs (one image, T classes,
+    P = 1), all on the CPU."""
+    from ..configs import CATSegConfig
+    from ..core.aggregator import Aggregator
+
+    C, heads, E, win, grid, pool, attn, _, _ = ROUTES[name]
+    dec = dict(decoder_dims=(64, 32), decoder_guidance_dims=(64, 32), decoder_guidance_proj_dims=(32, 16))
+    if C < 64:
+        dec = dict(decoder_dims=(32, 16), decoder_guidance_dims=(24, 12), decoder_guidance_proj_dims=(8, 4))
+    cfg = CATSegConfig(hidden_dim=C, num_heads=heads, window_size=win, feature_resolution=(grid, grid),
+                       pooling_size=pool, attention_type=attn, pad_len=8, num_layers=2, compute_dtype="float32",
+                       text_guidance_dim=E, text_guidance_proj_dim=32, appearance_guidance_dim=E,
+                       appearance_guidance_proj_dim=32, sliding_window=True, **dec)
+    agg = Aggregator(cfg)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for pname, p in agg.named_parameters():
+            u = torch.rand(p.shape, generator=g) * 2 - 1
+            if pname.endswith(("norm1.weight", "norm2.weight", "norm.weight")):
+                p.copy_(1 + 0.1 * u)
+            else:
+                p.copy_(u * (p[0].numel() if p.ndim > 1 else p.numel()) ** -0.5)
+    img = torch.randn(1, grid, grid, E, generator=g)
+    txt = torch.randn(1, T, 1, E, generator=g)
+    d1, d2 = cfg.decoder_guidance_dims
+    guid = (torch.randn(1, grid, grid, E, generator=g), torch.randn(1, 2 * grid, 2 * grid, d1, generator=g),
+            torch.randn(1, 4 * grid, 4 * grid, d2, generator=g))
+    return cfg, agg.eval(), (img, txt, guid)
+
+
+# each forward kernel's wrapper and its plain version, called alike
+FORWARD_PAIRS = {
+    "layer_norm": (layer_norm.fused_layer_norm, layer_norm.layer_norm_plain),
+    "dense_attention": (clip_attn.fused_dense_attention, clip_attn.dense_attention_plain),
+    "corr_embed": (corr_embed.fused_corr_embed, corr_embed.corr_embed_plain),
+    "swin_block": (swin_block.fused_swin_pair, swin_block.swin_pair_plain),
+    "class_layer": (class_layer.fused_class_layer, class_layer.class_layer_plain),
+    "decoder": (decoder.fused_decoder, decoder.decoder_plain),
+}
+
+
+def _cloned(a):
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    return type(a)(_cloned(t) for t in a) if isinstance(a, (tuple, list)) else a
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Yields a list that receives ``(name, args)`` for every call any module
+    of the port makes to a ``FORWARD_PAIRS`` wrapper inside the block, its
+    tensors cloned; the wrappers run as ever and are restored on exit."""
+    calls, patched = [], []
+    for name, (wrapper, _) in FORWARD_PAIRS.items():
+        def record(*a, _name=name, _wrapper=wrapper):
+            calls.append((_name, _cloned(a)))
+            return _wrapper(*a)
+        for mod in list(sys.modules.values()):
+            if getattr(mod, "__name__", "").startswith("catseg_tpu_torch"):
+                for attr, val in list(vars(mod).items()):
+                    if val is wrapper:
+                        patched.append((mod, attr, val))
+                        setattr(mod, attr, record)
+    try:
+        yield calls
+    finally:
+        for mod, attr, val in patched:
+            setattr(mod, attr, val)
+
+
+def check_calls(calls, dtype: torch.dtype) -> dict[str, tuple[int, float, float]]:
+    """{name: (calls, worst max abs error, worst error / max(1, max |plain|))}
+    of recorded calls, each kernel call against its plain version on the
+    same inputs; the caller judges the second against :func:`bound`."""
+    out = {}
+    with torch.inference_mode():
+        for name, args in calls:
+            wrapper, plain = FORWARD_PAIRS[name]
+            err, rel = rel_err(wrapper(*args), plain(*args))
+            n, e0, r0 = out.get(name, (0, 0.0, 0.0))
+            out[name] = (n + 1, max(e0, err), max(r0, rel))
     return out

@@ -5,7 +5,8 @@ Replaces catseg_tpu/kernels/window_attn.py:fused_window_attention (Pallas
 _kernel), which the unfused Swin block (core/aggregator.py ``_swin_block``)
 runs.  The kernel (csrc/window_attn.cu) keeps each window's (N, N) logits
 on chip; its note there says what bounds it on the card.  The reference has
-no shape gate here, so every call goes through the kernel on CUDA.
+no shape gate here: every call on a CUDA tensor launches the kernel, or
+raises outside :func:`kernel_takes`.
 
 Arithmetic, in both dtypes as the reference's kernel: fp32 logits scaled
 after the q.k product, the additive fp32 mask (none for an unshifted block:
@@ -48,6 +49,14 @@ def window_attention_plain(q, k, v, mask, heads: int, scale: float) -> torch.Ten
     return torch.matmul(attn, vh).to(q.dtype).transpose(1, 2).reshape(Bw, N, C)
 
 
+def kernel_takes(N: int, C: int, heads: int) -> bool:
+    """The geometry the CUDA kernel takes: head dims 8-64, at most MAX_TOKENS
+    tokens a window.  Its rows must also be evenly strided by a multiple of 8
+    elements and start 16-byte aligned: a layout, not a geometry (the wrapper
+    copies rows that are not evenly strided and raises for the rest)."""
+    return C % heads == 0 and C // heads in HEAD_DIMS and N <= MAX_TOKENS
+
+
 def _window_attention_cuda(q, k, v, mask, heads: int, scale: float) -> torch.Tensor:
     Bw, N, C = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -60,7 +69,7 @@ def _window_attention_cuda(q, k, v, mask, heads: int, scale: float) -> torch.Ten
         if mask.shape != (nW, N, N) or Bw % nW:
             raise ValueError(f"mask {tuple(mask.shape)} does not fit {Bw} windows of {N} tokens")
         mask = mask.float().contiguous()
-    if C % heads or C // heads not in HEAD_DIMS or N > MAX_TOKENS:
+    if not kernel_takes(N, C, heads):
         raise NotImplementedError(f"window attention kernel takes head dims {HEAD_DIMS} and at most "
                                   f"{MAX_TOKENS} tokens; got C={C}, heads={heads}, N={N}")
     # rows may be strided (views of a fused qkv projection); the kernel reads

@@ -21,6 +21,12 @@ def state_dict_from_params(params: dict) -> dict[str, torch.Tensor]:
 
 
 def load_params_(model: CATSeg, params: dict) -> CATSeg:
-    """Copy a JAX CATSeg pytree into ``model`` (strict: every key must match)."""
-    model.load_state_dict(state_dict_from_params(params), strict=True)
+    """Copy a JAX CATSeg pytree into ``model`` (strict: every key must match).
+    A pytree with VPT prompts (``clip.visual.prompt_tokens``) gives the
+    model prompts of their shape first."""
+    sd = state_dict_from_params(params)
+    prompts = sd.get("sem_seg_head.predictor.clip_model.visual.transformer.prompt_tokens")
+    if prompts is not None and model.clip.visual.prompt_tokens is None:
+        model.clip.visual.add_prompt_tokens(*prompts.shape[:2])
+    model.load_state_dict(sd, strict=True)
     return model

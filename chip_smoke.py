@@ -91,6 +91,29 @@ Phases (any failure raises and the script exits non-zero):
    2e-3, and argmax agreement > 0.99 on the pixels whose fp32 top-2 gap
    exceeds 0.01 (there must be some); the bf16 run raises every forward
    kernel's count.
+15. The single-image API on the whole-image branch, the model's default
+   configuration: Predictor(vitb384()) (sliding_window=False, pooling 2x2,
+   bf16, random weights from seed 0) on the 150 ADE-20k names;
+   predict_argmax on phase 4's two images.  One counted run must launch
+   each forward kernel and no backward or unfused-stage kernel; labels of
+   each image's size in [0, 150).  Every forward-kernel call of one
+   probs_whole (the class layer on the 12x12 pooled grid outside autograd,
+   the decoder at 150 slabs, ...) is recorded and its kernel held against
+   its plain version on the same bf16 inputs, at [3]'s bound 2^-5;
+   images/s at the median of 20 host-clock 2-image runs, with min and max.
+16. fp32 parity of the single-image API, vitb384(compute_dtype="float32"),
+   one image, 20 classes, GPU kernels against the port on the CPU:
+   probs_whole max |d prob| below 5e-4, predict_argmax's labels equal on >=
+   99.9% of pixels; probs_sliding under eval_preset below 5e-4 (against
+   phase 5's CPU result, the same function) and equal, exactly, to row 0 of
+   probs_sliding_batch on the card.
+17. The aggregator's routes at geometries some kernels do not take
+   (kernels/selfcheck.py ROUTES: hidden 256, one head, hidden 512, ...),
+   fp32, T = 8, random weights and features.  No route picks a plain
+   version on the card: where a kernel the routes call refuses the
+   geometry the card must raise NotImplementedError naming it; elsewhere
+   the run launches exactly the kernels the routes name (LayerNorm aside)
+   and its sigmoid probabilities match the port on the CPU below 5e-4.
 
 Phase [3] also gives each call under 1 ms a device time: 20 calls captured
 in one CUDA graph, timed over its replays (no host launch path inside),
@@ -477,6 +500,133 @@ def stage_phase(dev, agg, _build) -> dict:
     return total
 
 
+WHOLE_RUNS = 20   # timed 2-image runs of [15]
+
+
+def whole_image_phase(smi, _build, images, names) -> dict:
+    """Phase 15; returns the counted run's launches."""
+    from catseg_tpu_torch.configs import vitb384
+    from catseg_tpu_torch.core.catseg import build_catseg
+    from catseg_tpu_torch.infer.pipeline import Predictor
+    from catseg_tpu_torch.kernels import selfcheck
+
+    log("[15] single-image API, whole-image branch: Predictor(vitb384()) (bf16, pooling 2x2), T=150, predict_argmax")
+    cfg = vitb384()
+    pred = Predictor(build_catseg(cfg, seed=SEED), cfg, names)
+
+    def run():
+        return [pred.predict_argmax(im) for im in images]
+
+    run()                                                  # warm-up (cuDNN plans)
+    labels, launches = run_counted(run, _build)
+    log(f"    launches in one 2-image run: {launches}")
+    missing = [k for k in _build.FORWARD if launches[k] == 0]
+    if missing or any(launches[k] for k in _build.BACKWARD + _build.UNFUSED):
+        raise AssertionError(f"the whole-image path never launched {missing}, or launched a backward or an "
+                             "unfused stage's kernel")
+    for im, lab in zip(images, labels):
+        if lab.shape != im.shape[:2] or lab.dtype != np.int32 or lab.min() < 0 or lab.max() >= len(names):
+            raise AssertionError(f"labels {lab.shape} {lab.dtype} in [{lab.min()}, {lab.max()}]")
+    # each forward kernel on the very inputs this path hands it (class layer
+    # on the 12x12 pooled grid outside autograd, the decoder at 150 slabs)
+    with selfcheck.recorded_calls() as calls:
+        probs = pred.probs_whole(images[0])
+    shapes = {}
+    for name, args in calls:
+        shapes.setdefault(name, tuple(args[0].shape))
+    errs = selfcheck.check_calls(calls, torch.bfloat16)
+    bad = sorted(set(_build.FORWARD) - set(errs))
+    for name, (n, err, rel) in errs.items():
+        bound = selfcheck.bound(name, torch.bfloat16)
+        log(f"    {name:16s} bf16 {n:2d} calls of this path, first input {shapes[name]}: max_abs_err {err:.3e} "
+            f"rel {rel:.3e} (bound {bound:.1e})")
+        if not rel <= bound:
+            bad.append(name)
+    del calls
+    if bad:
+        raise AssertionError(f"on the whole-image path's own inputs these kernels disagree with their plain "
+                             f"versions, or were never called: {bad}")
+    if probs.shape != (96, 96, len(names)) or probs.dtype != torch.float32 or not (
+            (probs >= 0) & (probs <= 1)).all():
+        raise AssertionError(f"whole-image probs {tuple(probs.shape)} {probs.dtype} outside [0, 1]")
+    secs = []
+    for _ in range(WHOLE_RUNS):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    med = statistics.median(secs)
+    log(f"    {len(images) / med:.3f} images/s on the whole-image branch at the median of {WHOLE_RUNS} 2-image "
+        f"runs ({med * 1e3:.1f} ms; min {min(secs) * 1e3:.1f} ms = {len(images) / min(secs):.3f} images/s, max "
+        f"{max(secs) * 1e3:.1f} ms = {len(images) / max(secs):.3f} images/s) on {smi}; labels "
+        f"{[lab.shape for lab in labels]} in [{min(lab.min() for lab in labels)}, {max(lab.max() for lab in labels)}], "
+        f"{len(np.unique(np.concatenate([lab.ravel() for lab in labels])))} distinct")
+    del pred
+    torch.cuda.empty_cache()
+    return launches
+
+
+def single_image_parity_phase(_build, image, names, cpu_model, p_cpu_sliding) -> None:
+    """Phase 16: the single-image API in fp32 on the card against the CPU
+    port; ``cpu_model`` and its sliding probabilities come from phase 5."""
+    from catseg_tpu_torch.configs import eval_preset, vitb384
+    from catseg_tpu_torch.infer.pipeline import Predictor
+
+    log("[16] fp32 parity of the single-image API: vitb384(compute_dtype='float32'), 1 image, 20 classes, GPU vs CPU")
+    cfg = vitb384(compute_dtype="float32")
+    gpu = Predictor(copy.deepcopy(cpu_model), cfg, names)
+    cpu = Predictor(cpu_model, cfg, names, device="cpu")
+    p_gpu, launches = run_counted(lambda: gpu.probs_whole(image).cpu(), _build)
+    p_cpu = cpu.probs_whole(image)
+    d = (p_gpu - p_cpu).abs()
+    agree = (gpu.predict_argmax(image) == cpu.predict_argmax(image)).mean()
+    gpu_s = Predictor(gpu.model, eval_preset(cfg), names)
+    s_gpu = gpu_s.probs_sliding(image)
+    row_equal = torch.equal(s_gpu, gpu_s.probs_sliding_batch([image])[0])
+    ds = (s_gpu.cpu() - p_cpu_sliding).abs()
+    log(f"    probs_whole max|d prob| {d.max().item():.3e} (bound {PROB_BOUND:.0e})  mean {d.mean().item():.3e}  "
+        f"launches {launches}")
+    log(f"    predict_argmax agreement {agree:.5f} (bound 0.999); probs_sliding (eval_preset) max|d prob| "
+        f"{ds.max().item():.3e} (bound {PROB_BOUND:.0e}) mean {ds.mean().item():.3e}; equal to the batch row {row_equal}")
+    if (not d.max().item() < PROB_BOUND or not agree >= 0.999 or not ds.max().item() < PROB_BOUND or not row_equal
+            or min(launches[k] for k in _build.FORWARD) == 0):
+        raise AssertionError("the fp32 single-image API on the GPU disagrees with the CPU port, or skipped a kernel")
+    del gpu, gpu_s
+    torch.cuda.empty_cache()
+
+
+def routes_phase(dev, _build) -> None:
+    """Phase 17: the aggregator at geometries some kernels do not take."""
+    from catseg_tpu_torch.core.aggregator import aggregator_forward
+    from catseg_tpu_torch.kernels import selfcheck
+
+    log("[17] aggregator routes outside some kernels' limits: fp32, T=8, GPU vs CPU, or the card's refusal")
+    bad = []
+    for name, route in selfcheck.ROUTES.items():
+        called, refused = route[-2:]
+        cfg, agg, (img, txt, guid) = selfcheck.route_aggregator(name)
+        head = f"    {name:20s} (hidden {cfg.hidden_dim}, {cfg.num_heads} heads, E {img.shape[-1]}):"
+        with torch.no_grad():
+            want = torch.sigmoid(aggregator_forward(agg, img, txt, guid, cfg))
+            agg.to(dev)
+            try:
+                got, launches = run_counted(lambda: torch.sigmoid(aggregator_forward(
+                    agg, img.to(dev), txt.to(dev), tuple(g.to(dev) for g in guid), cfg)).cpu(), _build)
+            except NotImplementedError as e:
+                log(f"{head} raised, as {sorted(refused)} refuse it: {e}")
+                if not any(k.replace("_", " ") in str(e) for k in refused):
+                    bad.append(name)
+                continue
+        d = (got - want).abs().max().item()
+        launched = {k for k, n in launches.items() if n}
+        log(f"{head} max|d prob| {d:.3e} (bound {PROB_BOUND:.0e})  launched {sorted(launched)}")
+        if refused or not d < PROB_BOUND or launched - {"layer_norm"} != called:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"aggregator routes disagree with the CPU, launched the wrong kernels, or did not "
+                             f"raise where a kernel refuses the geometry: {bad}")
+
+
 def bf16_gate_phase(_build) -> None:
     """Phase 14: the bf16 serving path against fp32 on the card, held to the
     reference's own bounds for its production dtype (tools/bf16_gate.py)."""
@@ -580,7 +730,8 @@ def main() -> int:
         f"argmax agreement {agree:.5f}  kernel launches {gpu_launches}")
     if not d.max().item() < PROB_BOUND or min(gpu_launches[k] for k in _build.FORWARD) == 0:
         raise AssertionError("fp32 GPU slice disagrees with the CPU port, or skipped a kernel")
-    del gpu_pred, cpu_model
+    del gpu_pred
+    cpu_model32, p_cpu_sliding = cpu_model, p_cpu[0]      # for phase 16
 
     log("[6] top-k path: 847 ADE-full names (pad_len 256 kept), bf16, the same 2 images")
     names847 = class_names("ade847")
@@ -650,6 +801,10 @@ def main() -> int:
     del agg
     torch.cuda.empty_cache()
     bf16_gate_phase(_build)
+    whole_image_phase(smi, _build, images, names)
+    single_image_parity_phase(_build, images[1], names[:20], cpu_model32, p_cpu_sliding)
+    del cpu_model32
+    routes_phase(dev, _build)
 
     kernels = []
     for name, route, source, replaces in selfcheck.KERNELS:

@@ -372,6 +372,72 @@ def test_small_geometry_runs_the_unfused_kernels(cuda, attn):
     torch.testing.assert_close(got.cpu(), want, atol=5e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize("name", list(selfcheck.ROUTES))
+def test_routes_on_cuda_launch_or_raise(cuda, name):
+    """The aggregator at geometries some kernels do not take (hidden 256,
+    one head, hidden 512, ...): where a kernel the routes call refuses the
+    geometry, the card raises NotImplementedError naming one of those
+    kernels; elsewhere exactly the kernels the routes name launch (LayerNorm
+    aside) and the fp32 logits match the port on the CPU within 5e-4 abs and
+    1e-3 rel."""
+    from catseg_tpu_torch.core import aggregator as A
+
+    called, refused = selfcheck.ROUTES[name][-2:]
+    cfg, agg, (img, txt, guid) = selfcheck.route_aggregator(name)
+    with torch.no_grad():
+        want = A.aggregator_forward(agg, img, txt, guid, cfg)
+        agg.to(cuda)
+        run = lambda: A.aggregator_forward(agg, img.to(cuda), txt.to(cuda),  # noqa: E731
+                                           tuple(t.to(cuda) for t in guid), cfg)
+        if refused:
+            with pytest.raises(NotImplementedError) as err:
+                run()
+            assert any(k.replace("_", " ") in str(err.value) for k in refused), err.value
+            return
+        _build.reset_launches()
+        got = run()
+        torch.cuda.synchronize()
+    launched = {k for k, n in _build.LAUNCHES.items() if n}
+    assert launched - {"layer_norm"} == called, launched
+    torch.testing.assert_close(got.cpu(), want, atol=5e-4, rtol=1e-3)
+
+
+def test_single_image_api_on_cuda(cuda):
+    """A small model on the whole-image branch: predict_argmax launches the
+    forward kernels the branch reaches and matches the CPU port; probs_sliding
+    is the batch path's row."""
+    import copy
+
+    import numpy as np
+
+    from catseg_tpu_torch.core.catseg import CATSeg, init_catseg_
+    from catseg_tpu_torch.infer.pipeline import Predictor
+
+    cfg = vitb384(clip=selfcheck_clip(), compute_dtype="float32", guidance_layers=(0, 1), guidance_proj_dim=128,
+                  text_guidance_dim=64, appearance_guidance_dim=64, pad_len=8)
+    cpu_model = init_catseg_(CATSeg(cfg), 0).eval()
+    text = torch.nn.functional.normalize(torch.randn(6, 1, 64, generator=torch.Generator().manual_seed(1)), dim=-1)
+    cpu = Predictor(cpu_model, cfg, [str(i) for i in range(6)], text_feats=text, device="cpu")
+    gpu = Predictor(copy.deepcopy(cpu_model), cfg, cpu.class_names, text_feats=text, device=cuda)
+    img = np.random.RandomState(0).randint(0, 256, (120, 160, 3), dtype=np.uint8)
+    _build.reset_launches()
+    got = gpu.probs_whole(img)
+    torch.cuda.synchronize()
+    launched = {k for k, n in _build.LAUNCHES.items() if n}
+    assert launched == set(_build.FORWARD), launched
+    assert (got.cpu() - cpu.probs_whole(img)).abs().max().item() < 5e-4
+    assert (gpu.predict_argmax(img) == cpu.predict_argmax(img)).mean() >= 0.999
+    sliding = Predictor(gpu.model, eval_preset(cfg), cpu.class_names, text_feats=text, device=cuda)
+    assert torch.equal(sliding.probs_sliding(img), sliding.probs_sliding_batch([img])[0])
+
+
+def selfcheck_clip():
+    """A 3-layer ViT-B/16-shaped CLIP (width 128, 2 heads of 64, embed 64)."""
+    from catseg_tpu_torch.configs import CLIPVariant
+
+    return CLIPVariant("mini-B/16", 16, 128, 3, 2, 64, 224, 128, 2, 2)
+
+
 def _swin_params(g, cuda, C=128):
     def u(*shape, bound=None):
         bound = shape[0] ** -0.5 if bound is None else bound

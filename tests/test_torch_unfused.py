@@ -21,6 +21,13 @@ of the outputs here, and fails if a fast-form gate (tanh GELU) is keyed
 differently.  Gradients (fp32): 1e-4 of max(1, |jax|).  Aggregators: the JAX
 parity test's own 5e-4 abs and 1e-3 rel; the mini model 1e-4 abs, as
 test_torch_aggregator.py.
+
+The routes (``selfcheck.ROUTES``, geometries some kernels do not take): the
+aggregator calls exactly the kernel wrappers ROUTES names (no route picks a
+plain version instead), those outside their kernel's ``kernel_takes`` are
+exactly the ones ROUTES says the card refuses, and every call inside hands
+the kernel rows laid out as its CUDA path takes them; and the mini model at
+hidden 256 and at one head matches catseg_tpu's on the CPU.
 """
 
 import dataclasses
@@ -41,6 +48,8 @@ from catseg_tpu.weights.export import export_aggregator_state_dict
 
 from catseg_tpu_torch import configs as tconfigs
 from catseg_tpu_torch.core import aggregator as tagg
+from catseg_tpu_torch.core.catseg import CATSeg, init_catseg_
+from catseg_tpu_torch.kernels import _build, class_layer, corr_embed, decoder, selfcheck, swin_block
 from catseg_tpu_torch.kernels import linear_attn as tla
 from catseg_tpu_torch.kernels import mlp as tmlp
 from catseg_tpu_torch.kernels import window_attn as twa
@@ -286,3 +295,90 @@ def test_unfused_stages_match_fused_routes(pool):
     for fused, unfused in pairs:
         err = (unfused - fused).abs().max().item()
         assert err <= 2e-4 * max(1.0, fused.abs().max().item()), err
+
+
+def _aligned(*ts) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _rows_as_taken(t) -> bool:
+    """Rows as the window-attention wrapper hands them to its kernel (a view
+    not evenly strided is copied): 8-element multiples apart, 16-byte aligned."""
+    t = t if _build.rows_evenly_strided(t) else t.contiguous()
+    return t.stride(1) % 8 == 0 and _aligned(t)
+
+
+# aggregator attribute: (kernel, whether its CUDA path takes the call's
+# geometry, whether it takes the call's layout after the wrapper's own copies)
+WRAPPER_TAKES = {
+    "fused_corr_embed": ("corr_embed", lambda img, txt, w, b: corr_embed.kernel_takes(
+        img.shape[1], img.shape[2], txt.shape[2], w.shape[-1], img.shape[-1]),
+        lambda img, txt, w, b: _aligned(img.contiguous(), txt.contiguous())),
+    "fused_swin_pair": ("swin_block", lambda x, guid4, p1, p2, heads, win: swin_block.kernel_takes(
+        x.shape[-1], heads, win, x.shape[2], x.shape[3]),
+        lambda x, guid4, *_: _aligned(x.contiguous(), *(guid4 or ()))),
+    "fused_class_layer": ("class_layer", lambda x, qg, kg, pkv, pks, p, heads, Tp: class_layer.kernel_takes(
+        x.shape[-1], heads, x.shape[1]), lambda x, qg, kg, *_: _aligned(x.contiguous(), qg, kg)),
+    "fused_decoder": ("decoder", lambda x, g1, g2, d1, d2, head: decoder.decoder_kernel_applicable(x, d1, d2),
+                      lambda *_: True),
+    "fused_window_attention": ("window_attention", lambda q, k, v, mask, heads, scale: twa.kernel_takes(
+        q.shape[1], q.shape[2], heads), lambda q, k, v, *_: all(_rows_as_taken(t) for t in (q, k, v))),
+    "fused_mlp": ("mlp", lambda x, w1, b1, w2, b2, act: tmlp.kernel_takes(w1.shape[0], w1.shape[1], w2.shape[1]),
+                  lambda x, w1, *_: _aligned(x.reshape(-1, w1.shape[0]).contiguous())),
+    "fused_linear_attention": ("linear_attention", lambda q, k, v, heads: tla.kernel_takes(q.shape[-1], heads),
+                               lambda q, k, v, heads: _aligned(*(t.contiguous() for t in (q, k, v)))),
+}
+
+
+@pytest.mark.parametrize("name", list(selfcheck.ROUTES))
+def test_routes_call_kernels_where_the_reference_does(monkeypatch, name):
+    """Over a grid of (hidden, heads, E, window, grid), the aggregator's
+    routes call exactly the kernel wrappers ROUTES names, those whose
+    kernel_takes refuses the call are exactly the ones ROUTES says the card
+    refuses (it raises there), and every call a kernel takes hands it a
+    layout its CUDA path takes."""
+    called, refused = set(), set()
+
+    def recorder(attr):
+        kernel, takes, laid_out = WRAPPER_TAKES[attr]
+        wrapper = getattr(tagg, attr)
+
+        def call(*a):
+            called.add(kernel)
+            if not takes(*a):
+                refused.add(kernel)
+            else:
+                assert laid_out(*a), f"{attr} handed a layout its kernel refuses at {name}"
+            return wrapper(*a)
+        return call
+
+    for attr in WRAPPER_TAKES:
+        monkeypatch.setattr(tagg, attr, recorder(attr))
+    cfg, agg, (img, txt, guid) = selfcheck.route_aggregator(name, T=3)
+    with torch.no_grad():
+        out = tagg.aggregator_forward(agg, img, txt, guid, cfg)
+    assert out.shape == (1, 3, 4 * img.shape[1], 4 * img.shape[2]) and torch.isfinite(out).all()
+    assert (called, refused) == selfcheck.ROUTES[name][-2:], (called, refused)
+
+
+@pytest.mark.parametrize("kw", [dict(hidden_dim=256), dict(num_heads=1)], ids=["hidden256", "heads1"])
+def test_mini_aggregator_outside_kernel_limits_matches_jax(kw):
+    """The mini vitb384 at hidden 256 (corr embed, Swin and class layer
+    outside the port's kernels; window attention, MLP and linear attention
+    take it) and at one head of 128 (window and linear attention outside
+    theirs) against catseg_tpu's aggregator."""
+    cfg, tcfg = mini_cfg(**kw), mini_cfg_port(**kw)
+    agg = init_catseg_(CATSeg(tcfg), 0).agg
+    params = convert_aggregator_state_dict({k: t.numpy() for k, t in agg.state_dict().items()},
+                                           num_layers=tcfg.num_layers)
+    rng = np.random.RandomState(0)
+    img = rng.randn(1, 24, 24, 64).astype(np.float32)
+    txt = rng.randn(1, 3, 1, 64).astype(np.float32)
+    guid = (rng.randn(1, 24, 24, 64).astype(np.float32), rng.randn(1, 48, 48, 256).astype(np.float32),
+            rng.randn(1, 96, 96, 128).astype(np.float32))
+    want = jagg.aggregator_forward(params, jnp.asarray(img), jnp.asarray(txt), tuple(map(jnp.asarray, guid)), cfg)
+    with torch.no_grad():
+        got = tagg.aggregator_forward(agg, torch.from_numpy(img), torch.from_numpy(txt),
+                                      tuple(map(torch.from_numpy, guid)), tcfg)
+    assert got.shape == (1, 3, 96, 96)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
