@@ -12,9 +12,7 @@ package's (tests/test_torch_host.py).  The benchmarks' class lists ship under
 from __future__ import annotations
 
 import dataclasses
-import json
 from dataclasses import dataclass
-from pathlib import Path
 
 
 @dataclass(frozen=True)
@@ -231,9 +229,9 @@ def eval_preset(cfg: CATSegConfig) -> CATSegConfig:
     return cfg.replace(sliding_window=True, pooling_size=(1, 1))
 
 
-_CLASS_JSONS = Path(__file__).resolve().parent / "data" / "class_jsons"
-
-
 def class_names(benchmark: str) -> list[str]:
-    """The class names of a benchmark, e.g. ``class_names("ade150")`` (150 names)."""
-    return json.loads((_CLASS_JSONS / f"{benchmark}.json").read_text())
+    """The class names of a benchmark, e.g. ``class_names("ade150")`` (150
+    names), read by ``data.catalogs.load_class_names``."""
+    from .data.catalogs import load_class_names
+
+    return load_class_names(f"{benchmark}.json")

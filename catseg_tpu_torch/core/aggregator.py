@@ -22,7 +22,7 @@ function; ``attention_type="full"`` always takes the unfused class stage.
 No route picks a plain version for CUDA tensors: a kernel's wrapper is
 called wherever the reference calls its kernel, and on the card a geometry
 outside that kernel's ``kernel_takes`` raises there (hidden 256 or 512, a
-head dim of 128, a text width not a multiple of 32: ROADMAP C1).  Only
+head dim of 128, a text width not a multiple of 32: ROADMAP B9).  Only
 outside the reference's own gates (corr embed's, the decoder's) does the
 port run the reference's plain composition, as the reference does.
 """

@@ -114,6 +114,35 @@ Phases (any failure raises and the script exits non-zero):
    geometry the card must raise NotImplementedError naming it; elsewhere
    the run launches exactly the kernels the routes name (LayerNorm aside)
    and its sigmoid probabilities match the port on the CPU below 5e-4.
+18. The host data path: the host C++ library built with this machine's g++;
+   every committed fixture (tests/torch_fixtures: JPEGs 4:2:0 / 4:4:4 /
+   progressive / grey, L / P / RGBA PNGs, a uint16 TIFF, the 4-image
+   dataset) decodes to the sha256 of the imaging library's arrays in
+   digests.json, and the 480x640 JPEG's resize_shortest_edge(640, 2560) to
+   its digest (and to the resize's numpy specification); decode and resize
+   ms of that JPEG, median of 10, on the host CPU.
+19. tools.eval.main on the fixture dataset (4 images, two sizes, ADE-150
+   layout): vitb384, eval preset, bf16, random weights from seed 0,
+   --eval-batch 2 then 1.  Each run launches every forward kernel; 4 images,
+   finite metrics, equal metrics and confusion matrices for batch 2 and 1,
+   and the matrix equals a ConfusionAccumulator fed
+   Predictor.preds_sliding_batch on the same loaded inputs.  Images/s of the
+   harness with decode and resize included (median of 3 passes) beside the
+   Predictor alone on those inputs and [4]'s.  Then the steady state: the
+   harness over 256 entries of the 480x640 JPEG (each with a 480x640 PNG
+   label map, written to a temporary ADE-150 layout) beside the Predictor
+   alone on the same loaded inputs, and the harness's load ms an image.
+20. TTAPredictor with D2's 9 scales (400..1200, max 4000) x hflip on the
+   480x640 fixture JPEG (bf16, T = 150): 18 passes an image, probabilities
+   finite in [0, 1], every forward kernel launched; ms an image, median of
+   3.  Then fp32, scale 400 x hflip, 20 classes: GPU against the port on the
+   CPU below 5e-4, as [16].
+21. tools.train.main: vitb384 (bf16, pooling 2x2), B = 4, 3 steps on the
+   fixture dataset through the train mapper and its prefetch thread:
+   finite losses in metrics.json, every forward and backward kernel
+   launched, model_final.pth written; then tools.eval --checkpoint of it
+   scores the 4 images.  Host ms a batch of 4 of the mapper on 480x640
+   JPEGs and label maps, median of 10.
 
 Phase [3] also gives each call under 1 ms a device time: 20 calls captured
 in one CUDA graph, timed over its replays (no host launch path inside),
@@ -128,12 +157,18 @@ per kernel.
 from __future__ import annotations
 
 import copy
+import functools
+import hashlib
 import json
 import math
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -141,6 +176,7 @@ import torch
 PROB_BOUND = 5e-4   # fp32 GPU-vs-CPU max |d prob| (the README's oracle bound)
 STAGE_BOUND = {torch.float32: 2e-4, torch.bfloat16: 2.0 ** -5}   # unfused vs fused stage, of max(1, |fused|)
 SEED = 0
+STEADY_IMAGES = 256   # entries of [19]'s steady-state dataset of 480x640 JPEGs
 
 
 def log(*a):
@@ -644,6 +680,284 @@ def bf16_gate_phase(_build) -> None:
         raise AssertionError(f"bf16 serving drifts past the reference's bounds from fp32, or never launched {missing}")
 
 
+FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_fixtures"
+
+
+def sha256(arr: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def write_png_grey(path: Path, arr: np.ndarray) -> None:
+    """An 8-bit greyscale PNG, filter 0 on every row (the card's machine has
+    no imaging library to write a label map with)."""
+    def chunk(tag, data):
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    h, w = arr.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), arr.astype(np.uint8)], 1).tobytes()
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def photo_dataset(tmp: str, n: int) -> str:
+    """An ADE-150-layout dataset of n entries under tmp, each the committed
+    480x640 4:2:0 JPEG beside one 480x640 PNG label map (classes in
+    [0, 150), a band of 255): inputs of a real dataset's size, enough of them
+    for a steady rate."""
+    from catseg_tpu_torch.data import loader
+
+    root = Path(tmp)
+    img_dir = root / "ADEChallengeData2016/images/validation"
+    gt_dir = root / "ADEChallengeData2016/annotations_detectron2/validation"
+    img_dir.mkdir(parents=True)
+    gt_dir.mkdir(parents=True)
+    y, x = np.mgrid[0:480, 0:640]
+    gt = (y // 24 * 11 + x // 40) % 150
+    gt[200:232] = 255
+    write_png_grey(root / "gt.png", gt)
+    if not np.array_equal(loader.load_gt(str(root / "gt.png")), gt):
+        raise AssertionError("the steady-state label map does not read back")
+    for i in range(n):
+        (img_dir / f"photo_{i:04d}.jpg").symlink_to(FIXTURES / "images/photo_420.jpg")
+        (gt_dir / f"photo_{i:04d}.png").symlink_to(root / "gt.png")
+    return str(root)
+
+
+def predictor_ips(pred, items, canvas, batch: int = 2, passes: int = 3) -> float:
+    """images/s of Predictor.preds_sliding_batch alone over loaded (image, gt)
+    items, ``batch`` at a time as the harness feeds it: median of passes."""
+    secs = []
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(0, len(items), batch):
+            chunk = items[i:i + batch]
+            pred.preds_sliding_batch([im for im, _ in chunk], np.array([g.shape for _, g in chunk], np.int32), canvas)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    return len(items) / statistics.median(secs)
+
+
+def host_data_phase(smi) -> dict:
+    """Phase 18: the host library built here, every committed fixture
+    decoded and resized to its digest; decode and resize times."""
+    from catseg_tpu_torch.data import image_io, loader, resize
+
+    t0 = time.perf_counter()
+    lib = image_io.build_host()
+    log(f"[18] host data: library built in {time.perf_counter() - t0:.2f} s -> {lib}")
+    digests = json.loads((FIXTURES / "digests.json").read_text())
+    bad = []
+    for rel, want in digests["files"].items():
+        p = str(FIXTURES / rel)
+        if sha256(loader.load_image(p)) != want["rgb"] or sha256(loader.load_gt(p)) != want["gt"]:
+            bad.append(rel)
+    rel, (short, max_size) = digests["resize"]["file"], digests["resize"]["short_max"]
+    img = loader.load_image(str(FIXTURES / rel))
+    resized = loader.resize_shortest_edge(img, short, max_size)
+    if sha256(resized) != digests["resize"]["sha256"]:
+        bad.append(f"resize_shortest_edge({rel}, {short}, {max_size})")
+    if not np.array_equal(resize.resize_bilinear_u8_numpy(img, resized.shape[:2]), resized):
+        bad.append("C++ resize != its numpy specification")
+
+    def med_ms(fn, n=10):
+        ts = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t)
+        return statistics.median(ts) * 1e3
+
+    r = {"decode_ms": med_ms(lambda: loader.load_image(str(FIXTURES / rel))),
+         "resize_ms": med_ms(lambda: loader.resize_shortest_edge(img, short, max_size)),
+         "resize_numpy_ms": med_ms(lambda: resize.resize_bilinear_u8_numpy(img, resized.shape[:2]), 3)}
+    log(f"    {len(digests['files'])} fixtures + 1 resize against their digests: "
+        f"{'all equal' if not bad else 'MISMATCH ' + str(bad)}")
+    log(f"    {rel} ({img.shape[0]}x{img.shape[1]}): decode {r['decode_ms']:.3f} ms, resize to "
+        f"{resized.shape[0]}x{resized.shape[1]} {r['resize_ms']:.3f} ms (numpy specification "
+        f"{r['resize_numpy_ms']:.3f} ms), median of 10 (3), host CPU; card {smi}")
+    if bad:
+        raise AssertionError(f"the port's decode / resize differs from the committed digests: {bad}")
+    return r
+
+
+def eval_cli_phase(smi, _build, ips_predictor) -> None:
+    """Phase 19: tools.eval on the committed 4-image ADE-150 fixture set; then
+    the harness's steady rate over STEADY_IMAGES 480x640 JPEGs beside the
+    Predictor alone on the same loaded inputs."""
+    from catseg_tpu_torch.configs import class_names, eval_preset, vitb384
+    from catseg_tpu_torch.core.catseg import build_catseg
+    from catseg_tpu_torch.data import catalogs, loader
+    from catseg_tpu_torch.evaluation import harness
+    from catseg_tpu_torch.evaluation.miou import ConfusionAccumulator
+    from catseg_tpu_torch.infer.pipeline import Predictor
+    from catseg_tpu_torch.tools import eval as eval_cli
+
+    root = str(FIXTURES / "dataset")
+    log("[19] tools.eval on the fixture dataset (4 images, ADE-150 layout): vitb384, eval preset, bf16, T=150")
+    runs = {}
+    for b in (2, 1):
+        runs[b], launches = run_counted(lambda: eval_cli.main(
+            ["--config", "vitb384", "--benchmarks", "ade150", "--data-root", root, "--eval-batch", str(b)])["ade150"],
+            _build)
+        log(f"    --eval-batch {b}: launches {launches}")
+        missing = [k for k in _build.FORWARD if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"tools.eval never launched {missing}")
+    m1, m2 = runs[1], runs[2]
+    if m2["num_images"] != 4 or not all(np.isfinite(m2[k]) for k in ("mIoU", "fwIoU", "mACC", "pACC")):
+        raise AssertionError(f"tools.eval: {m2['num_images']} images, metrics {m2}")
+    same = np.array_equal(m1["_conf"], m2["_conf"]) and all(m1[k] == m2[k] for k in ("mIoU", "fwIoU", "mACC", "pACC"))
+
+    cfg = eval_preset(vitb384())
+    spec = catalogs.get_dataset("ade150")
+    pairs = loader.list_dataset(spec, root=root)
+    items = [(loader.resize_shortest_edge(loader.load_image(i), cfg.min_size_test, cfg.max_size_test),
+              loader.load_gt(g)) for i, g in pairs]
+    canvas = harness._canvas([g.shape for _, g in items])
+    model = build_catseg(cfg, seed=SEED)
+    pred = Predictor(model, cfg, class_names("ade150"))
+    acc = ConfusionAccumulator(spec.num_classes, spec.ignore_label)
+    for i in range(0, len(items), 2):
+        chunk = items[i:i + 2]
+        hws = np.array([g.shape for _, g in chunk], np.int32)
+        preds = pred.preds_sliding_batch([im for im, _ in chunk], hws, canvas)
+        gts = torch.full((len(chunk), *canvas), spec.ignore_label, dtype=torch.int32, device=preds.device)
+        for j, (_, g) in enumerate(chunk):
+            gts[j, :g.shape[0], :g.shape[1]] = torch.from_numpy(g).to(preds.device)
+        acc.update(preds, gts)
+    direct = np.array_equal(acc.matrix(), m2["_conf"])
+    log(f"    mIoU {m2['mIoU']:.4f} fwIoU {m2['fwIoU']:.4f} mACC {m2['mACC']:.4f} pACC {m2['pACC']:.4f} "
+        f"(random weights); batch 2 == batch 1 {same}; confusion matrix == Predictor.preds_sliding_batch's {direct}")
+    if not same or not direct:
+        raise AssertionError("tools.eval's batch 1 and batch 2 differ, or its confusion matrix is not the "
+                             "Predictor's")
+
+    ips = sorted(harness.evaluate_benchmark(model, cfg, "ade150", root=root, verbose=False)["images_per_sec"]
+                 for _ in range(3))[1]
+    log(f"    4 images: harness {ips:.3f} images/s, decode and resize included (median of 3 passes); the Predictor "
+        f"alone on the same loaded inputs {predictor_ips(pred, items, canvas):.3f} images/s; [4]'s Predictor "
+        f"{ips_predictor:.3f} images/s; on {smi}")
+
+    # the steady state: the 4-image rate above is mostly the pipeline's fill
+    def load(pair):   # the harness's own load
+        return (loader.resize_shortest_edge(loader.load_image(pair[0]), cfg.min_size_test, cfg.max_size_test),
+                loader.load_gt(pair[1]))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        big = photo_dataset(tmp, STEADY_IMAGES)
+        pairs = loader.list_dataset(spec, root=big)
+        t = time.perf_counter()
+        items = [load(pair) for pair in pairs]
+        load_ms = (time.perf_counter() - t) * 1e3 / len(pairs)
+        steady = [harness.evaluate_benchmark(model, cfg, "ade150", root=big, verbose=False) for _ in range(3)]
+        if any(r["num_images"] != STEADY_IMAGES or not np.isfinite(r["mIoU"]) for r in steady):
+            raise AssertionError(f"the harness over {STEADY_IMAGES} images: {[r['num_images'] for r in steady]}")
+        ips = sorted(r["images_per_sec"] for r in steady)[1]
+        alone = predictor_ips(pred, items, harness._canvas([g.shape for _, g in items]))
+    log(f"    {STEADY_IMAGES} images ({items[0][0].shape[0]}x{items[0][0].shape[1]} after the resize of a 480x640 "
+        f"JPEG): harness {ips:.3f} images/s (median of 3 passes), the Predictor alone on the same loaded inputs "
+        f"{alone:.3f} images/s, gap {100 * (1 - ips / alone):.1f}%; the harness's load (decode, resize, GT) "
+        f"{load_ms:.3f} ms an image in one thread, the Predictor {1e3 / alone:.3f} ms an image; on {smi}")
+
+
+def tta_phase(smi, _build, names) -> None:
+    """Phase 20: TTAPredictor, D2's 9 scales x hflip, and its fp32 parity."""
+    from catseg_tpu_torch.configs import eval_preset, vitb384
+    from catseg_tpu_torch.core.catseg import CATSeg, build_catseg, init_catseg_
+    from catseg_tpu_torch.data import loader
+    from catseg_tpu_torch.infer.pipeline import Predictor
+    from catseg_tpu_torch.infer.tta import TTAPredictor
+
+    image = loader.load_image(str(FIXTURES / "images/photo_420.jpg"))
+    log(f"[20] TTAPredictor, D2's 9 scales (400..1200, max 4000) x hflip, on one {image.shape[0]}x{image.shape[1]} "
+        "fixture image: vitb384 eval preset, bf16, T=150")
+    cfg = eval_preset(vitb384())
+    pred = Predictor(build_catseg(cfg, seed=SEED), cfg, names)
+    passes = []
+    real = pred.probs_sliding_batch
+    pred.probs_sliding_batch = lambda images: (passes.append(len(images)), real(images))[1]
+    tta = TTAPredictor(pred)
+    tta.probs(image)
+    torch.cuda.synchronize()
+    passes.clear()
+    secs = []
+    for _ in range(3):
+        t = time.perf_counter()
+        (p, launches) = run_counted(lambda: tta.probs(image), _build)
+        secs.append(time.perf_counter() - t)
+    ok = (p.shape == (640, 640, len(names)) and bool(torch.isfinite(p.float()).all())
+          and 0 <= p.min().item() and p.max().item() <= 1)
+    log(f"    {sum(passes) // 3} passes an image in {len(passes) // 3} calls; probs {tuple(p.shape)} finite in [0, 1] "
+        f"{ok}; {statistics.median(secs) * 1e3:.1f} ms an image (median of 3, resizes included) on {smi}; "
+        f"launches {launches}")
+    if sum(passes) != 3 * 18 or not ok or any(launches[k] == 0 for k in _build.FORWARD):
+        raise AssertionError("TTA did not run 18 passes, gave probabilities outside [0, 1], or skipped a kernel")
+    del pred, tta
+
+    cfg32 = eval_preset(vitb384(compute_dtype="float32"))
+    cpu_model = init_catseg_(CATSeg(cfg32), SEED).eval()
+    gpu = TTAPredictor(Predictor(copy.deepcopy(cpu_model), cfg32, names[:20]), min_sizes=(400,))
+    cpu = TTAPredictor(Predictor(cpu_model, cfg32, names[:20], device="cpu"), min_sizes=(400,))
+    d = (gpu.probs(image).cpu() - cpu.probs(image)).abs()
+    log(f"    fp32, scale 400 x hflip, 20 classes: GPU vs the port on the CPU max|d prob| {d.max().item():.3e} "
+        f"(bound {PROB_BOUND:.0e})")
+    if not d.max().item() < PROB_BOUND:
+        raise AssertionError("fp32 TTA on the card disagrees with the CPU port")
+
+
+def train_cli_phase(smi, _build) -> None:
+    """Phase 21: tools.train for 3 steps through the mapper, then tools.eval
+    of its checkpoint."""
+    from catseg_tpu_torch.configs import vitb384
+    from catseg_tpu_torch.data import catalogs, loader, mapper
+    from catseg_tpu_torch.tools import eval as eval_cli
+    from catseg_tpu_torch.tools import train as train_cli
+    from catseg_tpu_torch.train import loop
+
+    root = str(FIXTURES / "dataset")
+    cfg = vitb384()
+    log("[21] tools.train: vitb384 (bf16, pooling 2x2), B=4, 3 steps on the fixture dataset through the mapper "
+        "(ADE-150 names), then tools.eval of its model_final.pth")
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = loader.list_dataset(catalogs.get_dataset("ade150"), root=photo_dataset(tmp, 16))
+        batches = mapper.train_batches(pairs, cfg.batch_size, np.random.default_rng(SEED), crop_size=cfg.crop_size,
+                                       color_aug=cfg.color_aug, ignore=cfg.ignore_value)
+        next(batches)
+        secs = []
+        for _ in range(10):
+            t = time.perf_counter()
+            next(batches)
+            secs.append(time.perf_counter() - t)
+    with tempfile.TemporaryDirectory() as out:
+        real_train = train_cli.train
+        train_cli.train = functools.partial(loop.train, log_every=1)   # a metrics.json line every step
+        try:
+            state, launches = run_counted(lambda: train_cli.main(
+                ["--config", "vitb384", "--dataset", "ade20k_150_test_sem_seg", "--data-root", root, "--output",
+                 out, "--steps", "3"]), _build)
+        finally:
+            train_cli.train = real_train
+        with open(Path(out) / "metrics.json") as f:
+            losses = [json.loads(line)["loss_sem_seg"] for line in f if "loss_sem_seg" in line]
+        final = Path(out) / "model_final.pth"
+        log(f"    step {state.step}, losses {[round(x, 5) for x in losses]}, model_final.pth {final.exists()}; "
+            f"host {statistics.median(secs) * 1e3:.1f} ms a batch of 4 (the mapper on 480x640 JPEGs, median of 10) "
+            f"on {smi}; "
+            f"launches {launches}")
+        missing = [k for k in _build.FORWARD + _build.BACKWARD if launches[k] == 0]
+        if state.step != 3 or len(losses) != 3 or not all(math.isfinite(x) for x in losses) or not final.exists() \
+                or missing:
+            raise AssertionError(f"tools.train: step {state.step}, losses {losses}, never launched {missing}")
+        del state
+        torch.cuda.empty_cache()
+        m = eval_cli.main(["--config", "vitb384", "--checkpoint", str(final), "--benchmarks", "ade150",
+                           "--data-root", root])["ade150"]
+    log(f"    tools.eval --checkpoint model_final.pth: {m['num_images']} images, mIoU {m['mIoU']:.4f}")
+    if m["num_images"] != 4 or not np.isfinite(m["mIoU"]):
+        raise AssertionError("tools.eval of the trained checkpoint failed")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -805,6 +1119,10 @@ def main() -> int:
     single_image_parity_phase(_build, images[1], names[:20], cpu_model32, p_cpu_sliding)
     del cpu_model32
     routes_phase(dev, _build)
+    host_data_phase(smi)
+    eval_cli_phase(smi, _build, ips)
+    tta_phase(smi, _build, names)
+    train_cli_phase(smi, _build)
 
     kernels = []
     for name, route, source, replaces in selfcheck.KERNELS:
