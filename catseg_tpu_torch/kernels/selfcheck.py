@@ -12,8 +12,10 @@ views of one qkv projection with no mask and as ``window_attention@w16``
 over 1500 windows of 256 tokens; the ReLU class MLP of
 ``attention_type="full"`` at 10 x 576 positions x 256 padded classes, and
 the GELU Swin MLP at its 864,000 tokens as ``mlp@swin``; linear attention
-over 5760 sequences of 256 classes), or all at small ones, and returns, per
-case,
+over 5760 sequences of 256 classes), and for the three forward kernels
+whose shapes the larger encoder tiers change (LayerNorm rows of 1024, 1280
+and 1664, dense attention at 16 heads of 64, corr embed at E 768, 1024 and
+1280; ``name@shape``) — or all at small ones — and returns, per case,
 a :class:`Case`: thunks (kernel, plain) that run the same call, the one
 PyTorch call that computes the same function where there is one
 (``library``, a yardstick the port never calls), and the work the call must
@@ -161,36 +163,42 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
     B, T, S = (1, 3, 65) if small else (10, 150, 577)
     out = {}
 
-    x = rn(max(B * S, 640), 768, scale=2.0).to(dtype) + 0.5
-    lg, lb = 1 + un(768, bound=0.1), un(768, bound=0.1)
-    lgd, lbd = lg.to(dtype), lb.to(dtype)
+    def ln_case(width):
+        x = rn(max(B * S, 640), width, scale=2.0).to(dtype) + 0.5
+        lg, lb = 1 + un(width, bound=0.1), un(width, bound=0.1)
+        lgd, lbd = lg.to(dtype), lb.to(dtype)
 
-    def ln_calls(x):
-        return (lambda: layer_norm.fused_layer_norm(x, lg, lb), lambda: F.layer_norm(x, (768,), lgd, lbd))
+        def calls(x):
+            return (lambda: layer_norm.fused_layer_norm(x, lg, lb), lambda: F.layer_norm(x, (width,), lgd, lbd))
 
-    kern, lib = ln_calls(x)
-    out["layer_norm"] = Case(kern, lambda: layer_norm.layer_norm_plain(x, lg, lb), lib, 8.0 * x.numel(),
-                             2 * _nbytes(x) + _nbytes(lg, lb), "fp32", fresh=lambda: ln_calls(x.clone()))
+        kern, lib = calls(x)
+        return Case(kern, lambda: layer_norm.layer_norm_plain(x, lg, lb), lib, 8.0 * x.numel(),
+                    2 * _nbytes(x) + _nbytes(lg, lb), "fp32", fresh=lambda: calls(x.clone()))
 
-    q, k, v = (rn(B, S, 768).to(dtype) for _ in range(3))
-    heads = lambda t: t.view(B, S, 12, 64).transpose(1, 2)  # noqa: E731
+    def attn_case(width, n_heads):
+        q, k, v = (rn(B, S, width).to(dtype) for _ in range(3))
+        heads = lambda t: t.view(B, S, n_heads, 64).transpose(1, 2)  # noqa: E731
 
-    def attn_calls(q, k, v):
-        return (lambda: clip_attn.fused_dense_attention(q, k, v, 12),
-                lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)))
+        def calls(q, k, v):
+            return (lambda: clip_attn.fused_dense_attention(q, k, v, n_heads),
+                    lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)))
 
-    kern, lib = attn_calls(q, k, v)
-    out["dense_attention"] = Case(kern, lambda: clip_attn.dense_attention_plain(q, k, v, 12), lib,
-                                  4.0 * B * S * S * 768, 4 * _nbytes(q), mm,
-                                  fresh=lambda: attn_calls(q.clone(), k.clone(), v.clone()))
+        kern, lib = calls(q, k, v)
+        return Case(kern, lambda: clip_attn.dense_attention_plain(q, k, v, n_heads), lib,
+                    4.0 * B * S * S * width, 4 * _nbytes(q), mm, fresh=lambda: calls(q.clone(), k.clone(), v.clone()))
 
-    img = rn(B, 24, 24, 512).to(dtype)
-    txt = corr_embed.l2_normalize(rn(B, T, 1, 512)).to(dtype)
-    cw, cb = un(7, 7, 1, 128, bound=1 / 7), un(128, bound=1 / 7)
-    out["corr_embed"] = Case(lambda: corr_embed.fused_corr_embed(img, txt, cw, cb),
-                             lambda: corr_embed.corr_embed_plain(img, txt, cw, cb), None,
-                             2.0 * B * T * 576 * (512 + 49 * 128),
-                             _nbytes(img, txt, cw, cb) + B * T * 576 * 128 * img.element_size(), mm)
+    def corr_case(E):
+        img = rn(B, 24, 24, E).to(dtype)
+        txt = corr_embed.l2_normalize(rn(B, T, 1, E)).to(dtype)
+        cw, cb = un(7, 7, 1, 128, bound=1 / 7), un(128, bound=1 / 7)
+        return Case(lambda: corr_embed.fused_corr_embed(img, txt, cw, cb),
+                    lambda: corr_embed.corr_embed_plain(img, txt, cw, cb), None,
+                    2.0 * B * T * 576 * (E + 49 * 128),
+                    _nbytes(img, txt, cw, cb) + B * T * 576 * 128 * img.element_size(), mm)
+
+    out["layer_norm"] = ln_case(768)
+    out["dense_attention"] = attn_case(768, 12)
+    out["corr_embed"] = corr_case(512)
 
     def swin_params():
         C = 128
@@ -340,6 +348,15 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
     out["linear_attention"] = Case(lambda: linear_attn.fused_linear_attention(ql, kl, vl, 4),
                                    lambda: linear_attn.linear_attention_plain(ql, kl, vl, 4), None,
                                    4.0 * Nl * Sl * C * 32, 4 * _nbytes(ql), "fp32")
+
+    # the larger encoder tiers' shapes: ViT-L/14 (L), ViT-H-14 (H), ViT-bigG-14
+    # (G); drawn last, so the cases above keep their inputs
+    if not small:
+        for width in (1024, 1280, 1664):   # visual rows of L, H, G; text rows 768 / 1024 / 1280
+            out[f"layer_norm@{width}"] = ln_case(width)
+        out["dense_attention@16h"] = attn_case(1024, 16)   # L; H and G (head dims 80, 104) take no kernel
+        for E in (768, 1024, 1280):   # the embed width of L, H, G
+            out[f"corr_embed@E{E}"] = corr_case(E)
     return out
 
 

@@ -40,16 +40,16 @@ def resolve_config(name: str, overrides: list[str]) -> CATSegConfig:
     return cfg.replace(**kw) if kw else cfg
 
 
-_PROMPTS = "sem_seg_head.predictor.clip_model.visual.transformer.prompt_tokens"
-
-
 def load_params(path: str | None, cfg: CATSegConfig, seed: int = 0, device="cuda"):
-    """A CATSeg on ``device`` in eval mode: seeded random weights (no path),
-    a catseg_tpu pytree (``.npz``), or a ``.pth`` / ``.pt`` whose keys are
-    exactly the port's ``state_dict`` keys (bare, or ``{"model": sd}`` as
-    ``tools.train`` saves it)."""
-    import torch
-
+    """A CATSeg on ``device`` in eval mode, as catseg_tpu's ``load_params``
+    builds its pytree: seeded random weights (no path); a catseg_tpu pytree
+    (``.npz``); or a torch file (``.pth`` / ``.pt`` / ``.bin``,
+    ``weights.convert.load_torch_checkpoint``).  A torch file with no
+    ``sem_seg_head.`` key is a bare OpenAI or open_clip CLIP: the reference's
+    train-time init, ``build_catseg(cfg, seed=seed)`` with that CLIP in place
+    (its positional grid resized to ``cfg.clip.pretrain_grid``).  Any other
+    goes through the released-checkpoint converter, which also reads the
+    port's own ``tools.train`` checkpoints."""
     from ..core.catseg import CATSeg, build_catseg, resolve_device
 
     if path is None:
@@ -58,21 +58,20 @@ def load_params(path: str | None, cfg: CATSegConfig, seed: int = 0, device="cuda
         from ..weights.io import load_pytree
 
         return build_catseg(cfg, params=load_pytree(path), device=device)
-    if path.endswith((".pth", ".pt")):
-        device = resolve_device(device)
-        blob = torch.load(path, map_location="cpu", weights_only=True)
-        sd = blob.get("model", blob) if isinstance(blob, dict) else blob
-        model = CATSeg(cfg)
-        prompts = sd.get(_PROMPTS) if isinstance(sd, dict) else None
-        if prompts is not None:
-            model.clip.visual.add_prompt_tokens(*prompts.shape[:2])
-        if not isinstance(sd, dict) or set(sd) != set(model.state_dict()):
-            raise NotImplementedError(
-                f"{path}: only checkpoints with exactly the port's state_dict keys load; converting the released "
-                "checkpoints (fused in_proj), OpenCLIP or bare CLIP weights is not ported yet (ROADMAP A5)")
-        model.load_state_dict(sd, strict=True)
-        return model.to(device).eval()
-    raise SystemExit(f"unknown checkpoint format {path!r}: .npz (catseg_tpu pytree) or .pth / .pt")
+    if not path.endswith((".pth", ".pt", ".bin")):
+        raise SystemExit(f"unknown checkpoint format {path!r}: .npz (catseg_tpu pytree) or .pth / .pt / .bin")
+    from ..weights import convert
+    from ..weights.from_jax import load_state_dict_
+
+    device = resolve_device(device)
+    sd = convert.load_torch_checkpoint(path)
+    if not any(k.startswith("sem_seg_head.") for k in sd):
+        model = build_catseg(cfg, seed=seed, device="cpu")
+        clip_sd = convert.convert_openclip_state_dict(sd, cfg.clip.pretrain_grid)
+        load_state_dict_(model, {convert.CLIP_PREFIX + k: v for k, v in clip_sd.items()}, prefix=convert.CLIP_PREFIX)
+    else:
+        model = load_state_dict_(CATSeg(cfg), convert.convert_catseg_checkpoint(sd, num_layers=cfg.num_layers))
+    return model.to(device).eval()
 
 
 def add_device_arg(ap):

@@ -25,7 +25,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     add_device_arg(ap)
     ap.add_argument("--config", default="vitb384")
-    ap.add_argument("--checkpoint", default=None, help=".npz catseg_tpu pytree or the port's .pth")
+    ap.add_argument("--checkpoint", default=None,
+                    help="a released / OpenAI / open_clip .pth, .pt or .bin, the port's .pth, or a catseg_tpu .npz")
     ap.add_argument("--benchmarks", default=DEFAULT_BENCHMARKS)
     ap.add_argument("--data-root", default=None, help="defaults to $DETECTRON2_DATASETS")
     ap.add_argument("--limit", type=int, default=None, help="cap images per benchmark")

@@ -35,7 +35,9 @@ def main(argv=None) -> TrainState:
     ap.add_argument("--dataset", default="coco_2017_train_stuff_all_sem_seg")
     ap.add_argument("--data-root", default=None)
     ap.add_argument("--steps", type=int, default=None, help="default: cfg.max_iter")
-    ap.add_argument("--checkpoint", default=None, help="initial weights (.npz / the port's .pth)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="initial weights: a released / OpenAI / open_clip .pth, .pt or .bin, the port's .pth, or a "
+                         "catseg_tpu .npz")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eval-dataset", default=None, help="periodic eval (TEST.EVAL_PERIOD)")

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..core.catseg import CATSeg
+from .convert import CLIP_PREFIX, PROMPTS
 from .export import export_catseg_checkpoint
 
 
@@ -20,13 +21,19 @@ def state_dict_from_params(params: dict) -> dict[str, torch.Tensor]:
     return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in export_catseg_checkpoint(params).items()}
 
 
-def load_params_(model: CATSeg, params: dict) -> CATSeg:
-    """Copy a JAX CATSeg pytree into ``model`` (strict: every key must match).
-    A pytree with VPT prompts (``clip.visual.prompt_tokens``) gives the
-    model prompts of their shape first."""
-    sd = state_dict_from_params(params)
-    prompts = sd.get("sem_seg_head.predictor.clip_model.visual.transformer.prompt_tokens")
+def load_state_dict_(model: CATSeg, sd: dict[str, torch.Tensor], prefix: str = "") -> CATSeg:
+    """Load the released-named ``sd`` into ``model`` strictly: into the
+    submodule at ``prefix`` (e.g. the CLIP's) where one is given.  VPT
+    prompts in ``sd`` give the model prompts of their shape first."""
+    prompts = sd.get(CLIP_PREFIX + PROMPTS)
     if prompts is not None and model.clip.visual.prompt_tokens is None:
         model.clip.visual.add_prompt_tokens(*prompts.shape[:2])
-    model.load_state_dict(sd, strict=True)
+    module = model.get_submodule(prefix.rstrip(".")) if prefix else model
+    module.load_state_dict({k[len(prefix):]: v for k, v in sd.items()}, strict=True)
     return model
+
+
+def load_params_(model: CATSeg, params: dict) -> CATSeg:
+    """Copy a JAX CATSeg pytree into ``model`` (strict: every key must match),
+    VPT prompts included."""
+    return load_state_dict_(model, state_dict_from_params(params))

@@ -25,7 +25,10 @@ Phases (any failure raises and the script exits non-zero):
    kernel's launch count; the error against the stated bound, kernel,
    plain and (where one PyTorch call computes the same function) library
    times and kernel / library, median of CUDA-event timings after warm-up
-   (a call under 1 ms timed over 20 back-to-back calls).
+   (a call under 1 ms timed over 20 back-to-back calls).  Also at the larger
+   encoder tiers' shapes: LayerNorm at rows of 1024, 1280 and 1664, the dense
+   attention at 16 heads of 64 (width 1024), the corr embed at E 768, 1024
+   and 1280.
 4. The slice at the default configuration: a Predictor at
    eval_preset(vitb384()) — ViT-B/16 at full depth and width, bf16, the
    fused decoder, random weights from seed 0 — on the 150 ADE-20k class
@@ -143,6 +146,29 @@ Phases (any failure raises and the script exits non-zero):
    launched, model_final.pth written; then tools.eval --checkpoint of it
    scores the 4 images.  Host ms a batch of 4 of the mapper on 480x640
    JPEGs and label maps, median of 10.
+22. The larger encoder tiers at full width and depth, seeded random weights
+   (seed 0), eval_preset, bf16, T = 150 on phase 4's two images:
+   vitl336() (CAT-Seg (L), CLIP ViT-L/14@336), vith336() (open_clip
+   ViT-H-14) and vitg336() (ViT-bigG-14), one at a time, each freed before
+   the next.  Per tier: parameters, seeded-init seconds, device memory
+   (utils/profiling.device_memory_stats), the launches of one counted run
+   (L: every forward kernel; H and G, head dims 80 and 104: every forward
+   kernel but the dense attention, whose gate is the reference's; no
+   backward or unfused-stage kernel), shapes and ranges as [4], images/s
+   (median of 3).  For vitl336 also the T = 459 batch (PC-459, top-k to
+   pad_len 256) and one whole-image predict_argmax (vitl336(), pooling 2x2).
+23. fp32 parity of vitl336(compute_dtype="float32"): one whole-image forward
+   (probs_whole), 20 classes, GPU kernels against the port on the CPU, max
+   |d prob| below 5e-4.
+24. The vitl336() train step, as [8]: B = 4, T = 171, pooling 2x2, every
+   forward and backward kernel launched, frozen weights bit-equal, 20 timed
+   steps.
+25. The converter on the card: a seeded vitl336 model's state dict with each
+   CLIP attention's q / k / v fused into in_proj_weight, saved as
+   {"model": sd} to a temporary .pth, read back by
+   weights.convert.load_torch_checkpoint and converted bit-equal to its
+   source; then tools.parity_check --config vitl336 --limit 4 on the
+   fixture set must exit 0 and launch every forward kernel.
 
 Phase [3] also gives each call under 1 ms a device time: 20 calls captured
 in one CUDA graph, timed over its replays (no host launch path inside),
@@ -958,12 +984,147 @@ def train_cli_phase(smi, _build) -> None:
         raise AssertionError("tools.eval of the trained checkpoint failed")
 
 
+TIER_PRESETS = ("vitl336", "vith336", "vitg336")
+
+
+def memory_line() -> str:
+    from catseg_tpu_torch.utils.profiling import device_memory_stats
+
+    m = device_memory_stats()["cuda:0"]
+    return (f"memory in use {m['bytes_in_use'] / 2**30:.2f} GiB, peak {m['peak_bytes_in_use'] / 2**30:.2f} GiB of "
+            f"{m['bytes_limit'] / 2**30:.2f} GiB")
+
+
+def tier_serving_phase(smi, _build, images, hws, canvas, names) -> None:
+    """Phase 22: the larger encoder tiers at full width and depth, seeded
+    random weights, eval_preset, bf16, T = 150; for vitl336 also the T = 459
+    top-k batch and one whole-image predict_argmax."""
+    from catseg_tpu_torch import configs
+    from catseg_tpu_torch.core.catseg import build_catseg
+    from catseg_tpu_torch.infer.pipeline import Predictor
+
+    for preset in TIER_PRESETS:
+        cfg = configs.eval_preset(getattr(configs, preset)())
+        v = cfg.clip
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_catseg(cfg, seed=SEED)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"[22] {preset}: {v.name} ({v.layers} layers, width {v.width}, {v.heads} heads of "
+            f"{v.width // v.heads}, MLP {v.mlp_width}, {v.act}; text width {v.text_width}), {n_params / 1e6:.1f} M "
+            f"parameters, seeded init + copy to the card {init_s:.1f} s; {memory_line()}")
+        pred = Predictor(model, cfg, names)
+        pred.preds_sliding_batch(images, hws, canvas)                    # warm-up
+        preds, launches = run_counted(lambda: pred.preds_sliding_batch(images, hws, canvas), _build)
+        expect = [k for k in _build.FORWARD if k != "dense_attention" or v.width // v.heads == 64]
+        log(f"    launches in one 2-image run (T=150): {launches}")
+        if (any(launches[k] == 0 for k in expect) or any(launches[k] for k in _build.UNFUSED + _build.BACKWARD)
+                or (launches["dense_attention"] > 0) != ("dense_attention" in expect)):
+            raise AssertionError(f"{preset}: a kernel of {expect} never launched, or another one did")
+        check_preds(preds, canvas, len(names))
+        check_probs(pred.probs_sliding_batch(images), len(names))
+        ips, med = images_per_s(pred, images, hws, canvas)
+        log(f"    {ips:.3f} images/s (median of 3 2-image runs, {med * 1e3:.1f} ms) on {smi}; {memory_line()}")
+        if preset == "vitl336":
+            names459 = configs.class_names("pc459")
+            pred = Predictor(model, cfg, names459)
+            pred.preds_sliding_batch(images, hws, canvas)
+            preds459, topk = run_counted(lambda: pred.preds_sliding_batch(images, hws, canvas), _build)
+            if topk["class_layer"] == 0 or topk["decoder"] == 0 or any(topk[k] for k in _build.UNFUSED):
+                raise AssertionError("vitl336 T=459: the class-layer or decoder kernel never launched, or an "
+                                     "unfused stage's did")
+            check_preds(preds459, canvas, len(names459))
+            ips459, med459 = images_per_s(pred, images, hws, canvas)
+            log(f"    T=459 (PC-459, top-k to pad_len 256): {ips459:.3f} images/s ({med459 * 1e3:.1f} ms); launches "
+                f"{topk}")
+            whole = configs.vitl336()
+            pred = Predictor(model, whole, names)
+            pred.predict_argmax(images[0])
+            t = time.perf_counter()
+            labels, wl = run_counted(lambda: pred.predict_argmax(images[0]), _build)
+            whole_ms = (time.perf_counter() - t) * 1e3
+            if (labels.shape != images[0].shape[:2] or labels.min() < 0 or labels.max() >= len(names)
+                    or any(wl[k] == 0 for k in _build.FORWARD)):
+                raise AssertionError(f"vitl336 whole image: labels {labels.shape}, launches {wl}")
+            log(f"    whole-image predict_argmax ({images[0].shape[0]}x{images[0].shape[1]} zero-padded to "
+                f"768x768, resized to {whole.clip_resolution}^2, pooling 2x2): {whole_ms:.1f} ms with the launch "
+                f"count; launches {wl}")
+        del pred, model
+        torch.cuda.empty_cache()
+        log(f"    freed: {memory_line()}")
+
+
+def tier_parity_phase(image, names) -> None:
+    """Phase 23: fp32 vitl336, one whole-image forward on the card against
+    the port on the CPU, 20 classes."""
+    from catseg_tpu_torch.configs import vitl336
+    from catseg_tpu_torch.core.catseg import CATSeg, init_catseg_
+    from catseg_tpu_torch.infer.pipeline import Predictor
+
+    log("[23] fp32 parity of vitl336: one whole-image forward, 20 classes, GPU kernels vs the port on the CPU")
+    cfg = vitl336(compute_dtype="float32")
+    cpu_model = init_catseg_(CATSeg(cfg), SEED).eval()
+    gpu = Predictor(copy.deepcopy(cpu_model), cfg, names)
+    p_gpu = gpu.probs_whole(image).cpu()
+    t = time.perf_counter()
+    p_cpu = Predictor(cpu_model, cfg, names, device="cpu").probs_whole(image)
+    d = (p_gpu - p_cpu).abs()
+    log(f"    probs {tuple(p_gpu.shape)}: max|d prob| {d.max().item():.3e} (bound {PROB_BOUND:.0e})  mean "
+        f"{d.mean().item():.3e}; the CPU's forward {time.perf_counter() - t:.1f} s")
+    if not d.max().item() < PROB_BOUND:
+        raise AssertionError("fp32 vitl336 on the GPU disagrees with the CPU port")
+    del gpu, cpu_model
+    torch.cuda.empty_cache()
+
+
+def fused_qkv_checkpoint(sd: dict) -> dict:
+    """A state dict with each CLIP attention's q / k / v weights fused into
+    one ``in_proj_weight``, as the OpenAI and open_clip files hold them."""
+    out = dict(sd)
+    for k in [k for k in sd if k.endswith("attn.q_proj_weight")]:
+        stem = k[:-len("q_proj_weight")]
+        out[stem + "in_proj_weight"] = torch.cat([out.pop(f"{stem}{n}_proj_weight") for n in "qkv"])
+    return out
+
+
+def converter_phase(smi, _build) -> None:
+    """Phase 25: a synthetic fused-qkv vitl336 checkpoint through the
+    converter and tools.parity_check --limit on the fixture set."""
+    from catseg_tpu_torch.configs import vitl336
+    from catseg_tpu_torch.core.catseg import CATSeg, init_catseg_
+    from catseg_tpu_torch.tools import parity_check
+    from catseg_tpu_torch.weights import convert
+
+    log("[25] a released-format vitl336 checkpoint (qkv fused, {'model': sd}) through tools.parity_check --limit 4 "
+        "on the fixture set (ADE-150 layout)")
+    sd = init_catseg_(CATSeg(vitl336()), SEED + 5).state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "model_large.pth")
+        torch.save({"model": fused_qkv_checkpoint(sd)}, path)
+        t = time.perf_counter()
+        back = convert.convert_catseg_checkpoint(convert.load_torch_checkpoint(path), vitl336().num_layers)
+        same = set(back) == set(sd) and all(torch.equal(back[k], v) for k, v in sd.items())
+        log(f"    {Path(path).stat().st_size / 2**30:.2f} GiB file; read and converted in "
+            f"{time.perf_counter() - t:.1f} s; bit-equal to the model it came from {same}")
+        del back
+        rc, launches = run_counted(lambda: parity_check.main(
+            ["--config", "vitl336", "--checkpoint", path, "--benchmarks", "ade150", "--data-root",
+             str(FIXTURES / "dataset"), "--limit", "4"]), _build)
+    log(f"    parity_check exit code {rc}; launches {launches}; on {smi}")
+    if not same or rc != 0 or any(launches[k] == 0 for k in _build.FORWARD):
+        raise AssertionError("the converted checkpoint differs from its source, parity_check failed, or it never "
+                             "launched a kernel of the path")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    from catseg_tpu_torch.configs import class_names, eval_preset, vitb384
+    from catseg_tpu_torch.configs import class_names, eval_preset, vitb384, vitl336
     from catseg_tpu_torch.core.catseg import CATSeg, build_catseg, init_catseg_
     from catseg_tpu_torch.evaluation.miou import ConfusionAccumulator
     from catseg_tpu_torch.infer.pipeline import Predictor
@@ -1123,6 +1284,12 @@ def main() -> int:
     eval_cli_phase(smi, _build, ips)
     tta_phase(smi, _build, names)
     train_cli_phase(smi, _build)
+
+    tier_serving_phase(smi, _build, images, hws, canvas, names)
+    tier_parity_phase(images[1], names[:20])
+    log("[24] train step, vitl336() at full width (bf16, pooling 2x2, fused decoder), B=4, T=171, 384^2 crops")
+    train_step_phase(dev, smi, _build, vitl336(), _build.FORWARD + _build.BACKWARD, _build.UNFUSED)
+    converter_phase(smi, _build)
 
     kernels = []
     for name, route, source, replaces in selfcheck.KERNELS:

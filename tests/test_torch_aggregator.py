@@ -30,6 +30,17 @@ from catseg_tpu_torch.core.aggregator import Aggregator, aggregator_forward
 from catseg_tpu_torch.core.catseg import CATSeg, init_catseg_
 from catseg_tpu_torch.kernels import selfcheck
 
+
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """Two torch threads: beside the suite's parallel workers and JAX's
+    threads, the default pool (one thread a core) took about twice as long."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _mini(configs, **kw):
     base = dict(clip=configs.CLIPVariant("mini-B/16", 16, 128, 3, 2, 64, 224, 128, 2, 2),
                 guidance_layers=(0, 1), guidance_proj_dim=128, text_guidance_dim=64,

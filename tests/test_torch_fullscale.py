@@ -9,7 +9,9 @@ The text encoders are compared at tests/test_fullscale_parity.py's text
 bound (3e-4 abs, 1e-3 rel); then catseg_tpu's text features feed both image
 paths on one seeded 427x640 image: the whole-image branch (the model's
 default, pooling 2x2) and the sliding window under ``eval_preset``, at that
-file's bound (max |d prob| < 5e-4, mean < 2e-5).
+file's bound (max |d prob| < 5e-4, mean < 2e-5).  The sliding window's
+case is in tests/test_torch_fullscale_sliding.py, so that the two files run
+on two workers.
 """
 
 import numpy as np
@@ -32,30 +34,56 @@ from catseg_tpu_torch.weights.from_jax import load_params_
 T = 150
 
 
-@pytest.fixture(scope="module")
-def models():
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """Two torch threads: beside the suite's parallel workers and JAX's
+    threads, the default pool (one thread a core) took ~1.7x as long."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def make_models():
     jcfg = jconfigs.vitb384(compute_dtype="float32")
     params = jax.tree.map(np.asarray, jax.jit(lambda k: init_catseg_params(k, jcfg))(jax.random.PRNGKey(0)))
     model = load_params_(CATSeg(tconfigs.vitb384(compute_dtype="float32")), params).eval()
     return params, model
 
 
-@pytest.fixture(scope="module")
-def names():
+def make_names():
     names = tconfigs.class_names("ade150")
     assert len(names) == T
     return names
 
 
-@pytest.fixture(scope="module")
-def text(models, names):
+def make_text(models, names):
     params, _ = models
     return j_text_embeds(params["clip"], names, "single", jconfigs.vitb384().clip)
 
 
+def make_image():
+    return np.random.RandomState(3).randint(0, 255, (427, 640, 3)).astype(np.uint8)
+
+
+@pytest.fixture(scope="module")
+def models():
+    return make_models()
+
+
+@pytest.fixture(scope="module")
+def names():
+    return make_names()
+
+
+@pytest.fixture(scope="module")
+def text(models, names):
+    return make_text(models, names)
+
+
 @pytest.fixture(scope="module")
 def image():
-    return np.random.RandomState(3).randint(0, 255, (427, 640, 3)).astype(np.uint8)
+    return make_image()
 
 
 def _close(got, want):
@@ -72,8 +100,7 @@ def test_text_fullscale(models, names, text):
     np.testing.assert_allclose(got.numpy(), text, atol=3e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("branch", ["whole", "sliding"])
-def test_image_paths_fullscale(models, names, text, image, branch):
+def check_image_path(models, names, text, image, branch):
     params, model = models
     jcfg, tcfg = jconfigs.vitb384(compute_dtype="float32"), tconfigs.vitb384(compute_dtype="float32")
     if branch == "sliding":
@@ -87,3 +114,9 @@ def test_image_paths_fullscale(models, names, text, image, branch):
         got, want = tp.probs_sliding(image), jp.probs_sliding(image)
         assert got.shape == (640, 640, T)
     _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("branch", ["whole"])
+def test_image_paths_fullscale(models, names, text, image, branch):
+    """The whole-image branch (the sliding one: test_torch_fullscale_sliding.py)."""
+    check_image_path(models, names, text, image, branch)

@@ -19,6 +19,17 @@ from catseg_tpu_torch.weights.from_jax import load_params_
 
 from test_torch_aggregator import mini_cfg, mini_cfg_port, mini_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """Two torch threads: beside the suite's parallel workers and JAX's
+    threads, the default pool (one thread a core) took about twice as long."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 NAMES = ["wall", "building, edifice", "sky", "floor, flooring", "tree", "ceiling"]
 
 

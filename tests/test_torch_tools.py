@@ -121,12 +121,15 @@ def test_load_params_routes(tmp_path):
     for name in ("bare.pth", "wrapped.pth"):
         m = common.load_params(str(tmp_path / name), cfg, device="cpu")
         assert all(torch.equal(v, want[k]) for k, v in m.state_dict().items())
-    # anything else (a released checkpoint's fused in_proj, a bare CLIP) waits for A5
-    other = {k.replace("q_proj", "in_proj"): v for k, v in want.items()}
-    assert set(other) != set(want)
-    torch.save({"model": other}, tmp_path / "fused.pth")
-    with pytest.raises(NotImplementedError, match="A5"):
-        common.load_params(str(tmp_path / "fused.pth"), cfg, device="cpu")
+    # a released checkpoint's fused in_proj goes through weights.convert to the same tensors
+    from test_torch_convert import fused
+
+    assert set(fused(want)) != set(want)
+    torch.save({"model": fused(want)}, tmp_path / "fused.pth")
+    m = common.load_params(str(tmp_path / "fused.pth"), cfg, device="cpu")
+    assert all(torch.equal(v, want[k]) for k, v in m.state_dict().items())
+    with pytest.raises(SystemExit, match="unknown checkpoint format"):
+        common.load_params(str(tmp_path / "p.safetensors"), cfg, device="cpu")
 
 
 def _leaves(tree):

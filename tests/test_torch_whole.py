@@ -8,12 +8,11 @@ sliding window (the eval preset).  Tolerances as test_torch_pipeline.py:
 probabilities max 5e-4 and mean 2e-5 (the README's oracle bound); argmax
 maps agree on >= 99.9% of pixels (an fp32 near-tie between classes may
 flip).  The compositions mirror tests/test_eval_infer.py's, at its own 2e-5
-abs and 1e-4 rel.
+abs and 1e-4 rel.  The sliding-window branch's tests are in
+tests/test_torch_whole_sliding.py, so that the two files run on two workers.
 """
 
 import queue
-import threading
-import time
 
 import numpy as np
 import pytest
@@ -46,6 +45,17 @@ def _close(got, want):
     assert d.max() < 5e-4 and d.mean() < 2e-5, (d.max(), d.mean())
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the mini model's small ops would each wait on a
+    barrier of the whole pool, which stalls beside JAX's threads and the
+    suite's parallel workers (as tests/test_torch_tools.py does)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def params():
     return mini_params(seed=1)
@@ -64,22 +74,15 @@ def whole(params):
 
 
 @pytest.fixture(scope="module")
-def sliding(params):
-    return _predictors(params, "sliding")
-
-
-@pytest.fixture(scope="module")
 def images():
     rng = np.random.RandomState(1)
     return [rng.randint(0, 256, (120, 160, 3), dtype=np.uint8),
             rng.randint(0, 256, (96, 128, 3), dtype=np.uint8)]
 
 
-@pytest.mark.parametrize("branch", list(BRANCHES))
-def test_probs_predict_and_argmax_match_jax(request, images, branch):
+def check_probs_predict_and_argmax(jp, tp, images, branch):
     """probs (probs_whole, probs_sliding), predict and predict_argmax follow
-    cfg.sliding_window and agree with catseg_tpu's in each branch."""
-    jp, tp = request.getfixturevalue(branch)
+    cfg.sliding_window and agree with catseg_tpu's in the branch."""
     side = 640 if branch == "sliding" else 96
     for im in images:
         got = tp.probs(im)
@@ -97,13 +100,10 @@ def test_probs_predict_and_argmax_match_jax(request, images, branch):
     assert pred.shape == (60, 90) and (pred == jp.predict_argmax(images[0], out_hw=(60, 90))).mean() >= 0.999
 
 
-def test_probs_sliding_is_the_batch_row(sliding, images):
-    """probs_sliding matches catseg_tpu's and is row 0 of the batch path."""
-    jp, tp = sliding
-    got = tp.probs_sliding(images[0])
-    assert got.shape == (640, 640, 6)
-    _close(got.numpy(), jp.probs_sliding(images[0]))
-    assert torch.equal(got, tp.probs_sliding_batch(images[:1])[0])
+@pytest.mark.parametrize("branch", ["whole"])
+def test_probs_predict_and_argmax_match_jax(whole, images, branch):
+    """The whole-image branch (the sliding one: test_torch_whole_sliding.py)."""
+    check_probs_predict_and_argmax(*whole, images, branch)
 
 
 def test_whole_image_probs_matches_jax(params, images):
@@ -191,35 +191,6 @@ def test_recorded_calls_reach_the_whole_branch_kernels(whole, images):
     assert names.count("swin_block") == pred.cfg.num_layers
     errs = selfcheck.check_calls(calls, torch.float32)
     assert all(n >= 1 and err == 0.0 for n, err, _ in errs.values()), errs
-
-
-def test_async_predictor_keeps_submission_order(sliding, images):
-    """Results come back in submission order, as device tensors equal to
-    probs_sliding's; the worker stops at shutdown."""
-    _, tp = sliding
-
-    class Slow:
-        def probs_sliding(self, image):
-            time.sleep(0.01 * float(image[0, 0, 0]))
-            return torch.full((2,), float(image[0, 0, 0]))
-
-    ap = AsyncPredictor(Slow(), depth=2)
-    order = [3, 0, 2, 1, 4]
-    feeder = threading.Thread(target=lambda: [ap.put(np.full((4, 4, 3), k, np.uint8)) for k in order])
-    feeder.start()
-    got = [ap.get() for _ in order]
-    feeder.join(timeout=10)
-    assert [i for i, _ in got] == list(range(5)) and [int(p[0]) for _, p in got] == order
-    assert len(ap) == 0
-    ap.shutdown()
-    assert not ap._thread.is_alive()
-
-    ap = AsyncPredictor(tp)
-    assert ap.put(images[1]) == 0 and len(ap) == 1
-    idx, probs = ap.get()
-    assert idx == 0 and probs.device == tp.device
-    assert torch.equal(probs, tp.probs_sliding(images[1]))
-    ap.shutdown()
 
 
 def test_async_predictor_forwards_worker_exception():
