@@ -2,11 +2,11 @@
 
 The port's own copy of catseg_tpu/configs.py (host code, no JAX): the
 CLIP variants, the flat ``CATSegConfig`` dataclass with its presets
-(``vitb384``, ``vitl336``, ``vith336``, ``vitg336``) and ``eval_preset``, and
-the pixel statistics.  ``dataclasses.asdict`` of every preset equals the JAX
-package's (tests/test_torch_host.py).  The benchmarks' class lists ship under
-``data/class_jsons/``.  The fork's fusion presets are not ported; their
-``FusionConfig`` stays so the dataclass keeps the same fields.
+(``vitb384``, ``vitl336``, ``vith336``, ``vitg336``, the fork's dual-encoder
+``fusion_ver31`` and ``fusion_ver14``) and ``eval_preset``, and the pixel
+statistics.  ``dataclasses.asdict`` of every preset equals the JAX package's
+(tests/test_torch_host.py).  The benchmarks' class lists ship under
+``data/class_jsons/``.
 """
 
 from __future__ import annotations
@@ -200,6 +200,42 @@ def vitg336(**kw) -> CATSegConfig:
         guidance_proj_dim=1664,
         text_guidance_dim=1280,
         appearance_guidance_dim=1280,
+    )
+    base.update(kw)
+    return CATSegConfig(**base)
+
+
+def fusion_ver31(**kw) -> CATSegConfig:
+    """The fork's final dual-encoder configuration (Ver31): RemoteCLIP
+    ViT-B/32 @ 768² + frozen DINO ViT-B/8 @ 384², no text guidance
+    (scripts/ablation_train_eval31.sh + implicit_fusion_Ver31.py:148-160)."""
+    base = dict(
+        clip=VITB32,
+        guidance_layers=(3, 7),
+        guidance_proj_dim=768,
+        # the ablation script zeroes BOTH text-guidance dims, so the class
+        # q/k are plain Linear(hidden, hidden) with no dead guidance rows
+        text_guidance_dim=0,
+        text_guidance_proj_dim=0,
+        appearance_guidance_dim=512,
+        fusion=FusionConfig(),
+    )
+    base.update(kw)
+    return CATSegConfig(**base)
+
+
+def fusion_ver14(**kw) -> CATSegConfig:
+    """The fork's SAM mask-refinement family (Ver14): CAT-Seg class
+    proposals re-predicted per class by a SAM prompt-encoder / mask-decoder
+    over a frozen SAM ViT-B encoder at 1024² (implicit_fusion_Ver14.py:
+    28-46, 148, 368-398)."""
+    base = dict(
+        fusion=FusionConfig(
+            mode="sam_refine",
+            encoder="sam_vitb",
+            encoder_resolution=1024,
+            clip_resolution=384,  # the CLIP path is the standard B/16 one
+        ),
     )
     base.update(kw)
     return CATSegConfig(**base)

@@ -135,13 +135,17 @@ class AggregatorLayer(nn.Module):
 
 
 class Up(nn.Module):
-    """ConvT(k2 s2) -> (conv3x3 -> GN(C/16) -> ReLU) x2 (model.py:520-555)."""
+    """ConvT(k2 s2) -> (conv3x3 -> GN(C/16) -> ReLU) x2 (model.py:520-555);
+    conv1 reads the ConvT's cin - guid channels and guid channels of each of
+    ``pyramids`` guidance pyramids (2: the fork's FusionUP,
+    FusionAggregator.py:757-772)."""
 
-    def __init__(self, cin: int, cout: int, guid: int):
+    def __init__(self, cin: int, cout: int, guid: int, pyramids: int = 1):
         super().__init__()
         self.up = ConvTranspose(cin, cin - guid, 2)
         self.conv = nn.Module()
-        self.conv.double_conv = nn.ModuleDict({"0": Conv(cin, cout, 3, bias=False), "1": GroupNorm(cout),
+        self.conv.double_conv = nn.ModuleDict({"0": Conv(cin + (pyramids - 1) * guid, cout, 3, bias=False),
+                                               "1": GroupNorm(cout),
                                                "3": Conv(cout, cout, 3, bias=False), "4": GroupNorm(cout)})
 
     def packed(self) -> dict:
@@ -153,6 +157,11 @@ class Up(nn.Module):
 
 
 class Aggregator(nn.Module):
+    # attribute names of the decoder-guidance projections (one per guidance
+    # pyramid) and of the two decoder stages; FusionAggregator renames them
+    GUIDANCE_PROJECTIONS = ("decoder_guidance_projection",)
+    DECODERS = ("decoder1", "decoder2")
+
     def __init__(self, cfg: CATSegConfig):
         super().__init__()
         hd = cfg.hidden_dim
@@ -165,12 +174,14 @@ class Aggregator(nn.Module):
             self.text_guidance_projection = nn.ModuleList(
                 [Linear(cfg.text_guidance_dim, cfg.text_guidance_proj_dim)])
         if cfg.decoder_guidance_dims[0] > 0:
-            self.decoder_guidance_projection = nn.ModuleList(
-                nn.ModuleList([Conv(d, dp, 3)])
-                for d, dp in zip(cfg.decoder_guidance_dims, cfg.decoder_guidance_proj_dims))
+            for name in self.GUIDANCE_PROJECTIONS:
+                setattr(self, name, nn.ModuleList(
+                    nn.ModuleList([Conv(d, dp, 3)])
+                    for d, dp in zip(cfg.decoder_guidance_dims, cfg.decoder_guidance_proj_dims)))
         self.layers = nn.ModuleList(AggregatorLayer(cfg) for _ in range(cfg.num_layers))
-        self.decoder1 = Up(hd, cfg.decoder_dims[0], cfg.decoder_guidance_proj_dims[0])
-        self.decoder2 = Up(cfg.decoder_dims[0], cfg.decoder_dims[1], cfg.decoder_guidance_proj_dims[1])
+        gp, n = cfg.decoder_guidance_proj_dims, len(self.GUIDANCE_PROJECTIONS)
+        setattr(self, self.DECODERS[0], Up(hd, cfg.decoder_dims[0], gp[0], n))
+        setattr(self, self.DECODERS[1], Up(cfg.decoder_dims[0], cfg.decoder_dims[1], gp[1], n))
 
 
 def correlation(img_feats: torch.Tensor, text_feats: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,9 @@
 resize to clip_resolution, dense CLIP encode with guidance taps, the
 guidance pyramid (upsample1 ConvT k2 width->256, upsample2 ConvT k4
 width->128) and the aggregator.  Attribute names follow
-``weights.export.export_catseg_checkpoint`` keys.
+``weights.export.export_catseg_checkpoint`` keys.  A config with ``fusion``
+builds the fork's dual-encoder model of its mode instead (core/fusion.py,
+:func:`model_class`).
 """
 
 from __future__ import annotations
@@ -83,6 +85,21 @@ class CATSeg(nn.Module):
             text_feats = text_feats.expand(images.shape[0], *text_feats.shape)
         return aggregator_forward(self.agg, img_feats, text_feats.to(compute_dtype(cfg)), guidance, cfg)
 
+    def _init_extra_(self, gen: torch.Generator) -> None:
+        """Seeded init of the modules a subclass adds (the fusion families')."""
+
+
+def model_class(cfg: CATSegConfig) -> type[CATSeg]:
+    """CATSeg, or for ``cfg.fusion`` the fusion family of its mode (Ver31
+    ``DualEncoderCATSeg``, Ver14 ``SAMRefineCATSeg``)."""
+    if cfg.fusion is None:
+        return CATSeg
+    from .fusion import FUSION_MODELS
+
+    if cfg.fusion.mode not in FUSION_MODELS:
+        raise ValueError(f"unknown fusion mode {cfg.fusion.mode!r}")
+    return FUSION_MODELS[cfg.fusion.mode]
+
 
 def bce_loss(logits: torch.Tensor, targets: torch.Tensor, ignore_value: int,
              out_hw: tuple[int, int]) -> torch.Tensor:
@@ -111,12 +128,13 @@ def resolve_device(device) -> torch.device:
 
 def build_catseg(cfg: CATSegConfig, *, seed: int | None = None, params: dict | None = None,
                  device="cuda") -> CATSeg:
-    """A CATSeg in eval mode on ``device``: seeded random weights
-    (:func:`init_catseg_`) or a catseg_tpu parameter pytree (``params``)."""
+    """A CATSeg (or the :func:`model_class` of a fusion config) in eval mode
+    on ``device``: seeded random weights (:func:`init_catseg_`) or a
+    catseg_tpu parameter pytree (``params``)."""
     if (seed is None) == (params is None):
         raise ValueError("build_catseg takes exactly one of seed= and params=")
     device = resolve_device(device)
-    model = CATSeg(cfg)
+    model = model_class(cfg)(cfg)
     if params is not None:
         from ..weights.from_jax import load_params_
 
@@ -130,7 +148,8 @@ def build_catseg(cfg: CATSegConfig, *, seed: int | None = None, params: dict | N
 def init_catseg_(model: CATSeg, seed: int) -> CATSeg:
     """Seeded random init through a CPU torch.Generator (device independent):
     CLIP as catseg_tpu's init_clip_params; every aggregator linear / conv
-    U(-1/sqrt(fan_in), 1/sqrt(fan_in)); norms 1 / 0; padding rows 0."""
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)); norms 1 / 0; padding rows 0; then
+    a fusion model's own modules (``_init_extra_``)."""
     gen = torch.Generator().manual_seed(seed)
 
     def uniform_(p, bound):
@@ -148,4 +167,5 @@ def init_catseg_(model: CATSeg, seed: int) -> CATSeg:
     for name, p in model.agg.named_parameters():
         if name.endswith(("padding_tokens", "padding_guidance")):
             p.zero_()
+    model._init_extra_(gen)
     return model

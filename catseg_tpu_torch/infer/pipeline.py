@@ -18,6 +18,12 @@ ImageList size divisibility), resized to clip_resolution, encoded and
 aggregated once; the fp32 sigmoid gives (96, 96, T) probabilities in both
 compute dtypes.
 
+The fork's fusion models (core/fusion.py) serve through the same paths: the
+sliding batch hands them raw tiles (each derives its second encoder's input
+from its CLIP image), the whole-image branch hands them the padded canvas
+resized to each encoder's resolution.  Ver14's (256, 256) refined logits
+take the same resize-to-kernel tail as (96, 96) ones.
+
 The reference's static-canvas machinery exists for XLA's static shapes and
 is not needed here: every image is resized at its own size.
 """
@@ -91,10 +97,18 @@ def whole_image_probs_padded(model: CATSeg, image: torch.Tensor, text_feats: tor
     RGB -> normalized and zero-padded to crop_size multiples -> bilinear
     resize of the padded tensor to clip_resolution (fp32) -> CLIP with
     guidance taps -> aggregator with the text in the compute dtype -> fp32
-    sigmoid, (96, 96, T)."""
-    if cfg.fusion is not None:
-        raise NotImplementedError("the fusion branch is not ported (ROADMAP A8)")
+    sigmoid, (96, 96, T).  A fusion model (catseg_tpu's fusion canvas branch,
+    implicit_fusion_Ver31.py:239-240) takes the padded tensor resized to the
+    fusion CLIP resolution and, on its own, to the second encoder's: (96,
+    96, T) for Ver31, (256, 256, T) for Ver14's refined masks.  ``cfg`` may
+    differ from ``model.cfg`` in run-time fields only (ValueError)."""
+    check_same_architecture(cfg, model.cfg)
     img = normalize_clip_padded(image, cfg.crop_size)
+    if cfg.fusion is not None:
+        clip_img = resize_bilinear(img[None], (cfg.fusion.clip_resolution,) * 2)
+        second = resize_bilinear(img[None], (cfg.fusion.encoder_resolution,) * 2)
+        logits = model(clip_img, text_feats, cfg, normalized=True, second_images=second)[0]
+        return torch.sigmoid(logits.float()).permute(1, 2, 0)
     img = resize_bilinear(img[None], (cfg.clip_resolution,) * 2)
     img_feats, guidance = model.guidance_features(img, cfg)
     tf = text_feats[None] if text_feats.ndim == 3 else text_feats

@@ -46,40 +46,53 @@ from .swin_block import pack_mma_b
 BASE = 24   # feature grid the kernel is written for
 
 
-def _double_conv(x: torch.Tensor, dp: dict, plane: torch.Tensor | None) -> torch.Tensor:
-    """conv3x3 -> GN(mid/16) -> ReLU, twice; the per-image guidance plane
-    (conv1's guidance half, :func:`_guidance_half`) broadcasts over the classes."""
+def _double_conv(x: torch.Tensor, dp: dict, planes: tuple) -> torch.Tensor:
+    """conv3x3 -> GN(mid/16) -> ReLU, twice; each per-image guidance plane
+    (a slice of conv1 over one guidance, :func:`guidance_planes`) broadcasts
+    over the classes."""
     w1 = dp["conv1_w"]
     mid = w1.shape[0]
     h = conv2d(x, w1[:, :x.shape[-1]], None, padding=1)
-    if plane is not None:
+    for plane in planes:
         h = (h.reshape(plane.shape[0], -1, *h.shape[1:]) + plane[:, None]).reshape(h.shape)
     x = torch.relu(group_norm(h, mid // 16, dp["gn1_g"], dp["gn1_b"]))
     x = conv2d(x, dp["conv2_w"], None, padding=1)
     return torch.relu(group_norm(x, mid // 16, dp["gn2_g"], dp["gn2_b"]))
 
 
-def up_tail(x: torch.Tensor, plane: torch.Tensor | None, dp: dict, head: dict | None) -> torch.Tensor:
+def up_tail(x: torch.Tensor, planes: tuple, dp: dict, head: dict | None) -> torch.Tensor:
     """ConvT(k2 s2) -> DoubleConv [-> head conv]: (N, H, W, Cin) -> (N, 2H, 2W,
     mid), or fp32 (N, 2H, 2W) logits when ``head`` is given."""
     x = conv_transpose2d_nonoverlap(x, dp["up_w"], dp["up_b"], kernel=2)
-    h = _double_conv(x, dp, plane)
+    h = _double_conv(x, dp, planes)
     if head is not None:
         return conv2d(h, head["w"], head["b"], padding=1)[..., 0].float()
     return h
 
 
+def guidance_planes(dp: dict, guidances, dt: torch.dtype) -> tuple:
+    """conv1's per-image guidance halves of a stage, one for each guidance
+    (B, H, W, Cg) given (None skipped), over conv1's input channels after
+    the ConvT's, in turn (the reference's ``_double_conv(x, dp, guidances)``;
+    the fusion decoder passes two pyramids' guidance)."""
+    planes, ofs = [], dp["up_w"].shape[1]
+    for g in guidances:
+        if g is not None:
+            planes.append(_guidance_half(dp, g, ofs, dt))
+            ofs += g.shape[-1]
+    return tuple(planes)
+
+
 def _decoder_planes(x: torch.Tensor, hg1, hg2, d1: dict, d2: dict, head: dict) -> torch.Tensor:
-    """decoder_plain with the guidance planes given (or None)."""
-    return up_tail(up_tail(x, hg1, d1, None), hg2, d2, head)
+    """decoder_plain with the guidance planes given."""
+    return up_tail(up_tail(x, (hg1,), d1, None), (hg2,), d2, head)
 
 
 def decoder_plain(x: torch.Tensor, g1, g2, d1: dict, d2: dict, head: dict) -> torch.Tensor:
     """x (N, 24, 24, C); g1 (B, 48, 48, Cg1) / g2 (B, 96, 96, Cg2) per-image
     guidance or None -> (N, 96, 96) fp32 logits."""
-    hg1 = None if g1 is None else _guidance_half(d1, g1, d1["up_w"].shape[1], x.dtype)
-    hg2 = None if g2 is None else _guidance_half(d2, g2, d2["up_w"].shape[1], x.dtype)
-    return _decoder_planes(x, hg1, hg2, d1, d2, head)
+    h = up_tail(x, guidance_planes(d1, (g1,), x.dtype), d1, None)
+    return up_tail(h, guidance_planes(d2, (g2,), x.dtype), d2, head)
 
 
 def decoder_kernel_applicable(x: torch.Tensor, d1: dict, d2: dict) -> bool:

@@ -9,19 +9,13 @@ from .. import configs
 from ..configs import CATSegConfig
 
 
-def _fusion(name: str):
-    def preset(**kw):
-        raise NotImplementedError(f"the {name} preset (dual-encoder fusion) is not ported yet (ROADMAP A8)")
-    return preset
-
-
 PRESETS = {
     "vitb384": configs.vitb384,
     "vitl336": configs.vitl336,
     "vith336": configs.vith336,
     "vitg336": configs.vitg336,
-    "fusion_ver31": _fusion("fusion_ver31"),
-    "fusion_ver14": _fusion("fusion_ver14"),
+    "fusion_ver31": configs.fusion_ver31,
+    "fusion_ver14": configs.fusion_ver14,
 }
 
 
@@ -41,16 +35,16 @@ def resolve_config(name: str, overrides: list[str]) -> CATSegConfig:
 
 
 def load_params(path: str | None, cfg: CATSegConfig, seed: int = 0, device="cuda"):
-    """A CATSeg on ``device`` in eval mode, as catseg_tpu's ``load_params``
-    builds its pytree: seeded random weights (no path); a catseg_tpu pytree
-    (``.npz``); or a torch file (``.pth`` / ``.pt`` / ``.bin``,
-    ``weights.convert.load_torch_checkpoint``).  A torch file with no
+    """A CATSeg (or ``cfg``'s fusion model) on ``device`` in eval mode, as
+    catseg_tpu's ``load_params`` builds its pytree: seeded random weights
+    (no path); a catseg_tpu pytree (``.npz``); or a torch file (``.pth`` /
+    ``.pt`` / ``.bin``, ``weights.convert.load_torch_checkpoint``).  A torch file with no
     ``sem_seg_head.`` key is a bare OpenAI or open_clip CLIP: the reference's
     train-time init, ``build_catseg(cfg, seed=seed)`` with that CLIP in place
     (its positional grid resized to ``cfg.clip.pretrain_grid``).  Any other
     goes through the released-checkpoint converter, which also reads the
-    port's own ``tools.train`` checkpoints."""
-    from ..core.catseg import CATSeg, build_catseg, resolve_device
+    port's own ``tools.train`` checkpoints and the fork's fusion checkpoints."""
+    from ..core.catseg import build_catseg, model_class, resolve_device
 
     if path is None:
         return build_catseg(cfg, seed=seed, device=device)
@@ -70,7 +64,8 @@ def load_params(path: str | None, cfg: CATSegConfig, seed: int = 0, device="cuda
         clip_sd = convert.convert_openclip_state_dict(sd, cfg.clip.pretrain_grid)
         load_state_dict_(model, {convert.CLIP_PREFIX + k: v for k, v in clip_sd.items()}, prefix=convert.CLIP_PREFIX)
     else:
-        model = load_state_dict_(CATSeg(cfg), convert.convert_catseg_checkpoint(sd, num_layers=cfg.num_layers))
+        sd = convert.convert_catseg_checkpoint(sd, num_layers=cfg.num_layers)
+        model = load_state_dict_(model_class(cfg)(cfg), sd)
     return model.to(device).eval()
 
 

@@ -169,6 +169,42 @@ Phases (any failure raises and the script exits non-zero):
    weights.convert.load_torch_checkpoint and converted bit-equal to its
    source; then tools.parity_check --config vitl336 --limit 4 on the
    fixture set must exit 0 and launch every forward kernel.
+26. The fork's Ver31 dual-encoder family: eval_preset(fusion_ver31()),
+   seeded, bf16, T = 150 on phase 4's two images as a sliding Predictor
+   batch (RemoteCLIP ViT-B/32 at 768^2 and DINO ViT-B/8 at 384^2 on each of
+   the 10 tiles).  Parameters, seeded-init seconds, device memory; one
+   counted run launches LayerNorm, dense attention, the Swin pair and the
+   class layer and never the corr embed, the decoder (FusionUP is the
+   reference's plain composition), a backward or an unfused stage's
+   kernel; the class layer's calls carry no text guidance; every kernel
+   call of one probs_sliding_batch is held against its plain version on
+   its own inputs at [3]'s bound for its dtype;
+   probabilities finite in [0, 1]; images/s, median of 3.
+27. fp32 parity of fusion_ver31(compute_dtype="float32"): one whole-image
+   forward (probs_whole: the padded image resized to 768^2 and, on its own,
+   to 384^2), 20 classes, GPU kernels against the port on the CPU, max
+   |d prob| below 5e-4.
+28. Ver31 at T = 847 (ADE-full): each cost volume its own top-k to pad_len
+   256; finite probabilities, the launches, images/s, as [6].
+29. The Ver14 SAM refinement family: eval_preset(fusion_ver14()), seeded,
+   bf16, T = 150, sliding, proposals from the raw CLIP cost: SAM ViT-B at
+   1024^2 on each tile (image by image), the mask decoder over the classes
+   one per image a step.  Launches LayerNorm and dense attention, no
+   aggregator kernel; memory, init and images/s as [26].  Then one
+   whole-image predict_argmax with refine_from="head" launches the corr
+   embed, Swin pair, class layer and decoder kernels.  Every kernel call of
+   a sliding batch and of the head variant's predict_argmax (LayerNorm at
+   768 in CLIP and SAM and at 256 in the fp32 mask decoder) is held against
+   its plain version on its own inputs at [3]'s bound for its dtype.  Then fp32 parity of
+   one whole-image raw-corr forward at T = 8 against the CPU port, bound
+   5e-4 (the mask decoder's weights x5 and the SAM rel-pos tables redrawn,
+   so the refined logits are O(1)).
+30. The fusion converter on the card: a seeded Ver31 and a seeded Ver14
+   model's state dicts (the fork's key names), saved as {"model": sd} to a
+   temporary .pth, read back by weights.convert.load_torch_checkpoint and
+   converted bit-equal to their sources; then python -m
+   catseg_tpu_torch.tools.eval --config fusion_ver31 --limit 2 on the
+   fixture set must exit 0.
 
 Phase [3] also gives each call under 1 ms a device time: 20 calls captured
 in one CUDA graph, timed over its replays (no host launch path inside),
@@ -1119,6 +1155,255 @@ def converter_phase(smi, _build) -> None:
     torch.cuda.empty_cache()
 
 
+def build_timed(cfg):
+    """(model on the card, seeded-init seconds, parameters) after resetting
+    the allocator's peak."""
+    from catseg_tpu_torch.core.catseg import build_catseg
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_catseg(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0, sum(p.numel() for p in model.parameters())
+
+
+def check_launches(launches, expect, absent, what) -> None:
+    if any(launches[k] == 0 for k in expect) or any(launches[k] for k in absent):
+        raise AssertionError(f"{what}: a kernel of {list(expect)} never launched, or one of {list(absent)} did: "
+                             f"{launches}")
+
+
+def check_path_calls(calls, what: str, expect=()) -> None:
+    """Every kernel call recorded on a path (``selfcheck.recorded_calls``)
+    against its plain version on the same inputs, at [3]'s bound for the
+    call's dtype; fails if one disagrees or a kernel of ``expect`` was never
+    called."""
+    from catseg_tpu_torch.kernels import selfcheck
+
+    groups = {}
+    for name, args in calls:
+        groups.setdefault((name, args[0].dtype), []).append((name, args))
+    bad = [k for k in expect if not any(name == k for name, _ in groups)]
+    for (name, dt), cs in sorted(groups.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
+        n, err, rel = selfcheck.check_calls(cs, dt)[name]
+        bound = selfcheck.bound(name, dt)
+        widths = sorted({tuple(a[0].shape)[-1] for _, a in cs})
+        log(f"    {name:16s} {str(dt)[6:]:8s} {n:4d} calls of this path, first input {tuple(cs[0][1][0].shape)}, "
+            f"last-axis widths {widths}: max_abs_err {err:.3e} rel {rel:.3e} (bound {bound:.1e})")
+        if not rel <= bound:
+            bad.append(f"{name} {dt}")
+    if bad:
+        raise AssertionError(f"{what}: on the path's own inputs these kernels disagree with their plain versions, "
+                             f"or were never called: {bad}")
+
+
+# kernels no fusion serving path launches (Ver14's head proposals aside):
+# FusionUP and Ver31's embeds are plain compositions, nothing trains
+FUSION_ABSENT = ("corr_embed", "decoder", "swin_block_bwd", "class_layer_bwd", "decoder_bwd", "window_attention",
+                 "mlp", "linear_attention")
+
+
+def ver31_serving_phase(smi, _build, images, hws, canvas, names):
+    """Phase 26; returns the model for [28]."""
+    from catseg_tpu_torch import configs
+    from catseg_tpu_torch.infer.pipeline import Predictor
+    from catseg_tpu_torch.kernels import selfcheck
+
+    cfg = configs.eval_preset(configs.fusion_ver31())
+    model, init_s, n_params = build_timed(cfg)
+    log(f"[26] Ver31 fusion_ver31(): RemoteCLIP ViT-B/32 at {cfg.fusion.clip_resolution}^2 + DINO ViT-B/8 at "
+        f"{cfg.fusion.encoder_resolution}^2, eval preset, bf16, T=150; {n_params / 1e6:.1f} M parameters, seeded init "
+        f"+ copy to the card {init_s:.1f} s; {memory_line()}")
+    pred = Predictor(model, cfg, names)
+    pred.preds_sliding_batch(images, hws, canvas)                          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    preds, launches = run_counted(lambda: pred.preds_sliding_batch(images, hws, canvas), _build)
+    log(f"    launches in one 2-image run (10 tiles): {launches}; {memory_line()}")
+    check_launches(launches, ("layer_norm", "dense_attention", "swin_block", "class_layer"), FUSION_ABSENT, "Ver31")
+    preds = check_preds(preds, canvas, len(names))
+    # each kernel on the very inputs this path hands it (#6 without guidance)
+    with selfcheck.recorded_calls() as calls:
+        probs = pred.probs_sliding_batch(images)
+    check_probs(probs, len(names))
+    del probs
+    guided = sum(args[1] is not None or args[2] is not None for name, args in calls if name == "class_layer")
+    log(f"    class layer calls with text guidance: {guided}")
+    if guided:
+        raise AssertionError("Ver31's class layer took text guidance")
+    check_path_calls(calls, "Ver31 sliding", ("layer_norm", "dense_attention", "swin_block", "class_layer"))
+    del calls
+    ips, med = images_per_s(pred, images, hws, canvas)
+    log(f"    {ips:.3f} images/s (median of 3 2-image runs, {med * 1e3:.1f} ms) on {smi}; "
+        f"{len(np.unique(preds.numpy()))} distinct labels")
+    del pred
+    torch.cuda.empty_cache()
+    return model
+
+
+def ver31_parity_phase(image, names) -> None:
+    """Phase 27: fp32 Ver31, one whole-image forward, GPU against the CPU port."""
+    from catseg_tpu_torch.configs import fusion_ver31
+    from catseg_tpu_torch.core.catseg import build_catseg
+    from catseg_tpu_torch.infer.pipeline import Predictor
+
+    log("[27] fp32 parity of fusion_ver31(): one whole-image forward, 20 classes, GPU kernels vs the port on the CPU")
+    cfg = fusion_ver31(compute_dtype="float32")
+    cpu_model = build_catseg(cfg, seed=SEED, device="cpu")
+    gpu = Predictor(copy.deepcopy(cpu_model), cfg, names)
+    p_gpu = gpu.probs_whole(image).cpu()
+    t = time.perf_counter()
+    p_cpu = Predictor(cpu_model, cfg, names, device="cpu").probs_whole(image)
+    d = (p_gpu - p_cpu).abs()
+    log(f"    probs {tuple(p_gpu.shape)} in [{p_gpu.min().item():.4f}, {p_gpu.max().item():.4f}]: max|d prob| "
+        f"{d.max().item():.3e} (bound {PROB_BOUND:.0e})  mean {d.mean().item():.3e}; the CPU's forward "
+        f"{time.perf_counter() - t:.1f} s")
+    if p_gpu.shape != (96, 96, len(names)) or not d.max().item() < PROB_BOUND:
+        raise AssertionError("fp32 Ver31 on the GPU disagrees with the CPU port")
+    del gpu, cpu_model
+    torch.cuda.empty_cache()
+
+
+def ver31_topk_phase(smi, _build, model, images, hws, canvas) -> None:
+    """Phase 28: Ver31 over ADE-847's names."""
+    from catseg_tpu_torch import configs
+    from catseg_tpu_torch.infer.pipeline import Predictor
+
+    log("[28] Ver31 top-k path: 847 ADE-full names (each volume its own top-k, pad_len 256), bf16")
+    names847 = configs.class_names("ade847")
+    pred = Predictor(model, model.cfg, names847)
+    pred.preds_sliding_batch(images, hws, canvas)
+    preds, launches = run_counted(lambda: pred.preds_sliding_batch(images, hws, canvas), _build)
+    log(f"    launches in one 2-image run: {launches}")
+    check_launches(launches, ("layer_norm", "dense_attention", "swin_block", "class_layer"), FUSION_ABSENT,
+                   "Ver31 T=847")
+    check_preds(preds, canvas, len(names847))
+    check_probs(pred.probs_sliding_batch(images), len(names847))
+    ips, med = images_per_s(pred, images, hws, canvas)
+    log(f"    {ips:.3f} images/s at T=847 (median of 3 2-image runs, {med * 1e3:.1f} ms) on {smi}")
+    del pred
+    torch.cuda.empty_cache()
+
+
+@torch.no_grad()
+def livelier_sam_(model, seed: int):
+    """The mask decoder's and prompt encoder's weights x5 and the SAM
+    encoder's rel-pos tables drawn N(0, 0.02) from ``seed`` (the seeded
+    init leaves them 0), so refined logits are O(1) and the rel-pos terms
+    run."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in model.named_parameters():
+        if name.startswith(("sam_decoder.", "sam_prompt_encoder.mask")) and p.ndim >= 2:
+            p.mul_(5.0)
+        elif name.startswith("sam_encoder.") and "rel_pos" in name:
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    return model
+
+
+def ver14_phase(smi, _build, images, hws, canvas, names) -> None:
+    """Phase 29: Ver14 sliding (raw-corr proposals), the head proposals'
+    whole-image path, and fp32 parity."""
+    import dataclasses
+
+    from catseg_tpu_torch import configs
+    from catseg_tpu_torch.core.catseg import build_catseg
+    from catseg_tpu_torch.infer.pipeline import Predictor
+    from catseg_tpu_torch.kernels import selfcheck
+
+    cfg = configs.eval_preset(configs.fusion_ver14())
+    model, init_s, n_params = build_timed(cfg)
+    log(f"[29] Ver14 fusion_ver14(): CLIP ViT-B/16 at {cfg.fusion.clip_resolution}^2 + SAM ViT-B at "
+        f"{cfg.fusion.encoder_resolution}^2, refine_from={cfg.fusion.refine_from!r}, eval preset, bf16, T=150; "
+        f"{n_params / 1e6:.1f} M parameters, seeded init + copy to the card {init_s:.1f} s; {memory_line()}")
+    pred = Predictor(model, cfg, names)
+    pred.preds_sliding_batch(images, hws, canvas)
+    torch.cuda.reset_peak_memory_stats()
+    preds, launches = run_counted(lambda: pred.preds_sliding_batch(images, hws, canvas), _build)
+    log(f"    launches in one 2-image run (10 tiles): {launches}; {memory_line()}")
+    check_launches(launches, ("layer_norm", "dense_attention"),
+                   ("swin_block", "class_layer") + FUSION_ABSENT, "Ver14 raw_corr")
+    # every call of that run again, each held against its plain version on
+    # its own inputs (#1 at 768 in CLIP and SAM, 256 in the mask decoder)
+    with selfcheck.recorded_calls() as calls:
+        pred.preds_sliding_batch(images, hws, canvas)
+    check_path_calls(calls, "Ver14 raw_corr sliding", ("layer_norm", "dense_attention"))
+    del calls
+    preds = check_preds(preds, canvas, len(names))
+    check_probs(pred.probs_sliding_batch(images), len(names))
+    ips, med = images_per_s(pred, images, hws, canvas)
+    log(f"    {ips:.3f} images/s (median of 3 2-image runs, {med * 1e3:.1f} ms) on {smi}; "
+        f"{len(np.unique(preds.numpy()))} distinct labels")
+    del pred, model
+    torch.cuda.empty_cache()
+
+    head = configs.fusion_ver14(fusion=dataclasses.replace(cfg.fusion, refine_from="head"))
+    pred = Predictor(build_catseg(head, seed=SEED), head, names)
+    pred.predict_argmax(images[0])
+    t = time.perf_counter()
+    labels, wl = run_counted(lambda: pred.predict_argmax(images[0]), _build)
+    ms = (time.perf_counter() - t) * 1e3
+    log(f"    refine_from='head', whole-image predict_argmax (pooling 2x2): {ms:.1f} ms with the launch count; "
+        f"launches {wl}")
+    check_launches(wl, _build.FORWARD, _build.BACKWARD + _build.UNFUSED, "Ver14 head")
+    if labels.shape != images[0].shape[:2] or labels.min() < 0 or labels.max() >= len(names):
+        raise AssertionError(f"Ver14 head labels {labels.shape} in [{labels.min()}, {labels.max()}]")
+    with selfcheck.recorded_calls() as calls:
+        pred.predict_argmax(images[0])
+    check_path_calls(calls, "Ver14 head whole image", _build.FORWARD)
+    del calls
+    del pred
+    torch.cuda.empty_cache()
+
+    cfg32 = configs.fusion_ver14(compute_dtype="float32")
+    cpu_model = livelier_sam_(build_catseg(cfg32, seed=SEED, device="cpu"), SEED + 7)
+    gpu = Predictor(copy.deepcopy(cpu_model), cfg32, names[:8])
+    with torch.inference_mode():
+        logits = gpu.model(gpu._image(images[1])[None, :384, :384], gpu.text_feats, cfg32)
+    p_gpu = gpu.probs_whole(images[1]).cpu()
+    t = time.perf_counter()
+    p_cpu = Predictor(cpu_model, cfg32, names[:8], device="cpu").probs_whole(images[1])
+    d = (p_gpu - p_cpu).abs()
+    log(f"    fp32 raw-corr whole image, T=8: refined logits of a tile in [{logits.min().item():.2f}, "
+        f"{logits.max().item():.2f}]; probs {tuple(p_gpu.shape)}: max|d prob| {d.max().item():.3e} (bound "
+        f"{PROB_BOUND:.0e})  mean {d.mean().item():.3e}; the CPU's forward {time.perf_counter() - t:.1f} s")
+    if p_gpu.shape != (256, 256, 8) or not d.max().item() < PROB_BOUND:
+        raise AssertionError("fp32 Ver14 on the GPU disagrees with the CPU port")
+    del gpu, cpu_model
+    torch.cuda.empty_cache()
+
+
+def fusion_converter_phase(smi) -> None:
+    """Phase 30: seeded Ver31 / Ver14 checkpoints through the converter, then
+    tools.eval --config fusion_ver31 in its own process."""
+    from catseg_tpu_torch import configs
+    from catseg_tpu_torch.core.catseg import init_catseg_, model_class
+    from catseg_tpu_torch.weights import convert
+
+    log("[30] fusion checkpoints ({'model': sd}, the fork's key names) through the converter; tools.eval "
+        "--config fusion_ver31 --limit 2 on the fixture set")
+    with tempfile.TemporaryDirectory() as tmp:
+        for preset in ("fusion_ver31", "fusion_ver14"):
+            cfg = getattr(configs, preset)()
+            sd = init_catseg_(model_class(cfg)(cfg), SEED + 5).state_dict()
+            path = str(Path(tmp) / f"{preset}.pth")
+            torch.save({"model": sd}, path)
+            t = time.perf_counter()
+            back = convert.convert_catseg_checkpoint(convert.load_torch_checkpoint(path), cfg.num_layers)
+            same = set(back) == set(sd) and all(torch.equal(back[k], v) for k, v in sd.items())
+            log(f"    {preset}: {len(sd)} tensors, {Path(path).stat().st_size / 2**30:.2f} GiB file; read and "
+                f"converted in {time.perf_counter() - t:.1f} s; bit-equal to the model it came from {same}")
+            if not same:
+                raise AssertionError(f"the converted {preset} checkpoint differs from its source")
+            del sd, back
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "catseg_tpu_torch.tools.eval", "--config", "fusion_ver31",
+                          "--benchmarks", "ade150", "--data-root", str(FIXTURES / "dataset"), "--limit", "2"],
+                         capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("copypaste")]
+    log(f"    tools.eval exit code {res.returncode} in {time.perf_counter() - t:.1f} s: {line} on {smi}")
+    if res.returncode != 0 or not line:
+        raise AssertionError(f"tools.eval --config fusion_ver31 failed: {res.stderr[-2000:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -1290,6 +1575,14 @@ def main() -> int:
     log("[24] train step, vitl336() at full width (bf16, pooling 2x2, fused decoder), B=4, T=171, 384^2 crops")
     train_step_phase(dev, smi, _build, vitl336(), _build.FORWARD + _build.BACKWARD, _build.UNFUSED)
     converter_phase(smi, _build)
+
+    ver31 = ver31_serving_phase(smi, _build, images, hws, canvas, names)
+    ver31_parity_phase(images[1], names[:20])
+    ver31_topk_phase(smi, _build, ver31, images, hws, canvas)
+    del ver31
+    torch.cuda.empty_cache()
+    ver14_phase(smi, _build, images, hws, canvas, names)
+    fusion_converter_phase(smi)
 
     kernels = []
     for name, route, source, replaces in selfcheck.KERNELS:

@@ -115,10 +115,17 @@ def test_layer_count_mismatch_raises(params):
 @pytest.mark.parametrize("key", ["sem_seg_head.predictor.transformer.fusion_corr.weight",
                                  "dino_model.blocks.0.norm1.weight", "sam_encoder.blocks.0.norm1.weight"])
 def test_fusion_checkpoint_raises_naming_a8(params, key):
-    sd = _torch(released(params, fused=False))
-    sd[key] = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="A8"):
-        convert.convert_catseg_checkpoint(sd)
+    """A fusion module's key in a plain checkpoint makes it a fusion
+    checkpoint (converted since the fusion families were ported: bit-equal
+    round trips in tests/test_torch_fusion.py); the fusion modules it lacks
+    raise KeyError, as catseg_tpu's converter does."""
+    sd = released(params, fused=False)
+    sd[key] = np.zeros(4, np.float32)
+    with pytest.raises(KeyError) as want:
+        jconvert.convert_catseg_checkpoint(sd)
+    with pytest.raises(KeyError) as got:
+        convert.convert_catseg_checkpoint(_torch(sd))
+    assert type(got.value) is type(want.value)
 
 
 @pytest.fixture(scope="module")

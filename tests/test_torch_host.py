@@ -26,7 +26,7 @@ from catseg_tpu_torch.weights.export import export_catseg_checkpoint as t_export
 
 from test_torch_aggregator import mini_cfg
 
-PRESETS = ["vitb384", "vitl336", "vith336", "vitg336"]
+PRESETS = ["vitb384", "vitl336", "vith336", "vitg336", "fusion_ver31", "fusion_ver14"]
 BENCHMARKS = sorted(p.stem for p in (Path(catseg_tpu.__file__).parent / "data" / "class_jsons").glob("*.json"))
 
 
@@ -82,5 +82,10 @@ def test_export_matches_jax():
 
 
 def test_export_refuses_fusion_pytrees():
-    with pytest.raises(NotImplementedError, match="fusion"):
+    """The exporter takes the fork's fusion pytrees now (their round trips:
+    tests/test_torch_fusion.py); an incomplete one raises as catseg_tpu's."""
+    with pytest.raises(KeyError) as want:
+        j_export({"dino": {}, "agg": {}})
+    with pytest.raises(KeyError) as got:
         t_export({"dino": {}, "agg": {}})
+    assert str(got.value) == str(want.value)

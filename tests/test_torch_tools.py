@@ -143,8 +143,7 @@ def _leaves(tree):
 def test_presets_and_refusals():
     assert common.resolve_config("vitb384", ["batch_size=2", "compute_dtype=float32"]) == tconfigs.vitb384(
         batch_size=2, compute_dtype="float32")
-    with pytest.raises(NotImplementedError, match="A8"):
-        common.resolve_config("fusion_ver31", [])
+    assert common.resolve_config("fusion_ver31", []) == tconfigs.fusion_ver31()
     with pytest.raises(SystemExit):
         common.resolve_config("nope", [])
 

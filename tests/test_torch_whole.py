@@ -140,7 +140,7 @@ def test_whole_image_probs_matches_reference_composition(params):
         feats, guid = model.guidance_features(t_in)
         want = torch.sigmoid(aggregator_forward(model.agg, feats, text[None], guid, cfg)[0]).permute(1, 2, 0)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5, rtol=1e-4)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="fusion"):   # a fusion config needs its fusion model
         whole_image_probs_padded(model, torch.from_numpy(img), text, cfg.replace(fusion=FusionConfig()))
 
 
