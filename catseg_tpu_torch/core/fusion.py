@@ -28,12 +28,17 @@ for Ver14's head proposals, the corr embed #3 and decoder #8, all through
 the port's routes.  Ver31's two embeds, its FusionUP decoder, DINO's and
 SAM's attention and the mask decoder are the reference's plain compositions
 (the reference runs no kernel there either); their LayerNorms take #1.
+Under autograd (train/loop.py) the Swin pair and class layer backwards
+are #5 and #7 (Ver31's class layers unguided), and for head proposals
+the decoder's #9; the FusionUP decoder, the embeds and the mask decoder
+take autograd through their plain compositions.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..configs import CATSegConfig
 from ..kernels.decoder import guidance_planes, up_tail
@@ -215,14 +220,20 @@ def _nearest_index(in_size: int, out_size: int) -> torch.Tensor:
 
 
 def sam_mask_refine(pe: PromptEncoder, dec: MaskDecoder, coarse_logits: torch.Tensor, sam_feat: torch.Tensor,
-                    chunk: int = 16) -> torch.Tensor:
+                    chunk: int = 16, recompute: bool = True) -> torch.Tensor:
     """Ver14 refinement (implicit_fusion_Ver14.py:368-398): coarse logits (B, T,
     h, w), NEAREST-upsampled to the 4 gh x 4 gw prompt grid, are each a mask
     prompt for the mask decoder against the SAM embedding (B, gh, gw, 256) ->
     (B, T, 4 gh, 4 gw) refined logits.  Classes go ``max(1, chunk // B)`` per
     image per step, as the reference's scan, so the embedding is repeated
     chunk-fold (never T-fold); the class axis is zero-padded to whole steps
-    and stripped."""
+    and stripped.
+
+    Under autograd with ``recompute`` each step is a non-reentrant
+    ``torch.utils.checkpoint``: the backward runs the step's forward again
+    instead of keeping its activations (~100 MB an instance at SAM ViT-B,
+    ~70 GB for a train step's 684 instances), which changes no number.
+    Without autograd (serving) the steps run as plain calls."""
     B, T, h, w = coarse_logits.shape
     gh, gw = sam_feat.shape[1:3]
     dev = coarse_logits.device
@@ -234,13 +245,18 @@ def sam_mask_refine(pe: PromptEncoder, dec: MaskDecoder, coarse_logits: torch.Te
     if Tp != T:
         prompts = torch.cat([prompts, prompts.new_zeros(B, Tp - T, 4 * gh, 4 * gw)], dim=1)
     feats = sam_feat.repeat_interleave(cpi, dim=0)                    # row b * cpi + c -> image b
+
+    def refine(pr):
+        dense = pe.embed_masks(pr)
+        sparse = dense.new_zeros(B * cpi, 0, dense.shape[-1])
+        return dec(feats, pe_grid, sparse, dense)[0][:, 0]
+
+    recompute = recompute and torch.is_grad_enabled()
     out = []
     for s in range(0, Tp, cpi):
         pr = prompts[:, s:s + cpi].reshape(B * cpi, 4 * gh, 4 * gw, 1)
-        dense = pe.embed_masks(pr)
-        sparse = dense.new_zeros(B * cpi, 0, dense.shape[-1])
-        masks, _ = dec(feats, pe_grid, sparse, dense)
-        out.append(masks[:, 0].reshape(B, cpi, *masks.shape[2:]))
+        masks = torch.utils.checkpoint.checkpoint(refine, pr, use_reentrant=False) if recompute else refine(pr)
+        out.append(masks.reshape(B, cpi, *masks.shape[1:]))
     return torch.cat(out, dim=1)[:, :T]
 
 
@@ -255,15 +271,21 @@ class SAMRefineCATSeg(CATSeg):
         self.sam_encoder = SAMEncoder(svar)
         self.sam_prompt_encoder = PromptEncoder(svar.out_chans)
         self.sam_decoder = MaskDecoder(svar.out_chans)
+        # checkpoint each refinement step under autograd (sam_mask_refine)
+        self.recompute_refinement = True
 
     def forward(self, images: torch.Tensor, text_feats: torch.Tensor, cfg: CATSegConfig | None = None,
-                normalized: bool = False, second_images: torch.Tensor | None = None) -> torch.Tensor:
+                normalized: bool = False, second_images: torch.Tensor | None = None, with_coarse: bool = False):
         """images (B, H, W, 3) raw RGB (CLIP-normalized with ``normalized``)
-        -> (B, T, 256, 256) fp32 refined logits.  The SAM input is the
-        CLIP-normalized image, not a SAM-normalized one
-        (implicit_fusion_Ver14.py:274).  For T > pad_len the top-k classes
-        are refined and the rest get -100 (the reference's own pad_len
-        branch cannot run: catseg_tpu's documented divergence)."""
+        -> (B, T, 256, 256) fp32 refined logits; with ``with_coarse``,
+        ``(coarse, refined)``: the proposals too (fp32: the aggregator's
+        (B, T, 96, 96) logits, or the template-averaged (B, T, 24, 24) cost),
+        as the training branch supervises both (implicit_fusion_Ver14.py:
+        413-415).  The SAM input is the CLIP-normalized image, not a
+        SAM-normalized one (implicit_fusion_Ver14.py:274).  For T > pad_len
+        the top-k classes are refined and the rest get -100 in both outputs
+        (the reference's own pad_len branch cannot run: catseg_tpu's
+        documented divergence)."""
         cfg = self.cfg if cfg is None else cfg
         fus = cfg.fusion
         dt = compute_dtype(cfg)
@@ -284,8 +306,13 @@ class SAMRefineCATSeg(CATSeg):
             raise ValueError(f"unknown refine_from {fus.refine_from!r}")
         sam_feat = self.sam_encoder(sam_images.to(dt), compute_dtype=dt)
         refined = sam_mask_refine(self.sam_prompt_encoder, self.sam_decoder, coarse.to(dt), sam_feat,
-                                  fus.refine_chunk).float()
-        return refined if classes is None else scatter_full_logits(refined, classes, T)
+                                  fus.refine_chunk, recompute=self.recompute_refinement).float()
+        if classes is not None:
+            refined = scatter_full_logits(refined, classes, T)
+        if not with_coarse:
+            return refined
+        coarse = coarse.float()
+        return (coarse if classes is None else scatter_full_logits(coarse, classes, T)), refined
 
     @torch.no_grad()
     def _init_extra_(self, gen: torch.Generator) -> None:

@@ -46,6 +46,13 @@ def dense_pe(gauss: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     return pe_encode(torch.from_numpy(coords).to(gauss.device), gauss)
 
 
+def no_mask_embed(pe: "PromptEncoder", size: tuple[int, int]) -> torch.Tensor:
+    """(1, h, w, C) dense prompt of a query without a mask prompt: the
+    no-mask embedding at every cell (prompt_encoder.py:160-162)."""
+    w = pe.no_mask_embed.weight
+    return w.reshape(1, 1, 1, -1).expand(1, size[0], size[1], w.shape[-1])
+
+
 class PromptEncoder(nn.Module):
     def __init__(self, dim: int = 256):
         super().__init__()

@@ -32,10 +32,11 @@ one refuses, and elsewhere launches exactly the called kernels and agrees
 with the CPU.
 
 :func:`recorded_calls` records every call the port makes to a forward
-kernel's wrapper while a path runs, and :func:`check_calls` holds each
-recorded call's kernel against its plain version (``FORWARD_PAIRS``) on the
-same inputs: chip_smoke.py [15] checks the whole-image branch's kernels at
-the very shapes and values that path hands them.
+kernel's wrapper while a path runs (and, asked, to a backward kernel's),
+and :func:`check_calls` holds each recorded call's kernel against its plain
+version (``FORWARD_PAIRS``, ``BACKWARD_PAIRS``) on the same inputs:
+chip_smoke.py [15] checks the whole-image branch's kernels at the very
+shapes and values that path hands them, [31] a train step's.
 
 A backward case's thunks return a dict of every gradient it produces (dx,
 the guidance or pad cotangents, each parameter's); the plain version there is
@@ -428,19 +429,36 @@ FORWARD_PAIRS = {
 }
 
 
+# each backward kernel's wrapper, its plain version (autograd through the
+# plain forward), and the names of the tensors before the parameters' dict
+BACKWARD_PAIRS = {
+    "swin_block_bwd": (swin_block.swin_block_backward, swin_block.swin_block_backward_plain, ("dx", "dqg", "dkg")),
+    "class_layer_bwd": (class_layer.class_layer_backward, class_layer.class_layer_backward_plain,
+                        ("dx", "dqg", "dkg", "dpad_kv", "dpad_ksum")),
+    "decoder_bwd": (decoder.decoder_backward, decoder.decoder_backward_plain, ("dx", "dhg1", "dhg2")),
+}
+
+
 def _cloned(a):
     if isinstance(a, torch.Tensor):
-        return a.clone()
+        return a.detach().clone()
+    if isinstance(a, dict):
+        return {k: _cloned(v) for k, v in a.items()}
     return type(a)(_cloned(t) for t in a) if isinstance(a, (tuple, list)) else a
 
 
 @contextlib.contextmanager
-def recorded_calls():
+def recorded_calls(backward: bool = False):
     """Yields a list that receives ``(name, args)`` for every call any module
-    of the port makes to a ``FORWARD_PAIRS`` wrapper inside the block, its
-    tensors cloned; the wrappers run as ever and are restored on exit."""
+    of the port makes to a ``FORWARD_PAIRS`` wrapper inside the block (and
+    with ``backward`` to a ``BACKWARD_PAIRS`` one, from the kernels'
+    autograd Functions), its tensors cloned; the wrappers run as ever and
+    are restored on exit."""
+    pairs = {name: pair[0] for name, pair in FORWARD_PAIRS.items()}
+    if backward:
+        pairs.update({name: pair[0] for name, pair in BACKWARD_PAIRS.items()})
     calls, patched = [], []
-    for name, (wrapper, _) in FORWARD_PAIRS.items():
+    for name, wrapper in pairs.items():
         def record(*a, _name=name, _wrapper=wrapper):
             calls.append((_name, _cloned(a)))
             return _wrapper(*a)
@@ -458,14 +476,21 @@ def recorded_calls():
 
 
 def check_calls(calls, dtype: torch.dtype) -> dict[str, tuple[int, float, float]]:
-    """{name: (calls, worst max abs error, worst error / max(1, max |plain|))}
-    of recorded calls, each kernel call against its plain version on the
-    same inputs; the caller judges the second against :func:`bound`."""
+    """{name: (calls, worst max abs error, worst judged error)} of recorded
+    calls, each kernel call against its plain version on the same inputs: a
+    forward output's error / max(1, max |plain|), a backward's worst relative
+    Frobenius error over its gradients (:func:`rel_err`); the caller judges
+    the third against :func:`bound`."""
     out = {}
-    with torch.inference_mode():
-        for name, args in calls:
+    for name, args in calls:
+        if name in BACKWARD_PAIRS:
+            wrapper, plain, names = BACKWARD_PAIRS[name]
+            with torch.no_grad():
+                err, rel = rel_err(_grads(names, wrapper(*args)), _grads(names, plain(*args)))
+        else:
             wrapper, plain = FORWARD_PAIRS[name]
-            err, rel = rel_err(wrapper(*args), plain(*args))
-            n, e0, r0 = out.get(name, (0, 0.0, 0.0))
-            out[name] = (n + 1, max(e0, err), max(r0, rel))
+            with torch.inference_mode():
+                err, rel = rel_err(wrapper(*args), plain(*args))
+        n, e0, r0 = out.get(name, (0, 0.0, 0.0))
+        out[name] = (n + 1, max(e0, err), max(r0, rel))
     return out

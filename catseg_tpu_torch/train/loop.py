@@ -6,9 +6,12 @@ CLIP towers into their q/v projection weights.  Frozen parameters carry
 ``requires_grad=False`` (the JAX step's stop_gradient), so their weight
 gradients are never formed and the clip never sees them.
 
-Not ported (each raises rather than running something else): data
-parallelism over a device mesh (ROADMAP A9) and the fusion families'
-training (ROADMAP, fusion training).
+The fusion families train as catseg_tpu's step does: Ver31 with one BCE
+on its logits (DINO frozen), Ver14 with the sum of the BCEs of its coarse
+proposals and its refined masks (the SAM encoder frozen).
+
+Not ported (it raises rather than running something else): data
+parallelism over a device mesh (ROADMAP A6 / A9).
 """
 
 from __future__ import annotations
@@ -43,39 +46,38 @@ class TrainState:
     step: int = 0
 
 
-def _single_device_only(cfg: CATSegConfig, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("training over a device mesh (data parallelism) is not ported yet "
-                                  "(ROADMAP A9)")
-    if cfg.fusion is not None:
-        raise NotImplementedError("the fusion families' training is not ported yet (ROADMAP, fusion training)")
-
-
 def init_train_state(cfg: CATSegConfig, *, seed: int | None = None, params: dict | None = None,
                      device="cuda") -> TrainState:
-    """Model (seeded random weights, or a catseg_tpu parameter pytree) on
-    ``device`` with the recipe's optimizer; raises without a GPU unless
-    ``device="cpu"``."""
-    _single_device_only(cfg, None)
+    """Model (``cfg``'s :func:`~..core.catseg.model_class`, seeded random
+    weights or a catseg_tpu parameter pytree) on ``device`` with the
+    recipe's optimizer; raises without a GPU unless ``device="cpu"``."""
     model = build_catseg(cfg, seed=seed, params=params, device=device).train()
     return TrainState(model=model, optimizer=TrainOptimizer(cfg, model))
 
 
 def train_loss(cfg: CATSegConfig, model: CATSeg, tokens: torch.Tensor, images: torch.Tensor,
                targets: torch.Tensor) -> torch.Tensor:
-    """Text re-encode with L2 norm, forward, BCE: the step's loss (with grad)."""
+    """Text re-encode with L2 norm, forward, BCE: the step's loss (with grad).
+    Ver14 (``fusion.mode == "sam_refine"``) supervises both its proposals and
+    its refined masks with the same BCE and sums the two
+    (implicit_fusion_Ver14.py:413-415)."""
     dt = compute_dtype(cfg)
     emb = encode_text(model.clip, tokens, compute_dtype=dt)
     emb = emb / torch.linalg.vector_norm(emb.float(), dim=-1, keepdim=True).to(emb.dtype)
-    logits = model(images.float(), emb[:, None, :])
-    return bce_loss(logits, targets.long(), cfg.ignore_value, tuple(targets.shape[1:3]))
+    targets, hw = targets.long(), tuple(targets.shape[1:3])
+    if cfg.fusion is not None and cfg.fusion.mode == "sam_refine":
+        coarse, refined = model(images.float(), emb[:, None, :], with_coarse=True)
+        return bce_loss(coarse, targets, cfg.ignore_value, hw) + bce_loss(refined, targets, cfg.ignore_value, hw)
+    return bce_loss(model(images.float(), emb[:, None, :]), targets, cfg.ignore_value, hw)
 
 
 def make_train_step(cfg: CATSegConfig, optimizer: TrainOptimizer, text_tokens: np.ndarray, mesh=None):
     """Returns step(model, images, targets) -> loss: forward, backward, the
     clip and the AdamW update.  text_tokens: (T, 77) token ids of the train
     class list, cut to the longest prompt's context once here."""
-    _single_device_only(cfg, mesh)
+    if mesh is not None:
+        raise NotImplementedError("training over a device mesh (data parallelism) is not ported yet "
+                                  "(ROADMAP A6 / A9)")
     tokens = np.ascontiguousarray(truncate_context(np.asarray(text_tokens)), dtype=np.int64)
     on_device = {}
 

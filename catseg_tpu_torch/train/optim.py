@@ -8,6 +8,13 @@ global-norm gradient clip at 0.01 over the trainable parameters only,
 applied before the update (FullModelGradientClippingOptimizer).  Labels are
 computed from the port's parameter names, which are the released
 checkpoints' keys.
+
+The fusion families (catseg_tpu/train/optim.py): the second encoders
+(``dino_model``, ``sam_encoder``) are frozen, as are the SAM prompt
+encoder's point / not-a-point / no-mask embeddings and Fourier matrix and
+the mask decoder's IoU head (implicit_fusion_Ver14.py:32-43); Ver31's
+``dino_down_sample`` and ``dino_decod_proj{1,2}`` train.  The SAM modules'
+norms and the decoder's output tokens take no decay.
 """
 
 from __future__ import annotations
@@ -20,8 +27,19 @@ from ..configs import CATSegConfig
 
 CLIP_PREFIX = "sem_seg_head.predictor.clip_model."
 # modules whose parameters are norm gains / biases: LayerNorms of the CLIP
-# and swin / class blocks, the GroupNorms at indices 1 and 4 of each DoubleConv
-_NORM_MODULES = (".norm1", ".norm2", ".guidance_norm", ".ln_1", ".ln_2", ".ln_pre", ".ln_post", "ln_final")
+# and swin / class blocks, the GroupNorms at indices 1 and 4 of each
+# DoubleConv, and the SAM mask decoder's and prompt encoder's LayerNorms
+_NORM_MODULES = (".norm1", ".norm2", ".guidance_norm", ".ln_1", ".ln_2", ".ln_pre", ".ln_post", "ln_final",
+                 ".norm3", ".norm4", ".norm_final_attn", "mask_downscaling.1", "mask_downscaling.4",
+                 "output_upscaling.1")
+# nn.Embedding weights in the reference (no decay): CLIP's token embedding,
+# the mask decoder's IoU and mask output tokens
+_EMBEDDINGS = ("token_embedding", "sam_decoder.iou_token.", "sam_decoder.mask_tokens.")
+# frozen in every fusion variant: the second encoders, the prompt encoder's
+# fixed embeddings and Fourier matrix, the mask decoder's IoU head
+_FUSION_FROZEN = ("dino_model.", "sam_encoder.", "sam_prompt_encoder.point_embeddings.",
+                  "sam_prompt_encoder.not_a_point_embed.", "sam_prompt_encoder.no_mask_embed.",
+                  "sam_prompt_encoder.pe_layer.", "sam_decoder.iou_prediction_head.")
 LABELS = ("main", "main_nodecay", "clip", "clip_nodecay", "frozen")
 
 
@@ -34,8 +52,10 @@ def _is_norm(name: str) -> bool:
 def label_for_name(name: str, clip_finetune: str) -> str:
     """The optimizer group of a parameter (the JAX package's _label_for_path)."""
     def with_decay(base: str) -> str:
-        return base + "_nodecay" if _is_norm(name) or "token_embedding" in name else base
+        return base + "_nodecay" if _is_norm(name) or any(e in name for e in _EMBEDDINGS) else base
 
+    if name.startswith(_FUSION_FROZEN):
+        return "frozen"
     if not name.startswith(CLIP_PREFIX):
         return with_decay("main")
     inside_transformer = ".resblocks." in name

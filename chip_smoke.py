@@ -145,7 +145,9 @@ Phases (any failure raises and the script exits non-zero):
    finite losses in metrics.json, every forward and backward kernel
    launched, model_final.pth written; then tools.eval --checkpoint of it
    scores the 4 images.  Host ms a batch of 4 of the mapper on 480x640
-   JPEGs and label maps, median of 10.
+   JPEGs and label maps, median of 10.  Then tools.train --config
+   fusion_ver31 for 2 steps: model_final.pth written, the Ver31 step's
+   kernels launched.
 22. The larger encoder tiers at full width and depth, seeded random weights
    (seed 0), eval_preset, bf16, T = 150 on phase 4's two images:
    vitl336() (CAT-Seg (L), CLIP ViT-L/14@336), vith336() (open_clip
@@ -205,6 +207,32 @@ Phases (any failure raises and the script exits non-zero):
    converted bit-equal to their sources; then python -m
    catseg_tpu_torch.tools.eval --config fusion_ver31 --limit 2 on the
    fixture set must exit 0.
+31. The Ver31 train step: fusion_ver31() at full width and depth (bf16,
+   pooling 2x2, DINO and CLIP outside q/v frozen), B = 4, T = 171, as [8]:
+   seeded init seconds, one counted warm-up step (#1, #2, #4, #5, #6, #7
+   launched; #8, #9 and the unfused stages' never), ms/step over 10 steps
+   and the allocator's peak; then one step with every forward and
+   backward kernel call recorded, each class layer call (#6, #7) without
+   text guidance, and each held against its plain version on its own
+   inputs at [3]'s bound; frozen tensors bit-equal, > 90% of the
+   trainable ones moved.
+32. The Ver14 train step: fusion_ver14() (raw-corr proposals, SAM frozen,
+   each of the 43 refinement steps of 16 mask-decoder instances
+   recomputed in the backward), the same batch: launches (#1, #2; no
+   aggregator kernel), ms/step over 5 steps, peak and init; the SAM
+   encoder, the IoU head, the point / not-a-point / no-mask embeddings
+   and the Fourier matrix frozen and bit-equal, every tensor of the prompt
+   encoder's mask downscaling and of the decoder's transformer moved.
+33. [9] for both families at full width: fp32, 1 crop, 8 classes, GPU
+   against the port on the CPU (Ver14 at refine_chunk 8 with the mask
+   decoder x5); loss within 1e-5 relative, every gradient within 1e-3 of
+   max |g_cpu|, frozen weights bit-equal after one update.
+34. The SAM tools at SAM ViT-B (1024^2, fp32, seeded, mask decoder x5) on
+   tests/torch_fixtures/images/photo_420.jpg: SamPredictor.set_image (must
+   launch #1) and predict for a point, a box and a mask prompt (ms,
+   medians), the point prompt's low-res logits within 5e-4 of the port on
+   the CPU; AutomaticMaskGenerator(points_per_side=32).generate on the
+   predictor's canvas (s, median of 3; its record count).
 
 Phase [3] also gives each call under 1 ms a device time: 20 calls captured
 in one CUDA graph, timed over its replays (no host launch path inside),
@@ -400,58 +428,90 @@ def synthetic_batch(B: int, T: int, seed: int):
 TRAIN_STEPS = 20   # timed train steps after the warm-up, [8] and [12]
 
 
-def train_step_phase(dev, smi, _build, cfg, expect, absent) -> dict:
-    """Phases 8 and 12: one counted step (every kernel in ``expect`` launched,
-    none in ``absent``), TRAIN_STEPS timed steps; returns the counted step's
-    launches."""
+def train_step_phase(dev, smi, _build, cfg, expect, absent, steps: int = TRAIN_STEPS, check_calls=None,
+                     must_move=None, must_freeze=None) -> dict:
+    """Phases 8, 12, 24, 31 and 32: the seeded train state (timed), one
+    counted step (every kernel in ``expect`` launched, none in ``absent``),
+    ``steps`` timed steps and the allocator's peak over them; with
+    ``check_calls`` one more step whose every kernel call, forward and
+    backward, goes to ``check_calls(calls)``.  Frozen parameters stay
+    bit-equal (every one ``must_freeze(name)`` picks must be frozen); more
+    than 90% of the trainable ones move, or every one ``must_move(name)``
+    picks.  Returns the counted step's launches."""
     from catseg_tpu_torch.configs import class_names
+    from catseg_tpu_torch.kernels import selfcheck
     from catseg_tpu_torch.train.loop import class_tokens, init_train_state, make_train_step
 
     names = class_names("coco")
+    t0 = time.perf_counter()
     state = init_train_state(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     model, opt = state.model, state.optimizer
     step = make_train_step(cfg, opt, class_tokens(names))
     images, targets = (t.to(dev) for t in synthetic_batch(4, len(names), SEED))
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
     loss, counts = run_counted(lambda: step(model, images, targets), _build)
     log(f"    warm-up step: loss {loss.item():.6f}, launches {counts}")
     if not torch.isfinite(loss) or min(counts[k] for k in expect) == 0 or any(counts[k] for k in absent):
         raise AssertionError("train step: non-finite loss, a kernel of the path never launched, or one "
                              f"of {absent} did")
-    steps = []
-    for _ in range(TRAIN_STEPS):
+    times = []
+    for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = step(model, images, targets)
         torch.cuda.synchronize()
-        steps.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(steps)
-    log(f"    {ms:.1f} ms/step median, min {min(steps):.1f}, max {max(steps):.1f} ({TRAIN_STEPS} steps after the "
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    log(f"    {ms:.1f} ms/step median, min {min(times):.1f}, max {max(times):.1f} ({steps} steps after the "
         f"warm-up), {4e3 / ms:.3f} images/s on {smi}; last loss {loss.item():.6f}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; seeded init + copy to the card {init_s:.1f} s")
+    if check_calls is not None:
+        with selfcheck.recorded_calls(backward=True) as calls:
+            step(model, images, targets)
+        check_calls(calls)
+        del calls
     frozen = [n for n, lbl in opt.labels.items() if lbl == "frozen"]
     trainable = [n for n, lbl in opt.labels.items() if lbl != "frozen"]
     params = dict(model.named_parameters())
     changed = [n for n in frozen if not torch.equal(params[n], start[n])]
-    moved = sum(not torch.equal(params[n], start[n]) for n in trainable)
-    log(f"    {len(frozen)} frozen tensors, {len(changed)} changed; {moved} of {len(trainable)} trainable moved")
-    if changed or moved <= 0.9 * len(trainable):
+    moved = {n for n in trainable if not torch.equal(params[n], start[n])}
+    log(f"    {len(frozen)} frozen tensors, {len(changed)} changed; {len(moved)} of {len(trainable)} trainable moved")
+    if changed or (must_move is None and len(moved) <= 0.9 * len(trainable)):
         raise AssertionError(f"train step: frozen changed {changed[:5]} or too few trainables moved")
+    if must_move is not None:
+        need = [n for n in trainable if must_move(n)]
+        log(f"    {len(need)} trainable tensors that must move: {len(moved.intersection(need))} moved")
+        if not need or not moved.issuperset(need):
+            raise AssertionError(f"train step: these did not move: {sorted(set(need) - moved)[:5]}")
+    if must_freeze is not None:
+        need = [n for n in params if must_freeze(n)]
+        log(f"    {len(need)} tensors that must stay frozen: all frozen and bit-equal "
+            f"{bool(need) and set(need) <= set(frozen)}")
+        if not need or not set(need) <= set(frozen):
+            raise AssertionError(f"train step: these are not frozen: {sorted(set(need) - set(frozen))[:5]}")
     del state, model, opt, start, params
     torch.cuda.empty_cache()
     return counts
 
 
-def train_parity_phase(dev) -> None:
-    """Phase 9: fp32 step on the card (kernels) against the port on the CPU."""
+def train_parity_phase(dev, cfg=None, prepare=None) -> None:
+    """Phases 9 and 33: an fp32 step on the card (kernels) against the port on
+    the CPU, of ``cfg`` (default ``vitb384(compute_dtype="float32")``); the
+    seeded model goes through ``prepare(model)`` first, where given."""
     from catseg_tpu_torch.configs import class_names, vitb384
     from catseg_tpu_torch.core.clip import truncate_context
     from catseg_tpu_torch.train.loop import TrainState, class_tokens, init_train_state, train_loss
     from catseg_tpu_torch.train.optim import TrainOptimizer
 
-    log("[9] fp32 train-step parity: vitb384(compute_dtype='float32'), 1 crop, 8 classes, GPU vs CPU")
-    cfg = vitb384(compute_dtype="float32")
+    if cfg is None:
+        log("[9] fp32 train-step parity: vitb384(compute_dtype='float32'), 1 crop, 8 classes, GPU vs CPU")
+        cfg = vitb384(compute_dtype="float32")
     cpu = init_train_state(cfg, seed=SEED, device="cpu")
+    if prepare is not None:
+        prepare(cpu.model)
     gpu_model = copy.deepcopy(cpu.model).to(dev)
     gpu = TrainState(model=gpu_model, optimizer=TrainOptimizer(cfg, gpu_model))
     tokens = torch.from_numpy(truncate_context(class_tokens(class_names("coco")[:8])).astype(np.int64))
@@ -462,7 +522,7 @@ def train_parity_phase(dev) -> None:
     loss_c = train_loss(cfg, cpu.model, tokens, images, targets)
     loss_c.backward()
     d_loss = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
-    worst, worst_name, unused, symmetric = 0.0, None, [], 0.0
+    worst, worst_name, unused, zero, symmetric = 0.0, None, [], [], 0.0
     gp = dict(gpu.model.named_parameters())
     for n, p in cpu.model.named_parameters():
         if not p.requires_grad:
@@ -473,7 +533,11 @@ def train_parity_phase(dev) -> None:
             continue
         if g_cpu is None or g_gpu is None:
             raise AssertionError(f"no gradient for {n} on the {'CPU' if g_cpu is None else 'GPU'}")
-        if ".swin_block." in n and n.endswith(".attn.k.bias"):
+        if not g_cpu.any() and not g_gpu.any():
+            zero.append(n)     # Ver14's hypernetwork MLPs of the mask tokens a single-mask output drops
+            continue
+        if (".swin_block." in n and n.endswith(".attn.k.bias")) or (n.startswith("sam_decoder.")
+                                                                     and n.endswith(".k_proj.bias")):
             # zero by symmetry (softmax ignores a per-query constant): both hold rounding noise
             symmetric = max(symmetric, g_cpu.abs().max().item(), g_gpu.abs().max().item())
             continue
@@ -482,7 +546,8 @@ def train_parity_phase(dev) -> None:
             worst, worst_name = r, n
     log(f"    loss GPU {loss_g.item():.8f} CPU {loss_c.item():.8f} (rel {d_loss:.2e}, bound 1e-5); "
         f"worst gradient max|d|/max|g_cpu| {worst:.2e} at {worst_name} (bound 1e-3); "
-        f"no gradient on either side: {unused}; swin k-bias gradients (zero by symmetry) at most {symmetric:.1e}")
+        f"no gradient on either side: {len(unused)} tensors {unused[:4]}; a zero gradient on both: {len(zero)} "
+        f"{zero[:2]}; attention k-bias gradients (zero by symmetry) at most {symmetric:.1e}")
     gpu.optimizer.step()
     cpu.optimizer.step()
     upd, frozen_ok, moved, n_train = 0.0, True, 0, 0
@@ -491,12 +556,12 @@ def train_parity_phase(dev) -> None:
         if cpu.optimizer.labels[n] == "frozen":
             frozen_ok &= torch.equal(p, start[n]) and torch.equal(q, start[n])
             continue
-        if n in unused:
+        if n in unused or n in zero:
             continue
         n_train += 1
         moved += int(not torch.equal(p, start[n]) and not torch.equal(q, start[n]))
         upd = max(upd, ((q - start[n]) - (p.detach() - start[n])).abs().max().item())
-    log(f"    after one update: frozen equal {frozen_ok}, {moved} of {n_train} trainables with a gradient "
+    log(f"    after one update: frozen equal {frozen_ok}, {moved} of {n_train} trainables with a nonzero gradient "
         f"moved on both, largest update difference {upd:.3e}")
     if not d_loss <= 1e-5 or not worst <= 1e-3 or not frozen_ok or moved <= 0.9 * n_train:
         raise AssertionError("fp32 train step on the GPU disagrees with the CPU port")
@@ -1018,6 +1083,18 @@ def train_cli_phase(smi, _build) -> None:
     log(f"    tools.eval --checkpoint model_final.pth: {m['num_images']} images, mIoU {m['mIoU']:.4f}")
     if m["num_images"] != 4 or not np.isfinite(m["mIoU"]):
         raise AssertionError("tools.eval of the trained checkpoint failed")
+    with tempfile.TemporaryDirectory() as out:
+        t = time.perf_counter()
+        state, launches = run_counted(lambda: train_cli.main(
+            ["--config", "fusion_ver31", "--dataset", "ade20k_150_test_sem_seg", "--data-root", root, "--output",
+             out, "--steps", "2"]), _build)
+        final = Path(out) / "model_final.pth"
+        log(f"    tools.train --config fusion_ver31 --steps 2: step {state.step}, model_final.pth {final.exists()} "
+            f"in {time.perf_counter() - t:.1f} s; launches {launches}")
+        if state.step != 2 or not final.exists() or any(launches[k] == 0 for k in VER31_TRAIN):
+            raise AssertionError("tools.train --config fusion_ver31 failed")
+        del state
+        torch.cuda.empty_cache()
 
 
 TIER_PRESETS = ("vitl336", "vith336", "vitg336")
@@ -1404,6 +1481,139 @@ def fusion_converter_phase(smi) -> None:
         raise AssertionError(f"tools.eval --config fusion_ver31 failed: {res.stderr[-2000:]}")
 
 
+# the Ver31 train step's kernels: the CLIP's, the aggregator's forward and
+# backward (FusionUP and the embeds are plain compositions under autograd)
+VER31_TRAIN = ("layer_norm", "dense_attention", "swin_block", "class_layer", "swin_block_bwd", "class_layer_bwd")
+
+
+def ver31_train_phase(dev, smi, _build) -> dict:
+    """Phase 31: the Ver31 train step; every kernel call of one step against
+    its plain version on the step's own inputs."""
+    from catseg_tpu_torch.configs import fusion_ver31
+
+    log("[31] train step, fusion_ver31() at full width and depth (bf16, pooling 2x2, DINO frozen), B=4, T=171, "
+        "384^2 crops")
+
+    def check(calls):
+        classes = [a for name, a in calls if name in ("class_layer", "class_layer_bwd")]
+        guided = sum(a[1] is not None or a[2] is not None for a in classes)
+        log(f"    {len(classes)} class layer forward and backward calls, {guided} with text guidance")
+        if guided or not classes:
+            raise AssertionError("Ver31's class layers took text guidance in the train step, or none ran")
+        check_path_calls(calls, "Ver31 train step", VER31_TRAIN)
+
+    return train_step_phase(dev, smi, _build, fusion_ver31(), VER31_TRAIN,
+                            ("corr_embed", "decoder", "decoder_bwd") + _build.UNFUSED, steps=10, check_calls=check)
+
+
+# frozen in Ver14 besides CLIP outside q / v (implicit_fusion_Ver14.py:32-43)
+VER14_FROZEN = ("sam_encoder.", "sam_decoder.iou_prediction_head.", "sam_prompt_encoder.point_embeddings.",
+                "sam_prompt_encoder.not_a_point_embed.", "sam_prompt_encoder.no_mask_embed.",
+                "sam_prompt_encoder.pe_layer.")
+
+
+def ver14_train_phase(dev, smi, _build) -> dict:
+    """Phase 32: the Ver14 train step (raw-corr proposals), each refinement
+    step recomputed in the backward."""
+    from catseg_tpu_torch.configs import fusion_ver14
+
+    cfg = fusion_ver14()
+    log(f"[32] train step, fusion_ver14() (refine_from={cfg.fusion.refine_from!r}, bf16, SAM frozen), B=4, T=171, "
+        f"384^2 crops: 684 mask-decoder instances in steps of {cfg.fusion.refine_chunk}, each recomputed in the "
+        "backward; loss = BCE(coarse) + BCE(refined)")
+    return train_step_phase(dev, smi, _build, cfg, ("layer_norm", "dense_attention"),
+                            ("corr_embed", "swin_block", "class_layer", "decoder") + _build.BACKWARD + _build.UNFUSED,
+                            steps=5, must_move=lambda n: n.startswith(("sam_prompt_encoder.mask_downscaling.",
+                                                                       "sam_decoder.transformer.")),
+                            must_freeze=lambda n: n.startswith(VER14_FROZEN))
+
+
+def fusion_train_parity_phase(dev) -> None:
+    """Phase 33: [9] for both fusion families."""
+    import dataclasses
+
+    from catseg_tpu_torch import configs
+
+    log("[33] fp32 train-step parity of fusion_ver31() and fusion_ver14() (refine_chunk 8, mask decoder x5): "
+        "1 crop, 8 classes, GPU vs CPU")
+    log("    Ver31:")
+    train_parity_phase(dev, configs.fusion_ver31(compute_dtype="float32"))
+    cfg = configs.fusion_ver14(compute_dtype="float32")
+    log("    Ver14:")
+    train_parity_phase(dev, cfg.replace(fusion=dataclasses.replace(cfg.fusion, refine_chunk=8)),
+                       prepare=lambda m: livelier_sam_(m, SEED + 7))
+
+
+def sam_tools_phase(smi, _build) -> None:
+    """Phase 34: SamPredictor and AutomaticMaskGenerator at SAM ViT-B, fp32."""
+    from catseg_tpu_torch.core.sam import SAM_VITB, SAMEncoder, init_sam_
+    from catseg_tpu_torch.core.sam_decoder import MaskDecoder, PromptEncoder, init_prompt_decoder_
+    from catseg_tpu_torch.data.image_io import decode_rgb
+    from catseg_tpu_torch.infer.amg import AutomaticMaskGenerator
+    from catseg_tpu_torch.infer.sam_predictor import SamPredictor
+
+    image = decode_rgb(str(FIXTURES / "images" / "photo_420.jpg"))
+    log(f"[34] SAM tools at SAM ViT-B (1024^2, fp32, seeded; mask decoder x5): SamPredictor on photo_420.jpg "
+        f"({image.shape[0]}x{image.shape[1]}), AutomaticMaskGenerator(points_per_side=32)")
+    gen = torch.Generator().manual_seed(SEED + 11)
+    sam = torch.nn.Module()
+    sam.sam_encoder, sam.sam_prompt_encoder, sam.sam_decoder = init_sam_(SAMEncoder(SAM_VITB), gen), \
+        PromptEncoder(SAM_VITB.out_chans), MaskDecoder(SAM_VITB.out_chans)
+    init_prompt_decoder_(sam.sam_prompt_encoder, sam.sam_decoder, gen)
+    livelier_sam_(sam, SEED + 12)
+    pred = SamPredictor(copy.deepcopy(sam))
+    _, launches = run_counted(lambda: pred.set_image(image), _build)
+    log(f"    set_image launches {launches}")
+    check_launches(launches, ("layer_norm",), ("corr_embed", "swin_block", "class_layer", "decoder")
+                   + _build.BACKWARD + _build.UNFUSED, "SamPredictor.set_image")
+
+    def host_ms(fn, reps):
+        fn()
+        secs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(secs)
+
+    point = dict(point_coords=np.array([[300.0, 200.0]], np.float32), point_labels=np.array([1]))
+    box = dict(box=np.array([120.0, 80.0, 500.0, 400.0], np.float32))
+    masks, iou, low = pred.predict(**point)
+    prompts = {"point": point, "box": box, "mask": dict(mask_input=low[int(np.argmax(iou))])}
+    times = {k: host_ms(lambda kw=kw: pred.predict(**kw), 10) for k, kw in prompts.items()}
+    set_ms = host_ms(lambda: pred.set_image(image), 5)
+    log(f"    set_image {set_ms:.1f} ms (median of 5); predict " + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items())
+        + f" (median of 10, multimask, masks at {masks.shape[1]}x{masks.shape[2]}) on {smi}")
+    cpu = SamPredictor(sam, device="cpu")
+    t = time.perf_counter()
+    cpu.set_image(image)
+    want = cpu.predict(**point, multimask_output=False)[2]
+    got = pred.predict(**point, multimask_output=False)[2]
+    d = np.abs(got - want).max()
+    log(f"    fp32 point prompt, low-res logits {got.shape} in [{want.min():.2f}, {want.max():.2f}]: GPU vs the port "
+        f"on the CPU max|d| {d:.3e} (bound 5e-4); the CPU's set_image and predict {time.perf_counter() - t:.1f} s")
+    if not d < 5e-4 or not np.isfinite(got).all():
+        raise AssertionError("the SAM predictor on the card disagrees with the CPU port")
+
+    amg = AutomaticMaskGenerator((pred.encoder, pred.pe, pred.dec), points_per_side=32,
+                                 pred_iou_thresh=-1e9, stability_score_thresh=0.5, box_nms_thresh=0.7)
+    canvas = pred.preprocess(image)[0].numpy()
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        records = amg.generate(canvas)
+        secs.append(time.perf_counter() - t)
+    log(f"    AutomaticMaskGenerator.generate (1024 points, 3072 masks, stability > 0.5, NMS 0.7): "
+        f"{statistics.median(secs):.3f} s (median of 3) on {smi}; {len(records)} records")
+    if not records or not all(r["segmentation"]["size"] == [256, 256] for r in records):
+        raise AssertionError("AutomaticMaskGenerator gave no records, or records of another size")
+    del pred, cpu, amg, sam
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -1583,6 +1793,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     ver14_phase(smi, _build, images, hws, canvas, names)
     fusion_converter_phase(smi)
+    ver31_train_phase(dev, smi, _build)
+    ver14_train_phase(dev, smi, _build)
+    fusion_train_parity_phase(dev)
+    sam_tools_phase(smi, _build)
 
     kernels = []
     for name, route, source, replaces in selfcheck.KERNELS:

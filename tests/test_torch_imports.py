@@ -28,7 +28,7 @@ for name in names:
 assert "catseg_tpu_torch.infer.pipeline" in names, names
 assert "catseg_tpu_torch.evaluation.miou" in names, names
 for m in ("train.loop", "train.optim", "train.checkpoint", "utils.events", "core.dino", "core.sam",
-          "core.sam_decoder", "core.fusion", "ops.attention"):
+          "core.sam_decoder", "core.fusion", "ops.attention", "infer.sam_predictor", "infer.amg"):
     assert "catseg_tpu_torch." + m in names and "catseg_tpu_torch." + m in sys.modules, m
 from catseg_tpu_torch.kernels import _build
 assert _build._lib is None   # importing built nothing

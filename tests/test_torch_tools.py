@@ -148,6 +148,24 @@ def test_presets_and_refusals():
         common.resolve_config("nope", [])
 
 
+def test_profile_train_arguments():
+    """profile_train's --config takes the presets of tools.common (vitb384 by
+    default); --no-recompute only with Ver14; without a GPU it refuses."""
+    from catseg_tpu_torch.tools import profile_train
+
+    args, cfg = profile_train.parse_args([])
+    assert (args.config, args.no_recompute, args.out, cfg) == ("vitb384", False, "profile_out", tconfigs.vitb384())
+    args, cfg = profile_train.parse_args(["--config", "fusion_ver14", "--no-recompute", "--out", "o"])
+    assert (args.no_recompute, args.out, cfg) == (True, "o", tconfigs.fusion_ver14())
+    assert profile_train.parse_args(["--config", "fusion_ver31"])[1] == tconfigs.fusion_ver31()
+    for bad in (["--config", "nope"], ["--config", "fusion_ver31", "--no-recompute"]):
+        with pytest.raises(SystemExit):
+            profile_train.parse_args(bad)
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+            profile_train.main(["--config", "fusion_ver31"])
+
+
 def test_pytree_io_matches_jax(tmp_path):
     from catseg_tpu.weights import io as jio
 

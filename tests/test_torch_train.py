@@ -199,12 +199,7 @@ def test_checkpoint_resume_equals_straight_run(start, tmp_path):
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
-def test_mesh_and_fusion_raise():
+def test_mesh_raises():
     cfg = _cfg(tconfigs)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         loop.make_train_step(cfg, None, _tokens(), mesh=object())
-    fcfg = cfg.replace(fusion=tconfigs.FusionConfig())
-    with pytest.raises(NotImplementedError, match="fusion"):
-        loop.make_train_step(fcfg, None, _tokens())
-    with pytest.raises(NotImplementedError, match="fusion"):
-        loop.init_train_state(fcfg, seed=0, device="cpu")
