@@ -231,6 +231,41 @@ def encode_image(clip: CLIP, images: torch.Tensor, taps: tuple[int, ...] = (),
     return torch.matmul(x, p.proj.to(dt)), [tapped[t] for t in taps]
 
 
+def encode_image_attn_maps(clip: CLIP, images: torch.Tensor, attn_layers: tuple[int, ...],
+                           compute_dtype=torch.float32) -> list[torch.Tensor]:
+    """Attention probability maps of selected visual blocks (catseg_tpu's
+    ``encode_image_attn_maps``, viz_atten.py's forward hooks on the
+    attention softmax): for each requested layer, in ascending order, the
+    (B, heads, 1+G^2, 1+G^2) fp32 softmax of block i's logits.  Every block,
+    the last included, runs as a standard softmax block (the dense trick has
+    no attention to show); a plain softmax, as in the reference, and the
+    LayerNorms through :func:`ops.layer_norm` (kernel #1 on the card)."""
+    v = clip.variant
+    p = clip.visual
+    act = _act(v)
+    B, H = images.shape[:2]
+    grid = H // v.patch
+    dt = compute_dtype
+    x = patchify(images.to(dt), p.conv1.weight, v.patch)
+    x = torch.cat([p.class_embedding.to(dt).expand(B, 1, v.width), x], dim=1)
+    x = x + resized_pos_embed(p.positional_embedding, v.pretrain_grid, grid).to(dt)
+    x = p.ln_pre(x)
+    heads, D = v.heads, v.width // v.heads
+    T = x.shape[1]
+    maps = {}
+    for i, blk in enumerate(p.transformer.resblocks):
+        q, k, val = blk.attn.qkv(blk.ln_1(x))
+        qh, kh, vh = (t.reshape(B, T, heads, D) for t in (q, k, val))
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) / np.sqrt(D)
+        attn = torch.softmax(logits, dim=-1)
+        if i in attn_layers:
+            maps[i] = attn
+        out = torch.einsum("bhqk,bkhd->bqhd", attn.to(x.dtype).float(), vh.float())
+        x = x + blk.attn.out_proj(out.to(x.dtype).reshape(B, T, v.width))
+        x = x + blk.mlp(blk.ln_2(x), act)
+    return [maps[i] for i in sorted(set(attn_layers)) if i in maps]
+
+
 def truncate_context(token_ids: np.ndarray, multiple: int = 8) -> np.ndarray:
     """Cut (N, 77) prompts to max(EOT)+1 rounded up to ``multiple``: exact
     under the causal mask, since positions <= EOT never see later ones."""

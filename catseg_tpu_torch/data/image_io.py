@@ -18,11 +18,11 @@ package's bit for bit.
 - TIFF: uncompressed strips of uint8 / uint16 samples (one channel, or
   three 8-bit), either byte order.  Any compression raises.
 
-The C++ library (with the uint8 bilinear resize of ``data.resize`` and the
-COCO RLE codec) is built at first use by ``g++ -O3 -shared -fPIC
--ffp-contract=off`` (no FMA contraction: the resize's double arithmetic must
-round as the reference library's) into ``_build/host-<hash of sources and
-flags>/`` and loaded with ctypes, which releases the GIL during a call, so
+The C++ library (with the uint8 resizes of ``data.resize``, the JPEG
+encoder of ``data.image_write`` and the COCO RLE codec) is built at first
+use by ``g++ -O3 -shared -fPIC -ffp-contract=off`` (no FMA contraction:
+the resize's double arithmetic must round as the reference library's) into
+``_build/host-<hash of sources and flags>/`` and loaded with ctypes, which releases the GIL during a call, so
 decoding in a prefetch thread overlaps the card.  A missing compiler or a
 failed build raises with the compiler's output.
 """
@@ -92,8 +92,14 @@ def host_library() -> ctypes.CDLL:
             lib.catseg_png_unfilter.argtypes = [p, i, i, i, p, ctypes.c_char_p, i]
             for fn in (lib.catseg_jpeg_info, lib.catseg_jpeg_decode, lib.catseg_png_unfilter):
                 fn.restype = ctypes.c_int
-            lib.catseg_resize_bilinear_u8.argtypes = [p, i, i, i, p, i, i]
-            lib.catseg_resize_bilinear_u8.restype = ctypes.c_int
+            for fn in (lib.catseg_resize_bilinear_u8, lib.catseg_resize_bicubic_u8):
+                fn.argtypes = [p, i, i, i, p, i, i]
+                fn.restype = ctypes.c_int
+            lib.catseg_jpeg_encode.argtypes = [p, i, i, i, i, ctypes.POINTER(ctypes.c_void_p),
+                                               ctypes.POINTER(sz)]
+            lib.catseg_jpeg_encode.restype = ctypes.c_int
+            lib.catseg_free.argtypes = [p]
+            lib.catseg_free.restype = None
             lib.rle_encode.argtypes = [p, i, i, p]
             lib.rle_encode.restype = ctypes.c_int
             lib.rle_decode.argtypes = [p, i, i, i, p]

@@ -2,7 +2,7 @@
 
 ``F.interpolate`` (even with ``antialias=True``) is not this function: the
 JAX package resizes through ``Image.resize``, and the port's inputs must be
-its inputs.  Both functions follow Pillow's ``Resample.c`` arithmetic.
+its inputs.  All three follow Pillow's ``Resample.c`` arithmetic.
 
 BILINEAR (:func:`resize_bilinear_u8`, run by ``csrc/host/resize.cpp``; the
 numpy :func:`resize_bilinear_u8_numpy` is its specification, and the tests
@@ -31,19 +31,38 @@ from .image_io import host_library
 PRECISION_BITS = 22
 
 
-def _bilinear_coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+def _triangle(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+def _cubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's ``bicubic_filter`` (a = -0.5), its operations in its order."""
+    a = -0.5
+    x = np.abs(x)
+    inner = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    outer = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, inner, np.where(x < 2.0, outer, 0.0))
+
+
+# filter name -> (function, support at scale 1)
+_FILTERS = {"bilinear": (_triangle, 1.0), "bicubic": (_cubic, 2.0)}
+
+
+def _coeffs(in_size: int, out_size: int, kind: str) -> tuple[np.ndarray, np.ndarray]:
     """(out, k) source indices and int64 fixed-point weights (0 past a window)."""
+    fn, base = _FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = base * filterscale
     ksize = int(np.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
     xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
     ss = 1.0 / filterscale
     x = np.arange(ksize)
-    w = np.abs(((x[None, :] + xmin[:, None]) - center[:, None] + 0.5) * ss)
-    w = np.where((w < 1.0) & (x[None, :] < xmax[:, None]), 1.0 - w, 0.0)
+    w = fn(((x[None, :] + xmin[:, None]) - center[:, None] + 0.5) * ss)
+    w = np.where(x[None, :] < xmax[:, None], w, 0.0)
     ww = np.zeros(out_size)
     for k in range(ksize):        # the reference sums in order; np.sum would pair
         ww = ww + w[:, k]
@@ -53,8 +72,8 @@ def _bilinear_coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarra
     return idx, fixed
 
 
-def _pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
-    idx, w = _bilinear_coeffs(img.shape[axis], out_size)
+def _pass(img: np.ndarray, axis: int, out_size: int, kind: str) -> np.ndarray:
+    idx, w = _coeffs(img.shape[axis], out_size, kind)
     shape = [1] * img.ndim
     shape[axis] = out_size
     acc = np.full(img.shape[:axis] + (out_size,) + img.shape[axis + 1:], 1 << (PRECISION_BITS - 1), np.int64)
@@ -63,26 +82,45 @@ def _pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
     return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def resize_bilinear_u8(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
-    """(H, W[, C]) uint8 -> (h, w[, C]) uint8, ``Image.resize(BILINEAR)``, in
-    the host library (it releases the GIL)."""
+def _resize_host(fn_name: str, img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     img = np.ascontiguousarray(img, dtype=np.uint8)
     H, W = img.shape[:2]
     C = img.shape[2] if img.ndim == 3 else 1
     out = np.empty((hw[0], hw[1]) + img.shape[2:], np.uint8)
-    host_library().catseg_resize_bilinear_u8(img.ctypes.data, H, W, C, out.ctypes.data, hw[0], hw[1])
+    getattr(host_library(), fn_name)(img.ctypes.data, H, W, C, out.ctypes.data, hw[0], hw[1])
     return out
+
+
+def _resize_numpy(img: np.ndarray, hw: tuple[int, int], kind: str) -> np.ndarray:
+    h, w = hw
+    out = img
+    if w != img.shape[1]:
+        out = _pass(out, 1, w, kind)
+    if h != img.shape[0]:
+        out = _pass(out, 0, h, kind)
+    return out
+
+
+def resize_bilinear_u8(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
+    """(H, W[, C]) uint8 -> (h, w[, C]) uint8, ``Image.resize(BILINEAR)``, in
+    the host library (it releases the GIL)."""
+    return _resize_host("catseg_resize_bilinear_u8", img, hw)
 
 
 def resize_bilinear_u8_numpy(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     """The numpy specification of :func:`resize_bilinear_u8`."""
-    h, w = hw
-    out = img
-    if w != img.shape[1]:
-        out = _pass(out, 1, w)
-    if h != img.shape[0]:
-        out = _pass(out, 0, h)
-    return out
+    return _resize_numpy(img, hw, "bilinear")
+
+
+def resize_bicubic_u8(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
+    """(H, W[, C]) uint8 -> (h, w[, C]) uint8, ``Image.resize(BICUBIC)`` (the
+    reference library's default filter), in the host library."""
+    return _resize_host("catseg_resize_bicubic_u8", img, hw)
+
+
+def resize_bicubic_u8_numpy(img: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
+    """The numpy specification of :func:`resize_bicubic_u8`."""
+    return _resize_numpy(img, hw, "bicubic")
 
 
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:

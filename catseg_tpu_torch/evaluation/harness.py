@@ -10,9 +10,13 @@ Every image runs at its own size (the port's Predictor has no static input
 canvas); the out canvas ``_canvas(sizes)`` stays, as the frame the GT and
 ``preds_sliding_batch`` are padded to, so every path counts the same pixels.
 The tail batch runs at its own size (the JAX package pads it with a
-duplicate image to keep XLA's shapes).  Not ported: the mesh-sharded branch
-(ROADMAP A6; the port runs on its Predictor's one device and says so when
-more GPUs are visible) and ``dump_visuals`` (ROADMAP A7).
+duplicate image to keep XLA's shapes).  ``dump_visuals=N`` writes the first
+N images' [image | prediction | GT] strips as
+``{visuals_dir}/{benchmark}_{n:04d}.jpg`` (``infer.visualize.save_visual``,
+the input bicubic-resized back to the GT's size) from the per-image loop,
+as the JAX package does.  Not ported: the mesh-sharded branch (ROADMAP A6;
+the port runs on its Predictor's one device and says so when more GPUs are
+visible).
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ from ..configs import CATSegConfig, eval_preset
 from ..core.catseg import CATSeg
 from ..data.catalogs import dataset_root, get_dataset, load_class_names
 from ..data.loader import Prefetcher, list_dataset, load_gt, load_image, probe_sizes, resize_shortest_edge
+from ..data.resize import resize_bicubic_u8
 from ..infer.pipeline import Predictor, resize_argmax
+from ..infer.visualize import save_visual
 from .miou import ConfusionAccumulator
 
 
@@ -103,8 +109,6 @@ def evaluate_benchmark(
     sliding=False uses the whole-image branch (the reference's train-time
     eval / demo default, cat_seg_model.py:147-155); tta averages D2's 9
     scales x hflip (SemanticSegmentorWithTTA)."""
-    if dump_visuals:
-        raise NotImplementedError("dump_visuals needs infer/visualize.py, which is not ported yet (ROADMAP A7)")
     cfg = eval_preset(cfg) if sliding else cfg.replace(sliding_window=False)
     spec = get_dataset(benchmark)
     class_names = load_class_names(spec.class_json)
@@ -144,7 +148,7 @@ def evaluate_benchmark(
 
         dumper = PredictionDumper(dump_predictions, id_map=dataset_id_map(spec))
 
-    if sliding and not tta and dumper is None and eval_batch > 1 and len(pairs) > 1:
+    if sliding and not tta and dump_visuals == 0 and dumper is None and eval_batch > 1 and len(pairs) > 1:
         return _evaluate_benchmark_batched(predictor, acc, spec, pairs, load, (Hc, Wc), eval_batch, verbose)
 
     t0 = time.time()
@@ -158,8 +162,15 @@ def evaluate_benchmark(
         gt_pad = torch.full((Hc, Wc), spec.ignore_label, dtype=torch.int32, device=device)
         gt_pad[:H, :W] = torch.from_numpy(gt).to(device)
         acc.update(pred, gt_pad)
-        if dumper is not None:
-            dumper.add(pred[:H, :W].cpu().numpy(), pairs[n][0])
+        if n < dump_visuals or dumper is not None:
+            # pred / GT overlay strips (viz.py TestAndViz, OVRSSS_Visualizer.save_visual)
+            pred_np = pred[:H, :W].cpu().numpy()
+            if n < dump_visuals:
+                os.makedirs(visuals_dir, exist_ok=True)
+                save_visual(resize_bicubic_u8(img, (H, W)), pred_np, gt,
+                            os.path.join(visuals_dir, f"{spec.name}_{n:04d}.jpg"), spec.num_classes, spec.ignore_label)
+            if dumper is not None:
+                dumper.add(pred_np, pairs[n][0])
         n += 1
         if verbose and n % 100 == 0:
             print(f"  [{spec.name}] {n}/{len(pairs)} images, {n / (time.time() - t0):.2f} im/s")

@@ -24,8 +24,13 @@ from its CLIP image), the whole-image branch hands them the padded canvas
 resized to each encoder's resolution.  Ver14's (256, 256) refined logits
 take the same resize-to-kernel tail as (96, 96) ones.
 
-The reference's static-canvas machinery exists for XLA's static shapes and
-is not needed here: every image is resized at its own size.
+The Predictor resizes every image at its own size.  The reference's
+runtime-size canvas forms are here for the serving export
+(``infer/export.py``), whose graph takes the true size as a tensor:
+:func:`canvas_to_sliding_inputs` (in-graph bilinear weights from ``hw``),
+:func:`sliding_window_probs_from_canvas` and :func:`resize_argmax_dynamic`
+(class chunks, strict ``>`` running max); none reads a size back to the
+host.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ..configs import CATSegConfig, check_same_architecture
 from ..core.aggregator import aggregator_forward
 from ..core.catseg import CATSeg, compute_dtype, normalize_clip, resolve_device
 from ..ops import fold_divisor, fold_tiles, resize_bilinear, unfold_tiles
+from ..ops.resize import bilinear_row_weights_dynamic, bilinear_row_weights_dynamic_out
 from ..text.embed import forward_text_embeds
 
 
@@ -130,6 +136,56 @@ def resize_argmax(probs_cm: torch.Tensor, out_hw, chunk: int = 32) -> torch.Tens
         take = cmax > best
         best = torch.where(take, cmax, best)
         pred = torch.where(take, cidx, pred)
+    return pred
+
+
+def _resize_rows_cols(img: torch.Tensor, wh: torch.Tensor, ww: torch.Tensor) -> torch.Tensor:
+    """(h, w, C) fp32 -> (H, W, C) by an (H, h) then a (W, w) weight matrix."""
+    x = torch.einsum("hwc,Hh->Hwc", img, wh)
+    return torch.einsum("Hwc,Ww->HWc", x, ww)
+
+
+def canvas_to_sliding_inputs(canvas: torch.Tensor, hw: torch.Tensor, cfg: CATSegConfig):
+    """Zero-padded raw (Hc, Wc, 3) canvas + (2,) int true size -> the
+    (sw_out_res^2, sw_kernel^2) fp32 sliding input pair, by torch-exact
+    bilinear weights built from ``hw`` in the graph."""
+    Hc, Wc = canvas.shape[:2]
+    img = canvas.float()
+    out, k = cfg.sw_out_res, cfg.sw_kernel
+    img_out = _resize_rows_cols(img, bilinear_row_weights_dynamic(out, hw[0], Hc),
+                                bilinear_row_weights_dynamic(out, hw[1], Wc))
+    img_k = _resize_rows_cols(img, bilinear_row_weights_dynamic(k, hw[0], Hc),
+                              bilinear_row_weights_dynamic(k, hw[1], Wc))
+    return img_out, img_k
+
+
+def sliding_window_probs_from_canvas(model: CATSeg, canvas: torch.Tensor, hw: torch.Tensor,
+                                     text_feats: torch.Tensor, cfg: CATSegConfig) -> torch.Tensor:
+    """(Hc, Wc, 3) raw canvas + (2,) true size -> (640, 640, T) probabilities
+    (the carrier dtype), the input resizes done on the device."""
+    img_out, img_k = canvas_to_sliding_inputs(canvas, hw, cfg)
+    return sliding_window_probs_batch(model, img_out[None], img_k[None], text_feats, cfg)[0].permute(1, 2, 0)
+
+
+def resize_argmax_dynamic(probs: torch.Tensor, out_hw: torch.Tensor, canvas: tuple[int, int],
+                          chunk: int = 32) -> torch.Tensor:
+    """(h, w, T) probs + (2,) int true output size -> (Hm, Wm) int32 argmax of
+    their bilinear resize onto the static ``canvas`` (0 past the true size):
+    runtime weights, class chunks, strict ``>`` running max (ties keep the
+    lower class).  fp32 arithmetic in both dtypes, as :func:`resize_argmax`
+    (the reference's bf16 intermediate is a choice for its MXU's rate)."""
+    h, w, T = probs.shape
+    wh = bilinear_row_weights_dynamic_out(canvas[0], out_hw[0], h)
+    ww = bilinear_row_weights_dynamic_out(canvas[1], out_hw[1], w)
+    probs_cm = probs.permute(2, 0, 1)
+    best = torch.full(tuple(canvas), float("-inf"), device=probs.device)
+    pred = torch.zeros(tuple(canvas), dtype=torch.int32, device=probs.device)
+    for c0 in range(0, T, chunk):
+        r = torch.matmul(torch.matmul(wh, probs_cm[c0:c0 + chunk].float()), ww.t())
+        cmax, cidx = r.max(0)
+        take = cmax > best
+        best = torch.where(take, cmax, best)
+        pred = torch.where(take, cidx.to(torch.int32) + c0, pred)
     return pred
 
 

@@ -21,7 +21,9 @@ CUDA is csrc/class_layer_bwd.cu (replaces the reference's ``_bwd`` /
 which operands go as bf16 and which as a hi + lo pair); on the CPU autograd
 through the plain version.  Both
 return the pad_kv / pad_ksum cotangents, which flow on through the plain
-:func:`pad_contributions` into the padding rows, ln1 and k / v.
+:func:`pad_contributions` into the padding rows, ln1 and k / v.  Where no
+gradient is recorded, the layer is the op ``catseg_tpu_torch::class_layer``
+(``kernels/ops.py``), its parameters one tensor list in ``_KP`` order.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from . import _build
 from .autograd import plain_vjp
 from .layer_norm import layer_norm_fp32
+from .ops import records_grad, register, serve
 from .swin_block import pack_mma_b
 
 _EPS = 1e-6
@@ -235,6 +238,15 @@ class _ClassLayerFn(torch.autograd.Function):
                 None, None, *(cast(g[k], pr) for k, pr in zip(_KP, params)))
 
 
+class_layer_op = register(
+    "class_layer",
+    "(Tensor x, Tensor? qg, Tensor? kg, Tensor pad_kv, Tensor pad_ksum, Tensor[] params, int heads, int Tp) -> Tensor",
+    lambda x, qg, kg, pkv, pks, params, heads, Tp: _plain(x, qg, kg, pkv, pks, dict(zip(_KP, params)), heads, Tp),
+    lambda x, qg, kg, pkv, pks, params, heads, Tp: _class_layer_cuda(x, qg, kg, pkv, pks, dict(zip(_KP, params)),
+                                                                     Tp),
+    lambda x, qg, kg, pkv, pks, params, heads, Tp: torch.empty_like(x))
+
+
 def fused_class_layer(x: torch.Tensor, qg, kg, pad_kv, pad_ksum, p: dict, heads: int, Tp: int) -> torch.Tensor:
     """One class-attention layer on CLASS-major x (B, T, H, W, C), T real classes.
 
@@ -245,4 +257,7 @@ def fused_class_layer(x: torch.Tensor, qg, kg, pad_kv, pad_ksum, p: dict, heads:
     if x.is_cuda:
         _check_cuda(x, heads)
     kp = kernel_params(p)
-    return _ClassLayerFn.apply(x, qg, kg, pad_kv, pad_ksum, heads, Tp, *(kp[k] for k in _KP))
+    params = [kp[k] for k in _KP]
+    if records_grad(x, qg, kg, pad_kv, pad_ksum, *params):
+        return _ClassLayerFn.apply(x, qg, kg, pad_kv, pad_ksum, heads, Tp, *params)
+    return serve(class_layer_op, "class layer", x, qg, kg, pad_kv, pad_ksum, params, heads, Tp)

@@ -10,7 +10,8 @@ CUDA cores in register tiles.  Its note there says what bounds it on the card.
 Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
 backward is the reference's plain fp32 recompute (catseg_tpu/kernels/
 clip_attn.py ``_bwd``), plain PyTorch on every device, as the reference has
-no backward kernel.
+no backward kernel.  Where no gradient is recorded, the wrapper calls the
+op ``catseg_tpu_torch::dense_attention`` (``kernels/ops.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .ops import records_grad, register, serve
 
 
 def dense_attention_applicable(W: int, heads: int, mask) -> bool:
@@ -90,6 +92,13 @@ class _DenseAttentionFn(torch.autograd.Function):
         return (*dense_attention_backward(q, k, v, g, ctx.heads), None)
 
 
+dense_attention_op = register("dense_attention", "(Tensor q, Tensor k, Tensor v, int heads) -> Tensor",
+                              dense_attention_plain, _dense_attention_cuda,
+                              lambda q, k, v, heads: torch.empty_like(q))
+
+
 def fused_dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
     """Maskless MHA over (B, S, W) sequences; requires W // heads == 64."""
-    return _DenseAttentionFn.apply(q, k, v, heads)
+    if records_grad(q, k, v):
+        return _DenseAttentionFn.apply(q, k, v, heads)
+    return serve(dense_attention_op, "dense attention", q, k, v, heads)

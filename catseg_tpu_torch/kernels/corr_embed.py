@@ -12,6 +12,8 @@ reference's gate (:func:`corr_embed_applicable`) holds.
 Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
 backward is autograd through the plain version (catseg_tpu/kernels/
 corr_embed.py ``_bwd``: the vjp of ``_reference``), on every device.
+Where no gradient is recorded, the wrapper calls the op
+``catseg_tpu_torch::corr_embed`` (``kernels/ops.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .autograd import plain_vjp
+from .ops import records_grad, register, serve
 from .swin_block import pack_mma_b
 
 BASE = 24   # feature grid the kernel is written for
@@ -110,8 +113,19 @@ class _CorrEmbedFn(torch.autograd.Function):
         return tuple(plain_vjp(corr_embed_plain, ctx.saved_tensors, g))
 
 
+def _corr_embed_fake(img_feats, text_n, w, b):
+    B, H, W, _ = img_feats.shape
+    return img_feats.new_empty((B, text_n.shape[1], H, W, w.shape[-1]))
+
+
+corr_embed_op = register("corr_embed", "(Tensor img_feats, Tensor text_n, Tensor w, Tensor b) -> Tensor",
+                         corr_embed_plain, _corr_embed_cuda, _corr_embed_fake)
+
+
 def fused_corr_embed(img_feats: torch.Tensor, text_n: torch.Tensor, w: torch.Tensor,
                      b: torch.Tensor) -> torch.Tensor:
     """L2-normalized cosine cost volume + 7x7 embedding (B, T, 24, 24, C);
     text_n must already be L2-normalized (the caller normalizes once)."""
-    return _CorrEmbedFn.apply(img_feats, text_n, w, b)
+    if records_grad(img_feats, text_n, w, b):
+        return _CorrEmbedFn.apply(img_feats, text_n, w, b)
+    return serve(corr_embed_op, "corr embed", img_feats, text_n, w, b)

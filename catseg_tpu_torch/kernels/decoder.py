@@ -31,7 +31,9 @@ and the guidance, as the reference's ``_prep_guidance_w``) and the torch-
 layout parameters.  Its backward on CUDA is csrc/decoder_bwd.cu (replaces
 the reference's ``_fused_bwd``; in bf16 on mma.sync tensor cores, every
 fp32 cotangent a product reads as a bf16 pair hi + lo, its note there says
-more); on the CPU autograd through the plain version.
+more); on the CPU autograd through the plain version.  Where no gradient
+is recorded, the fused call is the op ``catseg_tpu_torch::decoder``
+(``kernels/ops.py``), its parameters one tensor list in ``_DK`` order.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch
 from ..ops import conv2d, conv_transpose2d_nonoverlap, group_norm
 from . import _build
 from .autograd import plain_vjp
+from .ops import records_grad, register, serve
 from .swin_block import pack_mma_b
 
 BASE = 24   # feature grid the kernel is written for
@@ -315,6 +318,13 @@ class _DecoderFn(torch.autograd.Function):
                 *(g[k].to(pr.dtype) for k, pr in zip(_DK, params)))
 
 
+decoder_op = register(
+    "decoder", "(Tensor x, Tensor hg1, Tensor hg2, Tensor[] params) -> Tensor",
+    lambda x, hg1, hg2, params: _decoder_planes(x, hg1, hg2, *_unpack(params)),
+    lambda x, hg1, hg2, params: _decoder_cuda(x, hg1, hg2, dict(zip(_DK, params))),
+    lambda x, hg1, hg2, params: x.new_empty((x.shape[0], 4 * x.shape[1], 4 * x.shape[2]), dtype=torch.float32))
+
+
 def fused_decoder(x: torch.Tensor, g1: torch.Tensor, g2: torch.Tensor, d1: dict, d2: dict,
                   head: dict) -> torch.Tensor:
     """Both Up stages + head on x (B*T, 24, 24, 128) class slabs, image-major;
@@ -326,4 +336,7 @@ def fused_decoder(x: torch.Tensor, g1: torch.Tensor, g2: torch.Tensor, d1: dict,
     dt = x.dtype
     hg1 = _guidance_half(d1, g1, 96, dt)
     hg2 = _guidance_half(d2, g2, 48, dt)
-    return _DecoderFn.apply(x, hg1, hg2, *_params(d1, d2, head))
+    params = _params(d1, d2, head)
+    if records_grad(x, hg1, hg2, *params):
+        return _DecoderFn.apply(x, hg1, hg2, *params)
+    return serve(decoder_op, "decoder", x, hg1, hg2, params)

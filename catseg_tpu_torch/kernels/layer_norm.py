@@ -18,8 +18,10 @@ Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
 backward is the reference's analytic formula (catseg_tpu/kernels/
 layer_norm.py ``_bwd``: fp32 statistics recomputed from x), plain PyTorch on
 every device, as the reference has no backward kernel.  Where no gradient
-is recorded (serving), the kernel is called without the Function, and fp32
-contiguous gamma / beta (the model's parameters) pass without a copy.
+is recorded (serving), the wrapper calls the op ``catseg_tpu_torch::
+layer_norm`` (``kernels/ops.py``): the kernel on a CUDA tensor, the plain
+version on a CPU one; fp32 contiguous gamma / beta (the model's parameters)
+pass without a copy.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .ops import records_grad, register, serve
 
 def layer_norm_fp32(x32: torch.Tensor, g: torch.Tensor, b: torch.Tensor, fast: bool,
                     eps: float = 1e-5) -> torch.Tensor:
@@ -109,9 +112,13 @@ class _LayerNormFn(torch.autograd.Function):
         return dx, dg, db, None
 
 
+layer_norm_op = register("layer_norm", "(Tensor x, Tensor g, Tensor b, float eps) -> Tensor", layer_norm_plain,
+                         _layer_norm_cuda, lambda x, g, b, eps: torch.empty_like(x))
+
+
 def fused_layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis, fp32 statistics, any leading shape: the
     kernel on a CUDA tensor, the plain version on a CPU one."""
-    if x.is_cuda and not (torch.is_grad_enabled() and (x.requires_grad or g.requires_grad or b.requires_grad)):
-        return _layer_norm_cuda(x, g, b, eps)
-    return _LayerNormFn.apply(x, g, b, eps)
+    if records_grad(x, g, b):
+        return _LayerNormFn.apply(x, g, b, eps)
+    return serve(layer_norm_op, "layer_norm", x, g, b, eps)

@@ -23,6 +23,7 @@ import torch
 
 from . import _build
 from .autograd import plain_vjp
+from .ops import records_grad, register, serve
 from .class_layer import _elu1
 
 _EPS = 1e-6
@@ -87,6 +88,15 @@ class _LinearAttentionFn(torch.autograd.Function):
         return (*plain_vjp(lambda q, k, v: linear_attention_plain(q, k, v, heads), ctx.saved_tensors, g), None)
 
 
+linear_attention_op = register("linear_attention", "(Tensor q, Tensor k, Tensor v, int heads) -> Tensor",
+                               linear_attention_plain, _linear_attention_cuda,
+                               lambda q, k, v, heads: torch.empty_like(q))
+
+
 def fused_linear_attention(q, k, v, heads: int) -> torch.Tensor:
-    """elu+1 kernelized attention over the class axis; q/k/v (N, S, C)."""
-    return _LinearAttentionFn.apply(q, k, v, heads)
+    """elu+1 kernelized attention over the class axis; q/k/v (N, S, C).
+    Where no gradient is recorded, the op ``catseg_tpu_torch::linear_attention``
+    (``kernels/ops.py``)."""
+    if records_grad(q, k, v):
+        return _LinearAttentionFn.apply(q, k, v, heads)
+    return serve(linear_attention_op, "linear attention", q, k, v, heads)

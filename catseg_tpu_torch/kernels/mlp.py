@@ -28,6 +28,7 @@ import torch
 
 from . import _build
 from .autograd import plain_vjp
+from .ops import records_grad, register, serve
 from .swin_block import gelu
 
 _ACT = {"gelu": 0, "relu": 1}
@@ -87,9 +88,17 @@ class _MLPFn(torch.autograd.Function):
         return (*plain_vjp(lambda *a: mlp_plain(*a, act), ctx.saved_tensors, g), None)
 
 
+mlp_op = register(
+    "mlp", "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, str act) -> Tensor", mlp_plain, _mlp_cuda,
+    lambda x, w1, b1, w2, b2, act: x.new_empty((*x.shape[:-1], w2.shape[1])))
+
+
 def fused_mlp(x: torch.Tensor, w1, b1, w2, b2, act: str = "gelu") -> torch.Tensor:
     """act(x @ w1 + b1) @ w2 + b2 over the last axis, any leading shape;
-    ``act`` is "gelu" or "relu"."""
+    ``act`` is "gelu" or "relu".  Where no gradient is recorded, the op
+    ``catseg_tpu_torch::mlp`` (``kernels/ops.py``)."""
     if act not in _ACT:
         raise ValueError(f"act must be 'gelu' or 'relu', got {act!r}")
-    return _MLPFn.apply(x, w1, b1, w2, b2, act)
+    if records_grad(x, w1, b1, w2, b2):
+        return _MLPFn.apply(x, w1, b1, w2, b2, act)
+    return serve(mlp_op, "mlp", x, w1, b1, w2, b2, act)

@@ -21,6 +21,9 @@ CUDA is csrc/swin_block_bwd.cu (replaces the reference's ``_bwd`` /
 says which operands go as bf16 and which as a hi + lo pair); on the CPU it
 is autograd through the plain block, as the reference's ``_bwd_xla``.  The
 pair's backward runs block 2, then block 1, each from its saved input.
+Where no gradient is recorded, each block is the op
+``catseg_tpu_torch::swin_block`` (``kernels/ops.py``), its parameters one
+tensor list in ``_KEYS`` order.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ..ops.window import window_partition, window_reverse
 from . import _build
 from .autograd import plain_vjp
 from .layer_norm import layer_norm_fp32
+from .ops import records_grad, register, serve
 
 _KEYS = ("ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
          "ln2_g", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
@@ -247,10 +251,25 @@ class _SwinBlockFn(torch.autograd.Function):
                 *(cast(g[k], pr) for k, pr in zip(_KEYS, params)))
 
 
+swin_block_op = register(
+    "swin_block", "(Tensor x, Tensor? qg, Tensor? kg, Tensor[] params, int heads, int win, int shift) -> Tensor",
+    lambda x, qg, kg, params, heads, win, shift: swin_block_plain(x, qg, kg, dict(zip(_KEYS, params)), heads, win,
+                                                                  shift),
+    lambda x, qg, kg, params, heads, win, shift: _swin_block_cuda(x, qg, kg, dict(zip(_KEYS, params)), shift),
+    lambda x, qg, kg, params, heads, win, shift: torch.empty_like(x))
+
+
+def _swin_block(x, qg, kg, p: dict, heads: int, win: int, shift: int) -> torch.Tensor:
+    params = [p[k] for k in _KEYS]
+    if records_grad(x, qg, kg, *params):
+        return _SwinBlockFn.apply(x, qg, kg, heads, win, shift, *params)
+    return serve(swin_block_op, "swin", x, qg, kg, params, heads, win, shift)
+
+
 def fused_swin_pair(x: torch.Tensor, guid4, p1: dict, p2: dict, heads: int, win: int) -> torch.Tensor:
     """Both Swin blocks of one aggregator layer (shift 0, then win // 2)."""
     if x.is_cuda:
         _check_cuda(x, heads, win)
     g = guid4 if guid4 is not None else (None,) * 4
-    x = _SwinBlockFn.apply(x, g[0], g[1], heads, win, 0, *(p1[k] for k in _KEYS))
-    return _SwinBlockFn.apply(x, g[2], g[3], heads, win, win // 2, *(p2[k] for k in _KEYS))
+    x = _swin_block(x, g[0], g[1], p1, heads, win, 0)
+    return _swin_block(x, g[2], g[3], p2, heads, win, win // 2)

@@ -29,6 +29,7 @@ import torch
 
 from . import _build
 from .autograd import plain_vjp
+from .ops import records_grad, register, serve
 
 MAX_TOKENS = 256           # tokens per window the kernel takes (kMaxN in csrc/window_attn.cu)
 HEAD_DIMS = (8, 16, 32, 64)
@@ -112,8 +113,17 @@ class _WindowAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+window_attention_op = register(
+    "window_attention", "(Tensor q, Tensor k, Tensor v, Tensor? mask, int heads, float scale) -> Tensor",
+    window_attention_plain, _window_attention_cuda,
+    lambda q, k, v, mask, heads, scale: q.new_empty(q.shape))
+
+
 def fused_window_attention(q, k, v, mask, heads: int, scale: float) -> torch.Tensor:
     """softmax(scale * q k^T + mask) v over windows; q/k/v (Bw, N, C), mask
     (nW, N, N) additive fp32, or None when unshifted (as zeros); returns
-    (Bw, N, C) in q's dtype."""
-    return _WindowAttentionFn.apply(q, k, v, mask, heads, scale)
+    (Bw, N, C) in q's dtype.  Where no gradient is recorded, the op
+    ``catseg_tpu_torch::window_attention`` (``kernels/ops.py``)."""
+    if records_grad(q, k, v, mask):
+        return _WindowAttentionFn.apply(q, k, v, mask, heads, scale)
+    return serve(window_attention_op, "window attention", q, k, v, mask, heads, scale)

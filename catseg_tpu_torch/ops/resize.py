@@ -75,3 +75,47 @@ def linear_weights(in_size: int, out_size: int) -> np.ndarray:
     np.add.at(w, (np.arange(out_size), x0), 1.0 - f)
     np.add.at(w, (np.arange(out_size), x1), f)
     return w
+
+
+def bilinear_row_weights_dynamic(out_size: int, in_size: torch.Tensor, in_pad: int,
+                                 valid_out: torch.Tensor | None = None) -> torch.Tensor:
+    """(out_size, in_pad) fp32 torch-bilinear (align_corners=False) weights
+    for a *runtime* input length ``in_size`` (an int tensor; columns past it
+    get zero weight); rows at or past ``valid_out`` (an int tensor) are zero
+    when it is given.  Tensor arithmetic only (no ``.item()``), so an
+    exported graph takes the size at run time; float32 source coordinates as
+    torch computes them (catseg_tpu/ops/resize.py, same name)."""
+    dev = in_size.device
+    i = torch.arange(out_size, dtype=torch.float32, device=dev)[:, None]
+    insz = in_size.to(torch.int32)
+    x = ((i + 0.5) * (insz.to(torch.float32) / float(out_size)) - 0.5).clamp_min(0.0)
+    x0 = torch.floor(x)
+    f = x - x0
+    last = insz - 1
+    x0i = torch.minimum(x0.to(torch.int32), last)
+    x1i = torch.minimum(x0i + 1, last)
+    cols = torch.arange(in_pad, dtype=torch.int32, device=dev)[None, :]
+    w = (cols == x0i) * (1.0 - f) + (cols == x1i) * f
+    if valid_out is not None:
+        rows = torch.arange(out_size, dtype=torch.int32, device=dev)[:, None]
+        w = w * (rows < valid_out.to(torch.int32))
+    return w.to(torch.float32)
+
+
+def bilinear_row_weights_dynamic_out(rows_pad: int, out_size: torch.Tensor, in_size: int) -> torch.Tensor:
+    """(rows_pad, in_size) fp32 torch-bilinear weights for a *runtime* output
+    length ``out_size`` (an int tensor): rows before it interpolate the
+    static-length input, rows past it are zero."""
+    dev = out_size.device
+    i = torch.arange(rows_pad, dtype=torch.float32, device=dev)[:, None]
+    outsz = out_size.to(torch.int32)
+    x = ((i + 0.5) * (float(in_size) / outsz.to(torch.float32)) - 0.5).clamp_min(0.0)
+    x0 = torch.floor(x)
+    f = x - x0
+    last = in_size - 1
+    x0i = torch.clamp(x0.to(torch.int32), max=last)
+    x1i = torch.clamp(x0i + 1, max=last)
+    cols = torch.arange(in_size, dtype=torch.int32, device=dev)[None, :]
+    w = (cols == x0i) * (1.0 - f) + (cols == x1i) * f
+    rows = torch.arange(rows_pad, dtype=torch.int32, device=dev)[:, None]
+    return (w * (rows < outsz)).to(torch.float32)

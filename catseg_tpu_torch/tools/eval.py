@@ -32,7 +32,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--limit", type=int, default=None, help="cap images per benchmark")
     ap.add_argument("--output", default=None, help="write metrics json here")
     ap.add_argument("--whole-image", action="store_true", help="non-sliding branch")
-    ap.add_argument("--dump-visuals", type=int, default=0, help="save N pred/GT overlays (not ported, A7)")
+    ap.add_argument("--dump-visuals", type=int, default=0,
+                    help="save the first N [image | pred | GT] overlay strips under eval_visuals/")
     ap.add_argument("--dump-predictions", default=None, help="COCO-RLE predictions json")
     ap.add_argument("--seen-indexes", default=None, help="json list for gzero seen/unseen split")
     ap.add_argument("--unseen-indexes", default=None)

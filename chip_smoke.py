@@ -233,6 +233,32 @@ Phases (any failure raises and the script exits non-zero):
    medians), the point prompt's low-res logits within 5e-4 of the port on
    the CPU; AutomaticMaskGenerator(points_per_side=32).generate on the
    predictor's canvas (s, median of 3; its record count).
+35. The visuals at eval_preset(vitb384()), bf16, T = 150, on the committed
+   fixture dataset (tests/torch_fixtures/dataset): evaluate_benchmark with
+   dump_visuals=4 and dump_predictions (every forward kernel launched),
+   then tools.viz_results on the dumped JSON; every strip written decoded
+   by the port's decoder at (H, 3 W, 3) of its GT's size; images/s.
+36. tools.demo at vitb384 on two fixture JPEGs: --classes (5 names), then
+   --class-json ade150.json sequential and --parallel (AsyncPredictor),
+   whose argmax maps must equal the sequential run's; overlays decoded at
+   the inputs' shapes; ms an image as the extra time of four inputs over
+   two (model build excluded).
+37. tools.viz_attn at vitb384, layers 3, 7 and 11, on a fixture JPEG: #1
+   launched; the fp32 maps within 1e-5 of the port on the CPU, rows summing
+   to 1 within 1e-5; one grey PNG per layer.
+38. tools.export at eval_preset(vitb384()), bf16, T = 150, --canvas
+   1024x1024 --out-canvas 768x768 --check, into TMPDIR (export s, artifact
+   MB, load s; the file deleted after): the loaded artifact bit-equal to
+   the live make_serve_fn on a 512x683 image, its run launching the six
+   forward kernels; its argmax against Predictor.predict_argmax on a
+   480x960 image, whose resizes take dyadic weights (bit-equal CLIP inputs
+   on both paths), >= 99% on the pixels the Predictor's top-2 gap decides
+   (> 1e-6; ~44% of a random bf16 model's pixels are exact ties, which the
+   two resizes' roundings break apart), and on the 512x683 image read only
+   (its inputs differ in rounding, which the random bf16 model amplifies);
+   an fp32 export at T = 20 agreeing with the CPU port's live serve module
+   and with the card's fp32 Predictor on >= 99.9%; the artifact and
+   predict_argmax timed (median of 10), nothing claimed.
 
 Phase [3] also gives each call under 1 ms a device time: 20 calls captured
 in one CUDA graph, timed over its replays (no host launch path inside),
@@ -251,13 +277,12 @@ import functools
 import hashlib
 import json
 import math
+import os
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -267,6 +292,7 @@ PROB_BOUND = 5e-4   # fp32 GPU-vs-CPU max |d prob| (the README's oracle bound)
 STAGE_BOUND = {torch.float32: 2e-4, torch.bfloat16: 2.0 ** -5}   # unfused vs fused stage, of max(1, |fused|)
 SEED = 0
 STEADY_IMAGES = 256   # entries of [19]'s steady-state dataset of 480x640 JPEGs
+DECIDED_TIE = 1e-6    # [38]: a top-2 gap at or below it is a tie within fp32 rounding
 
 
 def log(*a):
@@ -814,24 +840,13 @@ def sha256(arr: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
 
 
-def write_png_grey(path: Path, arr: np.ndarray) -> None:
-    """An 8-bit greyscale PNG, filter 0 on every row (the card's machine has
-    no imaging library to write a label map with)."""
-    def chunk(tag, data):
-        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
-
-    h, w = arr.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), arr.astype(np.uint8)], 1).tobytes()
-    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
-                     + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
-
-
 def photo_dataset(tmp: str, n: int) -> str:
     """An ADE-150-layout dataset of n entries under tmp, each the committed
     480x640 4:2:0 JPEG beside one 480x640 PNG label map (classes in
     [0, 150), a band of 255): inputs of a real dataset's size, enough of them
     for a steady rate."""
     from catseg_tpu_torch.data import loader
+    from catseg_tpu_torch.data.image_write import save_image
 
     root = Path(tmp)
     img_dir = root / "ADEChallengeData2016/images/validation"
@@ -841,7 +856,7 @@ def photo_dataset(tmp: str, n: int) -> str:
     y, x = np.mgrid[0:480, 0:640]
     gt = (y // 24 * 11 + x // 40) % 150
     gt[200:232] = 255
-    write_png_grey(root / "gt.png", gt)
+    save_image(root / "gt.png", gt.astype(np.uint8))
     if not np.array_equal(loader.load_gt(str(root / "gt.png")), gt):
         raise AssertionError("the steady-state label map does not read back")
     for i in range(n):
@@ -1614,6 +1629,227 @@ def sam_tools_phase(smi, _build) -> None:
     torch.cuda.empty_cache()
 
 
+def visuals_phase(smi, _build) -> None:
+    """Phase 35: evaluate_benchmark(dump_visuals=4, dump_predictions=...) on the
+    fixture set, then tools.viz_results on its JSON."""
+    from catseg_tpu_torch.configs import eval_preset, vitb384
+    from catseg_tpu_torch.core.catseg import build_catseg
+    from catseg_tpu_torch.data import catalogs, loader
+    from catseg_tpu_torch.evaluation import harness
+    from catseg_tpu_torch.tools import viz_results
+
+    root = str(FIXTURES / "dataset")
+    cfg = eval_preset(vitb384())
+    spec = catalogs.get_dataset("ade150")
+    gts = {Path(i).stem: loader.load_gt(g).shape for i, g in loader.list_dataset(spec, root=root)}
+    log(f"[35] visuals: evaluate_benchmark(dump_visuals=4, dump_predictions) at eval_preset(vitb384()), bf16, "
+        f"T=150, on the {len(gts)}-image fixture set, then tools.viz_results")
+    model = build_catseg(cfg, seed=SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        vis, dump, viz = Path(tmp, "vis"), str(Path(tmp, "preds.json")), Path(tmp, "viz")
+        harness.evaluate_benchmark(model, cfg, "ade150", root=root, verbose=False)   # warm-up
+        t = time.perf_counter()
+        m, launches = run_counted(lambda: harness.evaluate_benchmark(
+            model, cfg, "ade150", root=root, dump_visuals=4, visuals_dir=str(vis), dump_predictions=dump,
+            verbose=False), _build)
+        secs = time.perf_counter() - t
+        missing = [k for k in _build.FORWARD if launches[k] == 0]
+        if missing or m["num_images"] != len(gts):
+            raise AssertionError(f"the visuals run never launched {missing}, or counted {m['num_images']} images")
+        names = sorted(f.name for f in vis.iterdir())
+        shapes = [loader.load_image(str(vis / f)).shape for f in names]
+        want = [(h, 3 * w, 3) for h, w in gts.values()]
+        if names != [f"{spec.name}_{n:04d}.jpg" for n in range(4)] or shapes != want:
+            raise AssertionError(f"visuals {names} of shapes {shapes}, want {want}")
+        t = time.perf_counter()
+        n = viz_results.main(["--input", dump, "--output", str(viz), "--benchmark", "ade150", "--data-root", root])
+        viz_s = time.perf_counter() - t
+        viz_shapes = {f.stem: loader.load_image(str(f)).shape for f in viz.iterdir()}
+        if n != len(gts) or viz_shapes != {k: (h, 3 * w, 3) for k, (h, w) in gts.items()}:
+            raise AssertionError(f"tools.viz_results wrote {n} panels of shapes {viz_shapes}")
+    log(f"    launches {launches}; 4 strips {shapes}; {len(gts)} images in {secs:.3f} s with the strips "
+        f"({m['images_per_sec']:.3f} images/s, the per-image loop); viz_results {n} panels in {viz_s:.3f} s; "
+        f"on {smi}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def demo_phase(smi, _build) -> None:
+    """Phase 36: tools.demo on two fixture JPEGs, --classes and --class-json,
+    sequential and --parallel."""
+    from catseg_tpu_torch.data import loader
+    from catseg_tpu_torch.tools import demo
+
+    inputs = [str(FIXTURES / "images/photo_420.jpg"), str(FIXTURES / "images/photo_444.jpg")]
+    log("[36] tools.demo at vitb384 (sliding, bf16) on two fixture JPEGs: --classes (5), --class-json ade150.json "
+        "sequential and --parallel")
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(extra, inp, out):
+            res, launches = run_counted(lambda: demo.main(["--input", *inp, "--output", str(Path(tmp, out)),
+                                                           *extra]), _build)
+            return res["preds"], launches, res["ms_per_image"]
+
+        few, few_l, few_ms = run(["--classes", "sky,tree,building,road,person"], inputs, "a")
+        seq, seq_l, seq_ms = run(["--class-json", "ade150.json"], inputs * 2, "b")
+        par, par_l, par_ms = run(["--class-json", "ade150.json", "--parallel"], inputs * 2, "c")
+        bad = [k for k in _build.FORWARD for launches in (few_l, seq_l, par_l) if launches[k] == 0]
+        shapes = [loader.load_image(str(Path(tmp, d, Path(p).name))).shape for d in "abc" for p in inputs]
+        want = [loader.load_image(p).shape for p in inputs] * 3
+        same = all(np.array_equal(par[p], seq[p]) for p in inputs)
+        if bad or shapes != want or not same or any(few[p].max() >= 5 for p in inputs):
+            raise AssertionError(f"tools.demo: never launched {bad}, overlays {shapes} (want {want}), --parallel "
+                                 f"== sequential {same}")
+    log(f"    launches (--class-json, sequential, 4 inputs) {seq_l}; --parallel argmax == sequential {same}; "
+        f"ms an image (first load to last overlay, model build excluded): --classes {few_ms:.1f} (2 inputs), "
+        f"--class-json {seq_ms:.1f}, --parallel {par_ms:.1f} (4 inputs); on {smi}")
+
+
+def viz_attn_phase(smi, _build) -> None:
+    """Phase 37: tools.viz_attn at vitb384, layers 3, 7, 11; fp32 maps
+    against the port on the CPU."""
+    from catseg_tpu_torch.configs import vitb384
+    from catseg_tpu_torch.core.catseg import build_catseg
+    from catseg_tpu_torch.data import loader
+    from catseg_tpu_torch.tools import viz_attn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    image_path = str(FIXTURES / "images/photo_420.jpg")
+    layers = (3, 7, 11)
+    log("[37] tools.viz_attn at vitb384 (CLIP ViT-B/16 at 384^2, fp32 maps), layers 3, 7, 11")
+    with tempfile.TemporaryDirectory() as tmp:
+        written, launches = run_counted(lambda: viz_attn.main(["--input", image_path, "--layers", "3,7,11",
+                                                               "--output", tmp]), _build)
+        shapes = [loader.load_gt(p).shape for p in written]
+    cfg = vitb384()
+    model = build_catseg(cfg, seed=SEED)
+    image = loader.load_image(image_path)
+    gpu = [m.cpu() for m in viz_attn.attention_maps(model, cfg, image, layers)]
+    t = time_ms(lambda: viz_attn.attention_maps(model, cfg, image, layers), reps=5)
+    cpu = viz_attn.attention_maps(model.cpu(), cfg, image, layers)
+    err = max((g - c).abs().max().item() for g, c in zip(gpu, cpu))
+    rows = max((g.sum(-1) - 1).abs().max().item() for g in gpu)
+    log(f"    launches {launches}; {len(written)} PNGs {shapes}; fp32 maps vs the CPU port max {err:.3e} "
+        f"(bound 1e-5), rows sum to 1 within {rows:.3e}; maps of 3 layers {t:.2f} ms on {smi}")
+    if launches["layer_norm"] == 0 or len(written) != 3 or not err <= 1e-5 or not rows <= 1e-5 or \
+            shapes != [(24 * 8, 12 * 24 * 8)] * 3:
+        raise AssertionError("tools.viz_attn: #1 not launched, maps off the CPU port's, or PNGs missing")
+    del model
+
+
+def export_phase(smi, _build) -> None:
+    """Phase 38: tools.export at vitb384 (bf16, T = 150) with --check, the
+    artifact against the live serve module and the Predictor; an fp32
+    export at T = 20 against the CPU port."""
+    from catseg_tpu_torch.configs import class_names, eval_preset, vitb384
+    from catseg_tpu_torch.core.catseg import CATSeg, build_catseg, compute_dtype, init_catseg_
+    from catseg_tpu_torch.infer import export as texport
+    from catseg_tpu_torch.infer.pipeline import Predictor, canvas_to_sliding_inputs
+    from catseg_tpu_torch.text.embed import forward_text_embeds
+    from catseg_tpu_torch.tools import export as export_cli
+
+    log("[38] tools.export at eval_preset(vitb384()), bf16, T=150, --canvas 1024x1024 --out-canvas 768x768 --check")
+    rng = np.random.RandomState(SEED)
+    image, exact = (rng.randint(0, 256, s, dtype=np.uint8) for s in ((512, 683, 3), (480, 960, 3)))
+
+    def on_canvas(img):
+        canvas = np.zeros((1024, 1024, 3), np.uint8)
+        canvas[:img.shape[0], :img.shape[1]] = img
+        return canvas, np.array(img.shape[:2], np.int32)
+
+    canvas, hw = on_canvas(image)
+    # 480x960: both resizes (to 640 and 384) take dyadic weights, exact in
+    # fp32 whatever the order of the sums, so the Predictor's F.interpolate
+    # and the artifact's in-graph weights give bit-equal CLIP inputs
+    canvas_x, hw_x = on_canvas(exact)
+    out_x = np.array([384, 768], np.int32)
+    names = class_names("ade150")
+    dev = torch.device("cuda")
+
+    def input_diff(pred, img):
+        c, h = on_canvas(img)
+        with torch.inference_mode():
+            a = canvas_to_sliding_inputs(torch.as_tensor(c, device=dev), torch.as_tensor(h, device=dev), pred.cfg)
+            b = pred._inputs([img])
+        return max((x - y[0]).abs().max().item() for x, y in zip(a, b))
+
+    def text(model, cfg, n):
+        with torch.inference_mode():
+            tf = forward_text_embeds(model.clip, n, cfg.prompt_ensemble_type, compute_dtype=compute_dtype(cfg))
+        return tf.clone()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve.pt2")
+        out = export_cli.main(["--config", "vitb384", "--class-json", "ade150.json", "--canvas", "1024x1024",
+                               "--out-canvas", "768x768", "--output", path, "--check"])
+        artifact = texport.load_exported(path)
+        cfg = eval_preset(vitb384())
+        model = build_catseg(cfg, seed=SEED)
+        spec = texport.ExportSpec((1024, 1024), (768, 768), len(names))
+        serve = texport.make_serve_fn(model, cfg, text(model, cfg, names), spec)
+        artifact(canvas, hw, hw)   # warm-up
+        got, launches = run_counted(lambda: artifact(canvas, hw, hw).cpu().numpy(), _build)
+        with torch.inference_mode():
+            live = serve(*(torch.as_tensor(a, device=dev) for a in (canvas, hw, hw))).cpu().numpy()
+        pred = Predictor(model, cfg, names)
+        agree = float((got[:512, :683] == pred.predict_argmax(image, (512, 683))).mean())
+        got_x = artifact(canvas_x, hw_x, out_x).cpu().numpy()
+        same_x = got_x[:384, :768] == pred.predict_argmax(exact, tuple(out_x))
+        # pixels the Predictor's own fp32 resize of its bf16 probabilities
+        # decides: a top-2 gap above fp32 rounding (an exact tie may go to
+        # either class, and the two resizes round apart)
+        top2 = torch.from_numpy(pred.predict(exact, tuple(out_x))["sem_seg"]).topk(2, dim=0).values
+        decided = (top2[0] - top2[1] > DECIDED_TIE).numpy()
+        agree_x, agree_x_all, decided_x = float(same_x[decided].mean()), float(same_x.mean()), float(decided.mean())
+        diffs = input_diff(pred, image), input_diff(pred, exact)
+        art_ms = time_ms(lambda: artifact(canvas, hw, hw), reps=10)
+        pred_ms = time_ms(lambda: pred.predict_argmax(image, (512, 683)), reps=10)
+        del artifact, serve, pred, model
+        os.remove(path)
+        torch.cuda.empty_cache()
+        missing = [k for k in _build.FORWARD if launches[k] == 0]
+        log(f"    export {out['export_s']:.1f} s, artifact {out['mb']:.1f} MB, load {out['load_s']:.1f} s, --check "
+            f"{out['check']}; launches in the artifact's run {launches}; artifact == live serve module "
+            f"{np.array_equal(got, live)}; artifact {art_ms:.2f} ms, predict_argmax {pred_ms:.2f} ms (medians of "
+            f"10) on {smi}")
+        log(f"    argmax agreement with Predictor.predict_argmax: 480x960 (CLIP inputs of the two paths max |d| "
+            f"{diffs[1]:.3e}) {agree_x:.5f} of the {decided_x:.4f} of pixels whose top-2 gap exceeds {DECIDED_TIE:.0e} "
+            f"(bound 0.99), {agree_x_all:.5f} of all (the rest are exact ties of bf16 probabilities); 512x683 (inputs "
+            f"max |d| {diffs[0]:.3e}: the Predictor's F.interpolate and the artifact's weight products round apart, "
+            f"and the random bf16 model's argmax follows any rounding) {agree:.5f}, read only")
+        if missing or not np.array_equal(got, live) or not agree_x >= 0.99 or decided_x < 0.1 or diffs[1] != 0 \
+                or got[512:].any() or got[:, 683:].any():
+            raise AssertionError(f"the artifact never launched {missing}, differs from the live serve module, or "
+                                 "disagrees with the Predictor on bit-equal inputs")
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg32 = eval_preset(vitb384(compute_dtype="float32"))
+        cpu_model = init_catseg_(CATSeg(cfg32), SEED).eval()
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        spec32 = texport.ExportSpec((1024, 1024), (768, 768), 20)
+        path32 = os.path.join(tmp, "serve32.pt2")
+        t = time.perf_counter()
+        texport.export_serving(gpu_model, cfg32, text(gpu_model, cfg32, names[:20]), spec32, path32)
+        exp32_s = time.perf_counter() - t
+        got32, launches32 = run_counted(lambda: texport.load_exported(path32)(canvas, hw, hw).cpu().numpy(), _build)
+        os.remove(path32)
+        with torch.inference_mode():
+            cpu32 = texport.make_serve_fn(cpu_model, cfg32, text(cpu_model, cfg32, names[:20]), spec32)(
+                torch.from_numpy(canvas), torch.from_numpy(hw), torch.from_numpy(hw)).numpy()
+        agree32 = float((got32 == cpu32)[:512, :683].mean())
+        pred32 = Predictor(gpu_model, cfg32, names[:20])
+        agree32_pred = float((got32[:512, :683] == pred32.predict_argmax(image, (512, 683))).mean())
+        log(f"    fp32 export at T=20 in {exp32_s:.1f} s; launches {launches32}; argmax agreement with the CPU port's "
+            f"serve module {agree32:.5f} (bound 0.999), with the card's fp32 Predictor.predict_argmax "
+            f"{agree32_pred:.5f} (bound 0.999)")
+        if not agree32 >= 0.999 or not agree32_pred >= 0.999 or any(launches32[k] == 0 for k in _build.FORWARD):
+            raise AssertionError("the fp32 artifact disagrees with the CPU port or the Predictor, or skipped a kernel")
+        del pred32
+        del gpu_model, cpu_model
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -1797,6 +2033,10 @@ def main() -> int:
     ver14_train_phase(dev, smi, _build)
     fusion_train_parity_phase(dev)
     sam_tools_phase(smi, _build)
+    visuals_phase(smi, _build)
+    demo_phase(smi, _build)
+    viz_attn_phase(smi, _build)
+    export_phase(smi, _build)
 
     kernels = []
     for name, route, source, replaces in selfcheck.KERNELS:

@@ -15,6 +15,8 @@ three synthetic JPEG / PNG pairs of different sizes with an ignore band.
 - ``TTAPredictor``: probabilities at two small scales with flip within 5e-4
   of catseg_tpu's (the README's oracle bound).
 - The COCO dump: records equal to catseg_tpu's.
+- ``dump_visuals``: catseg_tpu's file names, strips equal to its
+  ``save_visual``'s once decoded.
 """
 
 import json
@@ -29,6 +31,7 @@ import jax
 from catseg_tpu.data import catalogs as jcatalogs
 from catseg_tpu.evaluation import coco_dump as jdump
 from catseg_tpu.evaluation import harness as jharness
+from catseg_tpu.infer import visualize as jvis
 from catseg_tpu.infer.pipeline import Predictor as JPredictor
 from catseg_tpu.infer.tta import TTAPredictor as JTTAPredictor
 
@@ -133,9 +136,27 @@ def test_harness_matches_jax_and_batch_1_equals_batch_2(dataset, params, model, 
     assert runs[1]["_conf"].sum() == 3 * 256 * 256   # every image counted on the 256-step out canvas
 
 
-def test_harness_refuses_unported_options(dataset, model):
-    with pytest.raises(NotImplementedError, match="A7"):
-        tharness.evaluate_benchmark(model, mini_cfg_port(), "mini_synth", root=str(dataset), dump_visuals=1)
+def test_harness_refuses_unported_options(dataset, model, tmp_path, monkeypatch):
+    """``dump_visuals`` is ported (it raised until the visuals were): the
+    per-image loop writes catseg_tpu's file names, and each strip decodes
+    to the pixels of catseg_tpu's ``save_visual`` of the same prediction."""
+    seen = _recording(tharness, monkeypatch)
+    out = tmp_path / "vis"
+    cfg = mini_cfg_port()
+    m = tharness.evaluate_benchmark(model, cfg, "mini_synth", root=str(dataset), dump_visuals=2, visuals_dir=str(out),
+                                    verbose=False)
+    assert m["num_images"] == 3 and len(seen) == 3    # one update an image: the per-image loop
+    assert sorted(p.name for p in out.iterdir()) == ["mini_synth_0000.jpg", "mini_synth_0001.jpg"]
+    pairs = tharness.list_dataset(tcatalogs.get_dataset("mini_synth"), root=str(dataset))
+    for n in range(2):
+        img = tharness.resize_shortest_edge(tharness.load_image(pairs[n][0]), cfg.min_size_test, cfg.max_size_test)
+        gt = tharness.load_gt(pairs[n][1])
+        H, W = gt.shape
+        jvis.save_visual(np.asarray(Image.fromarray(img).resize((W, H))), seen[n][0][:H, :W], gt,
+                         str(tmp_path / "ref.jpg"), len(NAMES), 255)
+        got = np.asarray(Image.open(out / f"mini_synth_{n:04d}.jpg"))
+        assert got.shape == (H, 3 * W, 3)
+        assert np.array_equal(got, np.asarray(Image.open(tmp_path / "ref.jpg")))
 
 
 def test_tta_probs_match_jax(params, model):
