@@ -9,13 +9,25 @@ numpy Generator; exact RNG parity with detectron2 is neither possible nor
 needed — the distributions match.  The draws come in the JAX module's order,
 and decode and resizes give its bytes (``data.image_io``, ``data.resize``), so
 one seed gives the JAX package's crops bit for bit.
+
+Data parallelism: ``train_batches(..., rank=r, world_size=n)`` yields rank
+r's contiguous slice of each global batch, equal to that slice of the
+one-process batch of the same seed.  Every rank makes every draw in order,
+but for another rank's sample it only replays them (:func:`skip_sample`):
+the draws need the resized size, which the image's header gives, and the
+crop's category-area retries (off in the released configs) need the label
+map, which is then decoded.  The host cost of a skipped sample is one header
+read, where decoding it would cost a JPEG decode, two resizes and the colour
+augmentation.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .loader import load_gt, load_image, resize_shortest_edge
+from ..parallel.mesh import A6B
+from .image_io import probe_size
+from .loader import load_gt, load_image, resize_shortest_edge, shortest_edge_size
 from .resize import resize_nearest
 
 
@@ -159,13 +171,50 @@ def train_sample(
     return np.ascontiguousarray(img), np.ascontiguousarray(gt)
 
 
-def train_batches(pairs, batch_size: int, rng: np.random.Generator, **kw):
-    """Infinite generator of (images (B,S,S,3), gts (B,S,S)) batches."""
+def skip_sample(
+    image_path: str,
+    gt_path: str,
+    rng: np.random.Generator,
+    crop_size: int = 384,
+    min_size: tuple[int, ...] = (384,),
+    color_aug: bool = True,
+    ignore: int = 255,
+    single_category_max_area: float = 1.0,
+    max_size: int = 1333,
+) -> None:
+    """Make exactly the draws :func:`train_sample` makes for this pair,
+    without decoding the image: its resized size comes from the header."""
+    short = int(rng.choice(min_size))
+    hw = shortest_edge_size(*probe_size(image_path), short, max_size)
+    if single_category_max_area < 1.0:
+        gt = _resize_gt(load_gt(gt_path), hw)      # the retries read the crop's labels
+    else:
+        gt = np.broadcast_to(np.uint8(0), hw)      # only the shape is read
+    random_crop_category_area(gt, gt, crop_size, rng, ignore, single_category_max_area)
+    if color_aug:
+        _color_aug_decisions(rng)
+    rng.integers(2)
+
+
+def train_batches(pairs, batch_size: int, rng: np.random.Generator, rank: int = 0, world_size: int = 1, **kw):
+    """Infinite generator of (images (b,S,S,3), gts (b,S,S)) batches: rank
+    ``rank``'s contiguous slice, b = batch_size / world_size, of each global
+    batch of ``batch_size`` (the whole batch at world_size 1).  A batch that
+    does not divide over the ranks raises (ROADMAP A6b)."""
+    if batch_size % world_size:
+        raise NotImplementedError(f"a batch of {batch_size} does not divide over {world_size} ranks: {A6B}")
+    local = batch_size // world_size
+    mine = range(rank * local, (rank + 1) * local)
     idx = np.arange(len(pairs))
     while True:
         rng.shuffle(idx)
         for i in range(0, len(idx) - batch_size + 1, batch_size):
-            samples = [train_sample(*pairs[j], rng=rng, **kw) for j in idx[i : i + batch_size]]
+            samples = []
+            for k, j in enumerate(idx[i : i + batch_size]):
+                if k in mine:
+                    samples.append(train_sample(*pairs[j], rng=rng, **kw))
+                else:
+                    skip_sample(*pairs[j], rng=rng, **kw)
             imgs = np.stack([s[0] for s in samples])
             gts = np.stack([s[1] for s in samples])
             yield imgs, gts

@@ -14,9 +14,15 @@ duplicate image to keep XLA's shapes).  ``dump_visuals=N`` writes the first
 N images' [image | prediction | GT] strips as
 ``{visuals_dir}/{benchmark}_{n:04d}.jpg`` (``infer.visualize.save_visual``,
 the input bicubic-resized back to the GT's size) from the per-image loop,
-as the JAX package does.  Not ported: the mesh-sharded branch (ROADMAP A6;
-the port runs on its Predictor's one device and says so when more GPUs are
-visible).
+as the JAX package does.
+
+Inside a process group of more than one rank (``parallel.mesh``) the
+sliding-window benchmark without TTA or dumps runs sharded, under catseg_tpu's
+conditions: each rank evaluates its share of the images
+(``evaluation.distributed.evaluate_sharded``, the images of other ranks never
+decoded) and one ``all_reduce`` sums the matrices, so every rank returns the
+same metrics; only rank 0 prints.  A multi-rank run that meets TTA, a dump
+or the whole-image branch says that it goes sequential on every rank.
 """
 
 from __future__ import annotations
@@ -29,12 +35,13 @@ import numpy as np
 import torch
 
 from ..configs import CATSegConfig, eval_preset
-from ..core.catseg import CATSeg
+from ..core.catseg import CATSeg, compute_dtype
 from ..data.catalogs import dataset_root, get_dataset, load_class_names
 from ..data.loader import Prefetcher, list_dataset, load_gt, load_image, probe_sizes, resize_shortest_edge
 from ..data.resize import resize_bicubic_u8
 from ..infer.pipeline import Predictor, resize_argmax
 from ..infer.visualize import save_visual
+from ..parallel.mesh import make_mesh, rank, world_size
 from .miou import ConfusionAccumulator
 
 
@@ -53,6 +60,36 @@ def _finish(acc: ConfusionAccumulator, spec, n: int, t0: float, verbose: bool, t
         print(f"[{spec.name}]{tag} mIoU {metrics['mIoU']:.2f} fwIoU {metrics['fwIoU']:.2f} "
               f"mACC {metrics['mACC']:.2f} pACC {metrics['pACC']:.2f} "
               f"({metrics['images_per_sec']:.2f} im/s)")
+    return metrics
+
+
+def _evaluate_benchmark_sharded(model, cfg, spec, pairs, load, out_canvas, verbose, per_device_batch) -> dict:
+    """The rank-sharded loop: this rank's images through the batched
+    sliding path, one ``all_reduce`` of the matrix."""
+    from ..text.embed import forward_text_embeds
+    from .distributed import evaluate_sharded, owner
+    from .miou import semseg_metrics
+
+    mesh = make_mesh(devices=[next(model.parameters()).device])
+    with torch.inference_mode():
+        text_feats = forward_text_embeds(model.clip, load_class_names(spec.class_json), cfg.prompt_ensemble_type,
+                                         compute_dtype=compute_dtype(cfg))
+    me, n = rank(), mesh.ranks
+    # another rank's image is never decoded: its slot carries None
+    items = Prefetcher(list(enumerate(pairs)),
+                       lambda ip: load(ip[1]) if owner(ip[0], n, per_device_batch) == me else None)
+    t0 = time.time()
+    cm = evaluate_sharded(model, cfg, mesh, items, text_feats, out_canvas=out_canvas,
+                          num_classes=spec.num_classes, ignore=spec.ignore_label,
+                          clamp_background=spec.evaluator == "sem_seg_background",
+                          per_device_batch=per_device_batch)
+    metrics = semseg_metrics(cm)
+    metrics["_conf"] = cm
+    metrics["num_images"] = len(pairs)
+    metrics["images_per_sec"] = len(pairs) / (time.time() - t0)
+    if verbose and me == 0:
+        print(f"[{spec.name}] ({n}-way sharded) mIoU {metrics['mIoU']:.2f} fwIoU {metrics['fwIoU']:.2f} "
+              f"mACC {metrics['mACC']:.2f} pACC {metrics['pACC']:.2f} ({metrics['images_per_sec']:.2f} im/s)")
     return metrics
 
 
@@ -121,14 +158,25 @@ def evaluate_benchmark(
         gt = load_gt(pair[1])
         return resize_shortest_edge(img, cfg.min_size_test, cfg.max_size_test), gt
 
-    # the GT carries the original size: header-only reads, cached beside the dataset
+    # the GT carries the original size: header-only reads, cached beside the
+    # dataset (written by rank 0 alone)
     cache_path = os.path.join(root or dataset_root(), ".catseg_cache", f"{spec.name}_gt_sizes.json")
-    Hc, Wc = _canvas(probe_sizes([g for _, g in pairs], cache_path=cache_path))
+    Hc, Wc = _canvas(probe_sizes([g for _, g in pairs], cache_path=cache_path if rank() == 0 else None))
+    verbose = verbose and rank() == 0
 
     device = next(model.parameters()).device
-    if device.type == "cuda" and torch.cuda.device_count() > 1 and verbose:
-        print(f"[harness] note: {torch.cuda.device_count()} GPUs visible; the port evaluates on {device} alone "
-              "(sharded evaluation waits for ROADMAP A6)", flush=True)
+    n_ranks = world_size()
+    if sliding and not tta and dump_visuals == 0 and dump_predictions is None and n_ranks > 1:
+        return _evaluate_benchmark_sharded(model, cfg, spec, pairs, load, (Hc, Wc), verbose, max(1, eval_batch))
+    if n_ranks > 1 and verbose:
+        # never fall back silently: a multi-GPU eval quietly going sequential
+        # is the failure mode that wastes the big runs
+        blockers = [flag for flag, on in [
+            ("--tta", tta), ("--dump-visuals", dump_visuals != 0),
+            ("--dump-predictions", dump_predictions is not None),
+            ("whole-image mode (no sliding)", not sliding)] if on]
+        print(f"[harness] WARNING: {n_ranks} ranks, but {', '.join(blockers)} forces the sequential path: every "
+              "rank evaluates every image (per-image host-side output)", flush=True)
     predictor = Predictor(model, cfg, class_names, device=device)
     if tta:
         from ..infer.tta import TTAPredictor

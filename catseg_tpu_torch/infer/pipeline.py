@@ -52,15 +52,28 @@ def _resize_cm(x: torch.Tensor, out_hw) -> torch.Tensor:
     return resize_bilinear(x.permute(0, 2, 3, 1), out_hw).permute(0, 3, 1, 2)
 
 
+def sliding_tiles(image640s: torch.Tensor, image_globals: torch.Tensor, cfg: CATSegConfig) -> torch.Tensor:
+    """(n, 640, 640, 3) + (n, 384, 384, 3) -> the ((nt + 1) n, 384, 384, 3)
+    tile batch: every image's nt window tiles, tile-major, then the n
+    global views."""
+    return torch.cat([unfold_tiles(image640s, cfg.sw_kernel, cfg.sw_stride), image_globals], dim=0)
+
+
 def sliding_window_probs_batch(model: CATSeg, image640s: torch.Tensor, image_globals: torch.Tensor,
                                text_feats: torch.Tensor, cfg: CATSegConfig) -> torch.Tensor:
     """(n, 640, 640, 3) + (n, 384, 384, 3) raw RGB -> (n, T, 640, 640)
     class-major sigmoid probabilities in the carrier dtype."""
+    logits = model(sliding_tiles(image640s, image_globals, cfg), text_feats, cfg)   # ((nt+1)*n, T, 96, 96) fp32
+    return sliding_tail(logits, image640s.shape[0], cfg)
+
+
+def sliding_tail(logits: torch.Tensor, n: int, cfg: CATSegConfig) -> torch.Tensor:
+    """The tile batch's ((nt + 1) n, T, h, w) logits -> (n, T, 640, 640)
+    probabilities: per tile a bilinear resize to the kernel and the sigmoid,
+    the fold with the overlap divisor, the average with the upsampled global
+    view."""
     k, s, out = cfg.sw_kernel, cfg.sw_stride, cfg.sw_out_res
-    n = image640s.shape[0]
     nt = ((out - k) // s + 1) ** 2
-    batch = torch.cat([unfold_tiles(image640s, k, s), image_globals], dim=0)
-    logits = model(batch, text_feats, cfg)                   # ((nt+1)*n, T, 96, 96) fp32
     pdt = compute_dtype(cfg)
     fast = pdt == torch.bfloat16
     div = fold_divisor((out, out), k, s, device=logits.device)[..., 0]
@@ -197,15 +210,29 @@ class Predictor:
     caller asks for the CPU; without a card the default raises.  Unlike
     catseg_tpu's Predictor it takes no ``input_canvas`` (nor
     ``predict_argmax``'s ``canvas``): those fix XLA's static shapes, and
-    here every image runs at its own size.  ``mesh`` (tile-sharded latency)
-    waits for the port's multi-GPU work (ROADMAP A6).  ``cfg`` may differ
+    here every image runs at its own size.  A ``mesh``
+    (``parallel.mesh.make_mesh``) whose data axis holds more than one
+    device splits every sliding-window tile batch over its devices
+    (``parallel.latency``: per-image latency); the Predictor's device is
+    then the mesh's first, where ``device`` must point.  ``cfg`` may differ
     from ``model.cfg`` only in run-time fields (``eval_preset``'s sliding
     window and pooling, the dtype); an architecture field raises."""
 
     def __init__(self, model: CATSeg, cfg: CATSegConfig, class_names: list[str],
-                 text_feats: torch.Tensor | np.ndarray | None = None, device="cuda"):
+                 text_feats: torch.Tensor | np.ndarray | None = None, device="cuda", mesh=None):
         check_same_architecture(cfg, model.cfg)
         self.device = resolve_device(device)
+        self._tile_sharded = None
+        if mesh is not None and mesh.shape["data"] > 1:
+            from ..parallel.latency import make_tile_sharded_forward
+
+            here = self.device
+            if here.type == "cuda" and here.index is None:
+                here = torch.device("cuda", torch.cuda.current_device())
+            if mesh.devices[0] != here:
+                raise ValueError(f"Predictor(mesh=): the mesh's first device {mesh.devices[0]} is not device "
+                                 f"{self.device}")
+            self._tile_sharded = make_tile_sharded_forward(mesh)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.class_names = list(class_names)
@@ -226,7 +253,10 @@ class Predictor:
 
     def _probs_cm(self, images: list[np.ndarray]) -> torch.Tensor:
         img640s, imgks = self._inputs(images)
-        return sliding_window_probs_batch(self.model, img640s, imgks, self.text_feats, self.cfg)
+        if self._tile_sharded is None:
+            return sliding_window_probs_batch(self.model, img640s, imgks, self.text_feats, self.cfg)
+        logits = self._tile_sharded(self.model, sliding_tiles(img640s, imgks, self.cfg), self.text_feats, self.cfg)
+        return sliding_tail(logits, len(images), self.cfg)
 
     def _image(self, image: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(image), device=self.device).float()

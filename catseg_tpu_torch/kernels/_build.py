@@ -73,15 +73,18 @@ _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _lib = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()   # the tile-sharded path launches from one thread per device
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def count(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _digest() -> str:

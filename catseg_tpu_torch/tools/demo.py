@@ -8,7 +8,9 @@ Open-vocabulary segmentation of any images against any class list: the
 sliding-window Predictor (``--tta``: D2's scales x flip), a colour overlay
 written under the input's basename (``.jpg`` / ``.png`` by its suffix), the
 five most frequent classes printed.  ``--parallel`` pipelines host prep with
-the card (``AsyncPredictor``).  ``--video-input f.mp4`` / ``--webcam N``
+the card (``AsyncPredictor``); ``--shard-tiles`` splits each image's tiles
+over every visible GPU, one model replica a GPU (``parallel.latency``), and
+with one device runs unsharded and says so.  ``--video-input f.mp4`` / ``--webcam N``
 (demo/demo.py:31-47,129-194) segment every frame through OpenCV, which they
 import and which neither the CPU test box nor the card's machine has: without
 it they exit naming the missing package.
@@ -29,6 +31,7 @@ from ..data.loader import load_image, resize_shortest_edge
 from ..infer.pipeline import Predictor, resize_argmax
 from ..infer.tta import TTAPredictor
 from ..infer.visualize import build_palette, overlay
+from ..parallel.mesh import make_mesh
 from .common import add_device_arg, load_params, resolve_config
 
 
@@ -63,7 +66,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--parallel", action="store_true",
                     help="pipeline host prep with device execution (AsyncPredictor)")
     ap.add_argument("--shard-tiles", action="store_true",
-                    help="shard each image's sliding-window tiles over all devices (multi-GPU: ROADMAP A6)")
+                    help="split each image's sliding-window tiles over every visible GPU (per-image latency)")
     ap.add_argument("--alpha", type=float, default=0.5)
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_args(argv)
@@ -76,16 +79,16 @@ def main(argv=None) -> dict:
         raise SystemExit("pass --classes or --class-json")
     video = args.video_input is not None or args.webcam is not None
     cv2 = _cv2() if video else None
+    mesh = None
     if args.shard_tiles:
-        n_dev = torch.cuda.device_count() if args.device == "cuda" else 1
-        if n_dev > 1:
-            raise NotImplementedError(f"--shard-tiles over {n_dev} GPUs: tile-sharded latency waits for the port's "
-                                      "multi-GPU work (ROADMAP A6)")
-        print("--shard-tiles: only one device visible, running unsharded")
+        if args.device == "cuda" and torch.cuda.device_count() > 1:
+            mesh = make_mesh()
+        else:
+            print("--shard-tiles: only one device visible, running unsharded")
 
     cfg = resolve_config(args.config, args.overrides).replace(sliding_window=True, pooling_size=(1, 1))
     model = load_params(args.checkpoint, cfg, device=args.device)
-    predictor = Predictor(model, cfg, class_names, device=args.device)
+    predictor = Predictor(model, cfg, class_names, device=args.device, mesh=mesh)
     if args.tta:
         predictor = TTAPredictor(predictor)
     palette = build_palette(len(class_names))

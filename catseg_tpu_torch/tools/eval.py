@@ -5,7 +5,10 @@
 
 Runs each benchmark with the eval.sh protocol (sliding window, pooling
 [1,1], the benchmark's class JSON; datasets under $DETECTRON2_DATASETS or
---data-root) and prints a copypaste line per benchmark.
+--data-root) and prints a copypaste line per benchmark.  With more than one
+GPU visible it starts one worker per GPU in an NCCL process group
+(``parallel.mesh.spawn``), and each benchmark runs sharded over the ranks
+(``evaluation.distributed``); rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -14,14 +17,26 @@ import argparse
 import contextlib
 import json
 
+import torch
+
 from ..evaluation.harness import evaluate_benchmark
+from ..parallel.mesh import rank, spawn
 from .common import add_device_arg, load_params, resolve_config
 
 DEFAULT_BENCHMARKS = "ade150,ade847,voc20,voc20b,pc59,pc459"
 
 
 def main(argv=None) -> dict:
-    """Returns {benchmark: the harness's metrics dict, ``_conf`` included}."""
+    """Returns {benchmark: the harness's metrics dict, ``_conf`` included}
+    (rank 0's, every rank's being the same)."""
+    args = _parser().parse_args(argv)
+    n = torch.cuda.device_count() if args.device == "cuda" else 1
+    if n > 1:
+        return spawn(_run, n, args, backend="nccl")[0]
+    return _run(args)
+
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     add_device_arg(ap)
     ap.add_argument("--config", default="vitb384")
@@ -43,8 +58,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler chrome trace of the first benchmark here")
     ap.add_argument("overrides", nargs="*", help="config KEY=VALUE overrides")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def _run(args) -> dict:
+    """The run of one rank (of one process outside a group)."""
+    main_rank = rank() == 0
     cfg = resolve_config(args.config, args.overrides)
     model = load_params(args.checkpoint, cfg, device=args.device)
 
@@ -74,12 +93,14 @@ def main(argv=None) -> dict:
         full[bench] = m
         results[bench] = {k: float(v) for k, v in m.items()
                           if not k.startswith("_") and getattr(v, "ndim", 0) == 0}
+        if not main_rank:
+            continue
         print(f"copypaste: {bench}: mIoU={m['mIoU']:.4f},fwIoU={m['fwIoU']:.4f},"
               f"mACC={m['mACC']:.4f},pACC={m['pACC']:.4f}")
         if "hIoU" in m:
             print(f"copypaste-gzero: {bench}: seen={m['mIoU_seen']:.4f},"
                   f"unseen={m['mIoU_unseen']:.4f},hIoU={m['hIoU']:.4f}")
-    if args.output:
+    if args.output and main_rank:
         with open(args.output, "w") as f:
             json.dump(results, f, indent=2)
     return full

@@ -10,8 +10,18 @@ The fusion families train as catseg_tpu's step does: Ver31 with one BCE
 on its logits (DINO frozen), Ver14 with the sum of the BCEs of its coarse
 proposals and its refined masks (the SAM encoder frozen).
 
-Not ported (it raises rather than running something else): data
-parallelism over a device mesh (ROADMAP A6 / A9).
+Data parallelism (catseg_tpu's shard_map step, the reference's DDP): inside
+a process group (``parallel.mesh``) each rank runs the
+unchanged single-GPU step on its slice of the global batch of
+``cfg.batch_size``, and one ``all_reduce`` averages the loss and every
+trainable gradient before the clip, as catseg_tpu's ``pmean`` precedes
+``tx.update``.  The gradients travel as one flat fp32 buffer; a parameter
+that got no gradient on any rank (an unused one) keeps none, as in one
+process, so frozen encoders and recomputed blocks need nothing of DDP's
+``find_unused_parameters``.  ``bce_loss`` is a plain mean over equal-shaped
+elements, so the mean of the ranks' means is the global mean.  Only rank 0
+writes metrics.json and checkpoints; a SIGINT or SIGTERM on any rank stops
+every rank at the same step boundary (one ``all_reduce`` of a flag).
 """
 
 from __future__ import annotations
@@ -23,10 +33,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import CATSegConfig
 from ..core.catseg import CATSeg, bce_loss, build_catseg, compute_dtype
 from ..core.clip import encode_text, truncate_context
+from ..parallel.mesh import A6B, rank, replicate, world_size
 from .optim import TrainOptimizer
 
 
@@ -71,13 +83,58 @@ def train_loss(cfg: CATSegConfig, model: CATSeg, tokens: torch.Tensor, images: t
     return bce_loss(model(images.float(), emb[:, None, :]), targets, cfg.ignore_value, hw)
 
 
+@torch.no_grad()
+def all_reduce_mean_(loss: torch.Tensor, params: list[torch.Tensor]) -> torch.Tensor:
+    """Average ``loss`` and the ``.grad`` of ``params`` over the default
+    group, in place, by one ``all_reduce`` of a flat fp32 buffer (a presence
+    flag a parameter beside its gradient).  A parameter without a gradient on
+    every rank keeps ``grad=None``; one with a gradient on some ranks only
+    raises.  Returns the mean loss."""
+    n = world_size()
+    dev = loss.device
+    have = [p.grad is not None for p in params]
+    sizes = [p.numel() if h else 0 for p, h in zip(params, have)]
+    flat = torch.zeros(1 + len(params) + sum(sizes), dtype=torch.float32, device=dev)
+    flat[0] = loss.float()
+    flat[1:1 + len(params)] = torch.tensor(have, dtype=torch.float32, device=dev)
+    grads = flat[1 + len(params):].split(sizes)
+    for g, p, h in zip(grads, params, have):
+        if h:
+            g.copy_(p.grad.reshape(-1))
+    dist.all_reduce(flat)
+    counts = flat[1:1 + len(params)].round().long().tolist()
+    if any(c not in (0, n) for c in counts) or any(c == 0 and h for c, h in zip(counts, have)):
+        raise RuntimeError("a trainable parameter got a gradient on some ranks only: the ranks ran different "
+                           "programs")
+    flat.div_(n)
+    for g, p, h in zip(grads, params, have):
+        if h:
+            p.grad.copy_(g.view_as(p.grad))
+    return flat[0]
+
+
 def make_train_step(cfg: CATSegConfig, optimizer: TrainOptimizer, text_tokens: np.ndarray, mesh=None):
     """Returns step(model, images, targets) -> loss: forward, backward, the
     clip and the AdamW update.  text_tokens: (T, 77) token ids of the train
-    class list, cut to the longest prompt's context once here."""
-    if mesh is not None:
-        raise NotImplementedError("training over a device mesh (data parallelism) is not ported yet "
-                                  "(ROADMAP A6 / A9)")
+    class list, cut to the longest prompt's context once here.
+
+    Inside a process group the step is data-parallel over its ranks (at
+    world size 1 too, where the all_reduce changes nothing): ``images`` /
+    ``targets`` are this rank's slice (``parallel.mesh.shard_batch``, or
+    ``data.mapper.train_batches(rank=, world_size=)``) and the returned loss
+    is the global mean.  ``mesh``, if given, must be that group's
+    (``parallel.mesh.make_mesh()``): training runs one process per device,
+    so a mesh of several devices in one process raises, as does a global
+    batch ``cfg.batch_size`` that does not divide over the ranks (ROADMAP
+    A6b)."""
+    n = world_size()
+    grouped = dist.is_initialized()
+    if mesh is not None and (len(mesh.devices) != 1 or mesh.ranks != n):
+        raise NotImplementedError(f"training over {mesh.size} devices runs one process per device "
+                                  f"(parallel.mesh.spawn); this mesh holds {len(mesh.devices)} in one process "
+                                  f"of a group of {n}")
+    if cfg.batch_size % n:
+        raise NotImplementedError(f"a global batch of {cfg.batch_size} does not divide over {n} ranks: {A6B}")
     tokens = np.ascontiguousarray(truncate_context(np.asarray(text_tokens)), dtype=np.int64)
     on_device = {}
 
@@ -89,6 +146,8 @@ def make_train_step(cfg: CATSegConfig, optimizer: TrainOptimizer, text_tokens: n
         targets = torch.as_tensor(targets).to(dev)
         loss = train_loss(cfg, model, on_device[dev], images, targets)
         loss.backward()
+        if grouped:
+            loss = all_reduce_mean_(loss, optimizer.trainable)
         optimizer.step()
         return loss.detach()
 
@@ -101,12 +160,19 @@ def train(state: TrainState, cfg: CATSegConfig, data_iter, text_tokens: np.ndarr
     """The training loop: step, log scalars to metrics.json, periodic full-state
     checkpoints (resume-capable), optional periodic eval (eval_fn(model) ->
     dict of scalars).  SIGINT / SIGTERM are deferred to step boundaries and
-    leave an interrupt checkpoint."""
+    leave an interrupt checkpoint.  In a process group (``data_iter``
+    yielding this rank's slices) rank 0's weights are broadcast first, every
+    rank steps together, and only rank 0 writes."""
     from ..utils.events import EventWriter
     from .checkpoint import save_train_state
 
     step_fn = make_train_step(cfg, state.optimizer, text_tokens, mesh=mesh)
-    writer = EventWriter(output_dir)
+    main = rank() == 0
+    writer = EventWriter(output_dir if main else None, echo=main)
+    grouped = dist.is_initialized()
+    if grouped:
+        replicate(state.model)
+    dev = next(state.model.parameters()).device
     n = num_steps if num_steps is not None else cfg.max_iter - state.step
     t0 = time.time()
     loss = None
@@ -120,22 +186,31 @@ def train(state: TrainState, cfg: CATSegConfig, data_iter, text_tokens: np.ndarr
     if in_main_thread:
         for s in (signal.SIGINT, signal.SIGTERM):
             prev_handlers[s] = signal.signal(s, lambda signum, frame: pending.append(signum))
+
+    def stop() -> bool:
+        # every rank learns of a signal that reached any rank, at the same boundary
+        if not grouped:
+            return bool(pending)
+        flag = torch.tensor([float(bool(pending))], device=dev)
+        dist.all_reduce(flag)
+        return flag.item() > 0
+
     try:
         for i in range(n):
-            if pending:
+            if stop():
                 raise KeyboardInterrupt
             images, targets = next(data_iter)
             loss = step_fn(state.model, images, targets)
             state.step += 1
             if log_every and (i + 1) % log_every == 0:
                 writer.write(state.step, loss_sem_seg=float(loss), it_per_sec=(i + 1) / (time.time() - t0))
-            if output_dir and state.step % checkpoint_every == 0:
+            if main and output_dir and state.step % checkpoint_every == 0:
                 save_train_state(output_dir, state.model, state.optimizer, state.step)
             if eval_fn is not None and state.step % eval_every == 0:
                 metrics = eval_fn(state.model)
                 writer.write(state.step, **{f"eval/{k}": v for k, v in metrics.items()})
     except KeyboardInterrupt:
-        if output_dir:
+        if main and output_dir:
             save_train_state(output_dir, state.model, state.optimizer, state.step)
             writer.write(state.step, interrupted=1.0)
         raise

@@ -3,7 +3,8 @@
 The port's own copy of catseg_tpu/utils/events.py (no JAX in it): the
 functional replacement for detectron2's EventStorage/metrics.json, one JSON
 object per logged step appended to OUTPUT_DIR/metrics.json, plus a human
-line to stdout/log.txt.
+line to stdout/log.txt.  In data-parallel training only rank 0 writes:
+the others pass no directory and ``echo=False``.
 """
 
 from __future__ import annotations
@@ -14,8 +15,9 @@ import time
 
 
 class EventWriter:
-    def __init__(self, output_dir: str | None = None):
+    def __init__(self, output_dir: str | None = None, echo: bool = True):
         self.output_dir = output_dir
+        self.echo = echo
         self._metrics_f = None
         self._log_f = None
         if output_dir:
@@ -39,7 +41,8 @@ class EventWriter:
             elif not hasattr(v, "shape"):
                 rec[k] = v
         line = "  ".join(f"{k}: {v:.6g}" if isinstance(v, float) else f"{k}: {v}" for k, v in rec.items())
-        print(line)
+        if self.echo:
+            print(line)
         if self._log_f:
             self._log_f.write(line + "\n")
             self._log_f.flush()

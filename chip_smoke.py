@@ -259,6 +259,31 @@ Phases (any failure raises and the script exits non-zero):
    an fp32 export at T = 20 agreeing with the CPU port's live serve module
    and with the card's fp32 Predictor on >= 99.9%; the artifact and
    predict_argmax timed (median of 10), nothing claimed.
+39. Data parallelism at world size 1 over NCCL (parallel.mesh's process
+   group in this process): the data-parallel train step at vitb384() (bf16,
+   B = 4, T = 171; one counted step launching every forward and backward
+   kernel, 3 timed steps with finite losses; ms/step and images/s beside
+   [8]'s one process without a group), then evaluate_sharded over the 4
+   fixtures at eval_preset(vitb384()), bf16, T = 150: its int64 matrix
+   equal to the one-process harness's, every forward kernel launched.
+40. Two ranks sharing cuda:0 over gloo (parallel.mesh.spawn; a check of the
+   multi-rank code, not of scaling): an fp32 vitb384 step at global batch 2
+   (one crop a rank), 8 classes, against one process stepping the same
+   batch (loss within 1e-5, parameters within 1e-4 x max(1, max |p|), the
+   ranks bit-equal), then evaluate_sharded over the fixtures in bf16: the
+   matrix equal, int64, to [39]'s (one process running the same per-rank
+   batches in turn); cells differing from the plain harness's are logged;
+   every kernel launched on both ranks; each rank's ms/step.
+41. Tile-sharded latency: Predictor(mesh=make_mesh(devices=[cuda:0,
+   cuda:0])), two replicas on the one card, fp32, T = 150, on a 480x640
+   image: probabilities within atol 2e-5, rtol 1e-4 of the unsharded
+   Predictor, the six forward kernels launched; ms an image both ways (one
+   card: no scaling read).  Then tools.demo --shard-tiles on one GPU runs
+   unsharded and prints its note.
+42. The MambaIR VSSBlock (core/mamba.py, d_model 96, d_state 16) on a 2 x 32
+   x 32 x 96 input, fp32, weights perturbed from the seeded init: the card
+   against the port on the CPU within 1e-5 of max(1, |ref|), its LayerNorms
+   on kernel #1; ms a call.
 
 Phase [3] also gives each call under 1 ms a device time: 20 calls captured
 in one CUDA graph, timed over its replays (no host launch path inside),
@@ -452,6 +477,7 @@ def synthetic_batch(B: int, T: int, seed: int):
 
 
 TRAIN_STEPS = 20   # timed train steps after the warm-up, [8] and [12]
+STEP_MS: dict = {}   # config -> median ms/step of its train_step_phase ([39] reads [8]'s)
 
 
 def train_step_phase(dev, smi, _build, cfg, expect, absent, steps: int = TRAIN_STEPS, check_calls=None,
@@ -491,6 +517,7 @@ def train_step_phase(dev, smi, _build, cfg, expect, absent, steps: int = TRAIN_S
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     ms = statistics.median(times)
+    STEP_MS[cfg] = ms
     log(f"    {ms:.1f} ms/step median, min {min(times):.1f}, max {max(times):.1f} ({steps} steps after the "
         f"warm-up), {4e3 / ms:.3f} images/s on {smi}; last loss {loss.item():.6f}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; seeded init + copy to the card {init_s:.1f} s")
@@ -953,10 +980,7 @@ def eval_cli_phase(smi, _build, ips_predictor) -> None:
 
     cfg = eval_preset(vitb384())
     spec = catalogs.get_dataset("ade150")
-    pairs = loader.list_dataset(spec, root=root)
-    items = [(loader.resize_shortest_edge(loader.load_image(i), cfg.min_size_test, cfg.max_size_test),
-              loader.load_gt(g)) for i, g in pairs]
-    canvas = harness._canvas([g.shape for _, g in items])
+    items, canvas, _ = fixture_eval_items(cfg)
     model = build_catseg(cfg, seed=SEED)
     pred = Predictor(model, cfg, class_names("ade150"))
     acc = ConfusionAccumulator(spec.num_classes, spec.ignore_label)
@@ -1850,6 +1874,265 @@ def export_phase(smi, _build) -> None:
         torch.cuda.empty_cache()
 
 
+def fixture_eval_items(cfg):
+    """The committed 4-image ADE-150 fixture set loaded as the harness loads
+    it, its out canvas, and the ADE-150 names."""
+    from catseg_tpu_torch.configs import class_names
+    from catseg_tpu_torch.data import catalogs, loader
+    from catseg_tpu_torch.evaluation import harness
+
+    pairs = loader.list_dataset(catalogs.get_dataset("ade150"), root=str(FIXTURES / "dataset"))
+    items = [(loader.resize_shortest_edge(loader.load_image(i), cfg.min_size_test, cfg.max_size_test),
+              loader.load_gt(g)) for i, g in pairs]
+    return items, harness._canvas([g.shape for _, g in items]), class_names("ade150")
+
+
+def sharded_eval(model, cfg):
+    """evaluate_sharded over the fixture set in the current group (per-device
+    batch 2, T = 150): (matrix, the launches of that run)."""
+    from catseg_tpu_torch.core.catseg import compute_dtype
+    from catseg_tpu_torch.evaluation.distributed import evaluate_sharded
+    from catseg_tpu_torch.kernels import _build
+    from catseg_tpu_torch.parallel.mesh import make_mesh
+    from catseg_tpu_torch.text.embed import forward_text_embeds
+
+    items, canvas, names = fixture_eval_items(cfg)
+    with torch.inference_mode():
+        text = forward_text_embeds(model.clip, names, cfg.prompt_ensemble_type, compute_dtype=compute_dtype(cfg))
+
+    return run_counted(lambda: evaluate_sharded(model, cfg, make_mesh(), items, text, out_canvas=canvas,
+                                                num_classes=len(names), ignore=255, per_device_batch=2), _build)
+
+
+def nccl_world1_phase(smi, _build) -> tuple[dict, dict, np.ndarray, np.ndarray]:
+    """Phase 39: a process group of one rank over NCCL: the data-parallel
+    train step and evaluate_sharded, every collective on the card.  Returns
+    the launches of the counted step and of evaluate_sharded, its matrix and
+    the one-process harness's."""
+    from catseg_tpu_torch.configs import class_names, eval_preset, vitb384
+    from catseg_tpu_torch.core.catseg import build_catseg
+    from catseg_tpu_torch.evaluation import harness
+    from catseg_tpu_torch.parallel import mesh
+    from catseg_tpu_torch.train.loop import class_tokens, init_train_state, make_train_step
+
+    log("[39] world size 1 over NCCL: the data-parallel train step at vitb384() (bf16), B=4, T=171, 3 steps; "
+        "evaluate_sharded on the 4-image fixture set at eval_preset(vitb384()), bf16, T=150")
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.init_process_group("nccl", 0, 1, os.path.join(tmp, "store"))
+        try:
+            cfg = vitb384()
+            state = init_train_state(cfg, seed=SEED)
+            step = make_train_step(cfg, state.optimizer, class_tokens(class_names("coco")), mesh=mesh.make_mesh())
+            images, targets = (t.to(dev) for t in synthetic_batch(4, 171, SEED))
+            loss, train_launches = run_counted(lambda: step(state.model, images, targets), _build)
+            losses, times = [loss.item()], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(step(state.model, images, targets).item())
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms = statistics.median(times)
+            missing = [k for k in _build.FORWARD + _build.BACKWARD if train_launches[k] == 0]
+            log(f"    losses {[round(x, 6) for x in losses]}; launches of the counted step {train_launches}")
+            log(f"    {ms:.1f} ms/step median of 3 (min {min(times):.1f}, max {max(times):.1f}), {4e3 / ms:.3f} "
+                f"images/s; [8]'s one process without a group {STEP_MS[vitb384()]:.1f} ms/step; on {smi}")
+            if missing or not all(np.isfinite(losses)):
+                raise AssertionError(f"NCCL train step: losses {losses}, never launched {missing}")
+            del state, step
+            torch.cuda.empty_cache()
+
+            cfg = eval_preset(vitb384())
+            model = build_catseg(cfg, seed=SEED)
+            want = harness.evaluate_benchmark(model, cfg, "ade150", root=str(FIXTURES / "dataset"),
+                                              verbose=False)["_conf"]
+            cm, eval_launches = sharded_eval(model, cfg)
+            same = cm.dtype == np.int64 and np.array_equal(cm, want)
+            log(f"    evaluate_sharded: {int(cm.sum())} pixels, int64 matrix equal to the one-process harness's "
+                f"{same}; launches {eval_launches}")
+            if not same or any(eval_launches[k] == 0 for k in _build.FORWARD):
+                raise AssertionError("NCCL evaluate_sharded: matrix differs from the harness's, or a forward "
+                                     "kernel never launched")
+            del model
+            torch.cuda.empty_cache()
+        finally:
+            mesh.destroy_process_group()
+    return train_launches, eval_launches, cm, want
+
+
+SHARED_CLASSES = 8   # [40]'s fp32 step: the first COCO names, pad terms live
+
+
+def shared_card_rank(images, targets, params_path: str) -> dict:
+    """Phase 40, one rank of two sharing cuda:0 over gloo (started by
+    parallel.mesh.spawn): the fp32 data-parallel step on this rank's crop,
+    3 more steps timed, then evaluate_sharded over the fixture set in bf16.
+    Rank 0 saves its parameters after the first step to ``params_path``."""
+    from catseg_tpu_torch.configs import class_names, eval_preset, vitb384
+    from catseg_tpu_torch.core.catseg import build_catseg
+    from catseg_tpu_torch.kernels import _build
+    from catseg_tpu_torch.parallel import mesh
+    from catseg_tpu_torch.train.loop import class_tokens, init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = vitb384(compute_dtype="float32", batch_size=2)
+    state = init_train_state(cfg, seed=SEED)
+    step = make_train_step(cfg, state.optimizer, class_tokens(class_names("coco")[:SHARED_CLASSES]),
+                           mesh=mesh.make_mesh())
+    img, tgt = (t.cuda() for t in mesh.shard_batch((images, targets)))
+    loss, train_launches = run_counted(lambda: step(state.model, img, tgt).item(), _build)
+    params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    if mesh.rank() == 0:
+        torch.save(params, params_path)
+    checksum = [float(p.double().abs().sum()) for p in params.values()]
+    del params
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state.model, img, tgt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    del state, step
+    torch.cuda.empty_cache()
+    cfg = eval_preset(vitb384())
+    cm, eval_launches = sharded_eval(build_catseg(cfg, seed=SEED), cfg)
+    return {"rank": mesh.rank(), "loss": loss, "checksum": checksum, "ms": statistics.median(times),
+            "train_launches": train_launches, "eval_launches": eval_launches, "cm": cm}
+
+
+def shared_card_phase(smi, _build, want_cm, harness_cm) -> list:
+    """Phase 40: two ranks sharing cuda:0 over gloo: the fp32 step against one
+    process stepping the same global batch, evaluate_sharded against one
+    process running the same per-rank batches in turn ([39]'s matrix)."""
+    from catseg_tpu_torch.configs import class_names, vitb384
+    from catseg_tpu_torch.parallel import mesh
+    from catseg_tpu_torch.train.loop import class_tokens, init_train_state, make_train_step
+
+    log("[40] two ranks sharing cuda:0 over gloo (a check of the multi-rank code on the card; it says nothing of "
+        f"scaling): fp32 vitb384 step at global batch 2 (one crop a rank), {SHARED_CLASSES} classes; "
+        "evaluate_sharded over the 4 fixtures in bf16 (per-device batch 2)")
+    images, targets = synthetic_batch(2, SHARED_CLASSES, SEED)
+    cfg = vitb384(compute_dtype="float32", batch_size=2)
+    state = init_train_state(cfg, seed=SEED)
+    step = make_train_step(cfg, state.optimizer, class_tokens(class_names("coco")[:SHARED_CLASSES]))
+    want_loss = step(state.model, images.cuda(), targets.cuda()).item()
+    want = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    del state, step
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "params_rank0.pt")
+        t0 = time.perf_counter()
+        out = mesh.spawn(shared_card_rank, 2, images, targets, path, backend="gloo", devices=["cuda:0", "cuda:0"],
+                         tmp_dir=tmp)
+        wall = time.perf_counter() - t0
+        got = torch.load(path, weights_only=True)
+    scale = max(1.0, max(float(p.abs().max()) for p in want.values()))
+    worst = max(float((got[n] - want[n]).abs().max()) for n in want)
+    moved = sum(not torch.equal(got[n], p) for n, p in want.items())
+    d_loss = abs(out[0]["loss"] - want_loss)
+    same_ranks = out[0]["checksum"] == out[1]["checksum"] and out[0]["loss"] == out[1]["loss"]
+    log(f"    loss {out[0]['loss']:.7f} vs one process {want_loss:.7f} (|d| {d_loss:.2e}, bound 1e-5); parameters "
+        f"max |d| {worst:.2e} (bound 1e-4 x max(1, max |p|) = {1e-4 * scale:.2e}); ranks bit-equal {same_ranks}; "
+        f"the two ranks' processes {wall:.1f} s from spawn to the last result")
+    for r in out:
+        log(f"    rank {r['rank']}: {r['ms']:.1f} ms/step median of 3 with both ranks on one card (fp32, one crop); "
+            f"train launches {r['train_launches']}; eval launches {r['eval_launches']}; on {smi}")
+    cm_same = all(r["cm"].dtype == np.int64 and np.array_equal(r["cm"], want_cm) for r in out)
+    log(f"    evaluate_sharded over 2 ranks: int64 matrix equal to one process running the same per-rank batches in "
+        f"turn {cm_same}; cells differing from the plain harness's matrix {int((out[0]['cm'] != harness_cm).sum())}")
+    bad = [(r["rank"], k) for r in out for k in _build.FORWARD + _build.BACKWARD if r["train_launches"][k] == 0]
+    bad += [(r["rank"], k) for r in out for k in _build.FORWARD if r["eval_launches"][k] == 0]
+    if not d_loss < 1e-5 or not worst <= 1e-4 * scale or not same_ranks or not cm_same or bad or moved == 0:
+        raise AssertionError(f"two ranks on one card: loss {d_loss}, parameters {worst}, ranks equal {same_ranks}, "
+                             f"matrix equal {cm_same}, kernels never launched {bad}")
+    return out
+
+
+def tile_shard_phase(smi, _build, image) -> dict:
+    """Phase 41: Predictor(mesh=) with two replicas on cuda:0 against the
+    unsharded Predictor, fp32; then tools.demo --shard-tiles on one GPU."""
+    import contextlib
+    import io
+
+    from catseg_tpu_torch.configs import class_names, eval_preset, vitb384
+    from catseg_tpu_torch.core.catseg import build_catseg
+    from catseg_tpu_torch.infer.pipeline import Predictor
+    from catseg_tpu_torch.parallel.mesh import make_mesh
+    from catseg_tpu_torch.tools import demo
+
+    log("[41] tile-sharded latency: Predictor(mesh=make_mesh(devices=[cuda:0, cuda:0])), two replicas on the one "
+        "card, eval_preset(vitb384(compute_dtype='float32')), T=150, one 480x640 image; then tools.demo "
+        "--shard-tiles")
+    cfg = eval_preset(vitb384(compute_dtype="float32"))
+    names = class_names("ade150")
+    model = build_catseg(cfg, seed=SEED)
+    base = Predictor(model, cfg, names)
+    sharded = Predictor(model, cfg, names, mesh=make_mesh(devices=["cuda:0", "cuda:0"]))
+    want = base.probs_sliding(image)
+    sharded.probs_sliding(image)          # the first call copies the second replica
+    got, launches = run_counted(lambda: sharded.probs_sliding(image), _build)
+    err = (got - want).abs()
+    ok = torch.allclose(got, want, atol=2e-5, rtol=1e-4)
+
+    def ms(pred):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.probs_sliding(image)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    t_sharded, t_base = ms(sharded), ms(base)
+    log(f"    max |d prob| {err.max().item():.2e} (atol 2e-5, rtol 1e-4: {ok}); launches of one sharded image "
+        f"{launches}; {t_sharded:.1f} ms an image sharded over 2 replicas on one card, {t_base:.1f} ms unsharded "
+        f"(median of 5, host clock to a synchronize; one card, so no scaling is read); on {smi}")
+    missing = [k for k in _build.FORWARD if launches[k] == 0]
+    if not ok or missing or sharded._tile_sharded is None:
+        raise AssertionError(f"tile-sharded probs disagree with the unsharded Predictor, or never launched {missing}")
+    del base, sharded, model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            res = demo.main(["--input", str(FIXTURES / "images/photo_420.jpg"), "--output", tmp,
+                             "--classes", "sky,tree,building,road,person", "--shard-tiles"])
+    note = "only one device visible, running unsharded" in printed.getvalue()
+    log(f"    tools.demo --shard-tiles on {torch.cuda.device_count()} GPU: note printed {note}, "
+        f"{len(res['preds'])} overlay")
+    if not note or len(res["preds"]) != 1:
+        raise AssertionError("tools.demo --shard-tiles on one GPU did not run unsharded with its note")
+    return {"ms_sharded": t_sharded, "ms": t_base, "launches": launches}
+
+
+def mamba_phase(smi, _build) -> None:
+    """Phase 42: the VSSBlock on the card against the port on the CPU, fp32."""
+    from catseg_tpu_torch.core.mamba import SS2DConfig, VSSBlock, init_vss_block_
+
+    cfg = SS2DConfig(d_model=96, d_state=16)
+    log(f"[42] MambaIR VSSBlock (d_model {cfg.d_model}, d_state {cfg.d_state}, inner {cfg.d_inner}), fp32, "
+        "2 x 32 x 32 x 96, sequential selective scan over L = 1024: the card against the port on the CPU")
+    block = init_vss_block_(VSSBlock(cfg), SEED).eval()
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for p in block.parameters():   # livelier than the init's 0.02 weights
+            p.add_(torch.randn(p.shape, generator=gen) * 0.05)
+        x = torch.randn((2, 32, 32, cfg.d_model), generator=gen)
+        want = block(x)
+        gpu, xc = copy.deepcopy(block).cuda(), x.cuda()
+        got, launches = run_counted(lambda: gpu(xc).cpu(), _build)
+        ms = time_ms(lambda: gpu(xc), reps=5, warmup=1)
+    err = (got - want).abs().max().item()
+    bound = 1e-5 * max(1.0, want.abs().max().item())
+    log(f"    max |d| {err:.2e} (bound {bound:.2e}); launches {launches}; {ms:.2f} ms a block call on {smi}")
+    if not err <= bound or launches["layer_norm"] == 0:
+        raise AssertionError("the VSSBlock on the card disagrees with the CPU, or its LayerNorms never launched #1")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -2037,6 +2320,10 @@ def main() -> int:
     demo_phase(smi, _build)
     viz_attn_phase(smi, _build)
     export_phase(smi, _build)
+    _, _, nccl_cm, harness_cm = nccl_world1_phase(smi, _build)
+    shared_card_phase(smi, _build, nccl_cm, harness_cm)
+    tile_shard_phase(smi, _build, images[1])
+    mamba_phase(smi, _build)
 
     kernels = []
     for name, route, source, replaces in selfcheck.KERNELS:

@@ -30,7 +30,8 @@ assert "catseg_tpu_torch.evaluation.miou" in names, names
 for m in ("train.loop", "train.optim", "train.checkpoint", "utils.events", "core.dino", "core.sam",
           "core.sam_decoder", "core.fusion", "ops.attention", "infer.sam_predictor", "infer.amg",
           "infer.visualize", "infer.export", "data.image_write", "kernels.ops", "tools.demo", "tools.viz_results",
-          "tools.viz_attn", "tools.export"):
+          "tools.viz_attn", "tools.export", "parallel.mesh", "parallel.latency", "evaluation.distributed",
+          "core.mamba"):
     assert "catseg_tpu_torch." + m in names and "catseg_tpu_torch." + m in sys.modules, m
 from catseg_tpu_torch.kernels import _build
 assert _build._lib is None   # importing built nothing

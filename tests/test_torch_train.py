@@ -200,6 +200,10 @@ def test_checkpoint_resume_equals_straight_run(start, tmp_path):
 
 
 def test_mesh_raises():
+    """Training runs one process per device: a mesh of several devices in
+    one process raises (data-parallel steps: tests/test_torch_parallel.py)."""
+    from catseg_tpu_torch.parallel.mesh import make_mesh
+
     cfg = _cfg(tconfigs)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        loop.make_train_step(cfg, None, _tokens(), mesh=object())
+    with pytest.raises(NotImplementedError, match="one process per device"):
+        loop.make_train_step(cfg, None, _tokens(), mesh=make_mesh(devices=["cpu", "cpu"]))
