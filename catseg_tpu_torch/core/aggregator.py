@@ -42,6 +42,7 @@ from ..kernels.mlp import fused_mlp
 from ..kernels.swin_block import fused_swin_pair, shift_mask
 from ..kernels.window_attn import fused_window_attention
 from ..ops import avg_pool2d, conv2d, group_norm, layer_norm, resize_bilinear, window_partition, window_reverse
+from ..parallel.class_axis import class_slab, gather_classes_axis
 from .clip import LayerNorm, Linear, linear
 
 
@@ -429,7 +430,8 @@ def conv_decoder(x: torch.Tensor, guidance: list, agg: Aggregator, use_fused: bo
 
 
 def aggregator_forward(agg: Aggregator, img_feats: torch.Tensor, text_feats: torch.Tensor,
-                       appearance_guidance: tuple, cfg: CATSegConfig, return_classes: bool = False):
+                       appearance_guidance: tuple, cfg: CATSegConfig, return_classes: bool = False,
+                       class_axis=None, return_local: bool = False):
     """img_feats (B, 24, 24, E); text_feats (B, T, P, E); appearance_guidance
     (res3 (B,24,24,Cg), res4 (B,48,48,256), res5 (B,96,96,128)) -> (B, T, 96, 96)
     fp32 logits; when T > pad_len only the top-k classes are aggregated and
@@ -438,7 +440,18 @@ def aggregator_forward(agg: Aggregator, img_feats: torch.Tensor, text_feats: tor
     With ``return_classes`` the scatter is left to the caller: returns
     ``(logits, classes)``, logits over the kept classes only ((B, pad_len, 96,
     96) and classes (B, pad_len) when truncation fired; otherwise all T and
-    classes None)."""
+    classes None).
+
+    ``class_axis`` (a mesh from ``parallel.mesh.make_mesh(n_class=)``)
+    shards the aggregated classes over the ranks of its class group, as
+    catseg_tpu's ``constrain_class_axis`` does: the full-T cost and the
+    top-k run on every rank, then the corr embed, the Swin pairs and the
+    decoder run on this rank's slab ``[t0, t1)`` of the kept (or all)
+    classes, and each class layer gathers the slabs and runs on every class
+    (its attention spans them), each rank keeping its slab of the output.
+    The logits are gathered back, so the result is as without the axis; with
+    ``return_local`` they are not: returns ``(logits over the slab, (t0,
+    t1), classes)``, for a loss taken on the slab."""
     T = text_feats.shape[1]
     w_hwio = agg.conv1.weight.permute(2, 3, 1, 0)
     # the reference's gate: its kernel there (raising on the card outside
@@ -451,15 +464,20 @@ def aggregator_forward(agg: Aggregator, img_feats: torch.Tensor, text_feats: tor
         corr = correlation(img_feats, text_feats)          # the full-T cost, for top-k only
         classes = topk_classes(corr, cfg.pad_len)
         text_feats = gather_classes(l2_normalize(text_feats), classes)
+    t0, t1 = class_slab(text_feats.shape[1], class_axis)
+    sharded = t1 - t0 < text_feats.shape[1]
+    # a slab of a (B, T, ...) tensor is strided: the kernels take it contiguous
+    slab = text_feats[:, t0:t1].contiguous() if sharded else text_feats
+    if classes is not None:
         if fused_ok:
             # the kernel recomputes the kept classes' cost from their text
-            x = fused_corr_embed(img_feats, text_feats, w_hwio, agg.conv1.bias)
+            x = fused_corr_embed(img_feats, slab, w_hwio, agg.conv1.bias)
         else:
-            x = corr_embed(gather_classes(corr, classes), agg)
+            x = corr_embed(gather_classes(corr, classes[:, t0:t1]), agg)
     elif fused_ok:
-        x = fused_corr_embed(img_feats, l2_normalize(text_feats), w_hwio, agg.conv1.bias)
+        x = fused_corr_embed(img_feats, l2_normalize(slab), w_hwio, agg.conv1.bias)
     else:
-        x = corr_embed(correlation(img_feats, text_feats), agg)
+        x = corr_embed(correlation(img_feats, slab), agg)
 
     proj_guid = None
     if hasattr(agg, "guidance_projection"):
@@ -471,6 +489,7 @@ def aggregator_forward(agg: Aggregator, img_feats: torch.Tensor, text_feats: tor
                     for p, g in zip(agg.decoder_guidance_projection, appearance_guidance[1:])]
     text_guid = None
     if hasattr(agg, "text_guidance_projection"):
+        # on every class: the class layer attends over all of them
         tf = text_feats.float().mean(-2)
         tf = tf / tf.norm(dim=-1, keepdim=True)
         tp = agg.text_guidance_projection[0]
@@ -478,8 +497,16 @@ def aggregator_forward(agg: Aggregator, img_feats: torch.Tensor, text_feats: tor
 
     for layer in agg.layers:
         x = spatial_aggregation(x, proj_guid, layer, cfg)
-        x = class_aggregation(x, text_guid, layer, cfg)
+        if sharded:
+            x = class_aggregation(gather_classes_axis(x, class_axis), text_guid, layer, cfg)
+            x = x[:, t0:t1].contiguous()
+        else:
+            x = class_aggregation(x, text_guid, layer, cfg)
     logits = conv_decoder(x, dec_guid, agg, use_fused=cfg.fused_decoder)
+    if return_local:
+        return logits, (t0, t1), classes
+    if sharded:
+        logits = gather_classes_axis(logits, class_axis)
     if return_classes:
         return logits, classes
     if classes is not None:

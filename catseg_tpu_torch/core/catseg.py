@@ -75,15 +75,18 @@ class CATSeg(nn.Module):
         return res3, (res3, res4, res5)
 
     def forward(self, images: torch.Tensor, text_feats: torch.Tensor,
-                cfg: CATSegConfig | None = None) -> torch.Tensor:
+                cfg: CATSegConfig | None = None, class_axis=None, return_local: bool = False):
         """images (B, H, W, 3) raw RGB; text_feats (T, P, E) or (B, T, P, E);
-        ``cfg`` as :meth:`guidance_features` takes it."""
+        ``cfg`` as :meth:`guidance_features` takes it.  ``class_axis`` and
+        ``return_local`` go to :func:`~.aggregator.aggregator_forward` (the
+        class axis of a mesh; a train step's loss on this rank's classes)."""
         cfg = self.cfg if cfg is None else cfg
         clip_images = resize_bilinear(normalize_clip(images), (cfg.clip_resolution,) * 2)
         img_feats, guidance = self.guidance_features(clip_images, cfg)
         if text_feats.ndim == 3:
             text_feats = text_feats.expand(images.shape[0], *text_feats.shape)
-        return aggregator_forward(self.agg, img_feats, text_feats.to(compute_dtype(cfg)), guidance, cfg)
+        return aggregator_forward(self.agg, img_feats, text_feats.to(compute_dtype(cfg)), guidance, cfg,
+                                  class_axis=class_axis, return_local=return_local)
 
     def _init_extra_(self, gen: torch.Generator) -> None:
         """Seeded init of the modules a subclass adds (the fusion families')."""
@@ -102,17 +105,25 @@ def model_class(cfg: CATSegConfig) -> type[CATSeg]:
 
 
 def bce_loss(logits: torch.Tensor, targets: torch.Tensor, ignore_value: int,
-             out_hw: tuple[int, int]) -> torch.Tensor:
+             out_hw: tuple[int, int], classes: torch.Tensor | None = None,
+             count: int | None = None) -> torch.Tensor:
     """Per-pixel multi-label BCE (catseg_tpu/core/catseg.py bce_loss;
     cat_seg_model.py:189-203): (B, T, 96, 96) logits upsampled bilinearly to
     (H, W) in fp32, a one-hot target that is all-negative on ignored pixels,
-    a stable BCE-with-logits averaged over every element."""
-    T = logits.shape[1]
+    a stable BCE-with-logits averaged over every element.
+
+    A class slab of the class axis: ``classes`` (B, T_local) gives the class
+    of each logit plane (one-hot where the target equals it), and the loss
+    is the slab's sum divided by ``count``, the element count of the whole
+    loss (global batch x H x W x T), so the ranks' losses add up to it."""
     x = resize_bilinear(logits.permute(0, 2, 3, 1).float(), out_hw)
     valid = targets != ignore_value
-    onehot = F.one_hot(torch.where(valid, targets, 0), T).float() * valid[..., None]
+    if classes is None:
+        onehot = F.one_hot(torch.where(valid, targets, 0), logits.shape[1]).float() * valid[..., None]
+    else:
+        onehot = ((targets[..., None] == classes[:, None, None, :]) & valid[..., None]).float()
     loss = x.clamp_min(0) - x * onehot + torch.log1p(torch.exp(-x.abs()))
-    return loss.mean()
+    return loss.mean() if classes is None else loss.sum() / count
 
 
 def resolve_device(device) -> torch.device:

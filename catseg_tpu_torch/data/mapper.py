@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..parallel.mesh import A6B
+from ..parallel.mesh import INDIVISIBLE
 from .image_io import probe_size
 from .loader import load_gt, load_image, resize_shortest_edge, shortest_edge_size
 from .resize import resize_nearest
@@ -200,9 +200,11 @@ def train_batches(pairs, batch_size: int, rng: np.random.Generator, rank: int = 
     """Infinite generator of (images (b,S,S,3), gts (b,S,S)) batches: rank
     ``rank``'s contiguous slice, b = batch_size / world_size, of each global
     batch of ``batch_size`` (the whole batch at world_size 1).  A batch that
-    does not divide over the ranks raises (ROADMAP A6b)."""
+    does not divide over the ranks raises, as catseg_tpu's jitted step does.
+    On a class axis pass the mesh's data index and data size: the class
+    ranks of a data row take the same images."""
     if batch_size % world_size:
-        raise NotImplementedError(f"a batch of {batch_size} does not divide over {world_size} ranks: {A6B}")
+        raise NotImplementedError(f"a batch of {batch_size} does not divide over {world_size} ranks: {INDIVISIBLE}")
     local = batch_size // world_size
     mine = range(rank * local, (rank + 1) * local)
     idx = np.arange(len(pairs))

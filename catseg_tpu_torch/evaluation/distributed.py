@@ -67,10 +67,12 @@ def evaluate_sharded(model, cfg: CATSegConfig, mesh: Mesh, items, text_feats, *,
     another rank owns is skipped unread (it may be None).  Returns the
     confusion matrix summed over the ranks (numpy int64), the same on every
     rank.  ``mesh`` is the group's (``make_mesh()`` inside it, or a mesh of
-    one device outside one).  Unlike catseg_tpu's it takes no
-    ``input_canvas``: each image runs at its own size."""
+    one device outside one); on a mesh with a class axis the images go over
+    all ``n_data * n_class`` ranks, as catseg_tpu's step treats both axes
+    as image axes.  Unlike catseg_tpu's it takes no ``input_canvas``: each
+    image runs at its own size."""
     if len(mesh.devices) != 1 or mesh.ranks != world_size():
-        raise ValueError(f"evaluate_sharded shards over the ranks of a process group, one device each; this mesh "
+        raise ValueError(f"evaluate_sharded shards over every rank of a process group, one device each; this mesh "
                          f"holds {len(mesh.devices)} devices in each of {mesh.ranks} processes, the group "
                          f"{world_size()}")
     pdb = max(1, per_device_batch)

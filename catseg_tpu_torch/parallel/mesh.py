@@ -1,8 +1,10 @@
-"""The data axis, the process group and the launcher (catseg_tpu/parallel/mesh.py).
+"""The data and class axes, the process group and the launcher
+(catseg_tpu/parallel/mesh.py).
 
 catseg_tpu is one program over one ``Mesh`` whose "data" axis carries
 training batches, evaluation images and a single image's sliding-window
-tiles.  The port takes PyTorch's idiom for each use:
+tiles, and whose "class" axis shards the class axis T through the
+aggregator.  The port takes PyTorch's idiom for each use:
 
 - Training and benchmark evaluation run one process per GPU in a
   ``torch.distributed`` process group (the reference's DDP, train_net.py:
@@ -12,17 +14,23 @@ tiles.  The port takes PyTorch's idiom for each use:
   for one GPU a rank, gloo for CPU ranks or for ranks that share one card.
   The collectives are ``all_reduce`` and ``broadcast`` only, the two that
   gloo carries for CUDA tensors, so the same code runs over either backend.
+- The class axis is a set of ranks of that group: ``make_mesh(n_data=,
+  n_class=)`` lays the ranks out row-major, as catseg_tpu's
+  ``reshape(n_data, n_class)``, and gives each rank two subgroups, its data
+  row's ranks (the class group, which shares its images) and its class
+  column's (the data group).  ``parallel/class_axis.py`` holds the class
+  axis's collectives, which the aggregator and the train step call with the
+  mesh passed explicitly; there is no global mesh.
 - Single-image latency (``parallel/latency.py``) runs one process over a
   list of devices, one model replica each.
 
-:class:`Mesh` describes either: ``devices`` are the replicas this process
-drives, ``ranks`` the processes along the axis (each driving one device).
+:class:`Mesh` describes any of these: ``devices`` are the replicas this
+process drives, ``ranks`` the processes of the group (each driving one
+device), ``n_class`` of them along the class axis.
 
-Not ported: the class axis (``n_class > 1``: catseg_tpu's GSPMD sharding of
-T through the aggregator, ``constrain_class_axis`` / ``shard_kernel`` /
-``pallas_allowed`` / ``mesh_divides``, and ``use_mesh`` / ``local_region``,
-which only mark GSPMD regions).  It is ROADMAP A6b, and asking for it
-raises.
+Not ported: ``use_mesh``, ``local_region``, ``pallas_allowed``,
+``mesh_divides`` and ``shard_kernel``, which only mark or guard GSPMD
+regions; the port shards by explicit collectives, not by GSPMD.
 """
 
 from __future__ import annotations
@@ -35,26 +43,40 @@ import tempfile
 import torch
 import torch.distributed as dist
 
-A6B = ("class-axis model parallelism is not ported (ROADMAP A6b: catseg_tpu shards the class axis T "
-       "through the aggregator with GSPMD)")
+INDIVISIBLE = "catseg_tpu's jitted step refuses such a batch too (pjit: arguments must divide over the data axis)"
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A data axis: ``devices`` hold one model replica each in this process;
-    ``ranks`` is the number of processes along the axis (1 outside a process
-    group), each with one device."""
+    """``devices`` hold one model replica each in this process; ``ranks``
+    is the number of processes of the group (1 outside one), each with one
+    device, laid out as (data, class) = divmod(rank, n_class).  A class
+    axis carries ``class_group`` (this rank's data row) and ``data_group``
+    (its class column)."""
 
     devices: tuple[torch.device, ...]
     ranks: int = 1
+    n_class: int = 1
+    class_group: object = None
+    data_group: object = None
 
     @property
     def shape(self) -> dict[str, int]:
-        return {"data": len(self.devices) * self.ranks, "class": 1}
+        return {"data": len(self.devices) * self.ranks // self.n_class, "class": self.n_class}
 
     @property
     def size(self) -> int:
-        return self.shape["data"]
+        return len(self.devices) * self.ranks
+
+    @property
+    def data_index(self) -> int:
+        """This rank's position along the data axis: the image slice it takes."""
+        return rank() // self.n_class
+
+    @property
+    def class_index(self) -> int:
+        """This rank's position along the class axis: the class slab it takes."""
+        return rank() % self.n_class
 
 
 def rank() -> int:
@@ -72,19 +94,37 @@ _rank, _world_size = rank, world_size   # for the functions whose arguments take
 
 def make_mesh(n_data: int | None = None, n_class: int = 1, devices=None) -> Mesh:
     """The data axis over ``devices`` (default: every visible GPU), the
-    first ``n_data`` of them.  Inside a process group the axis is the
+    first ``n_data`` of them.  Inside a process group the axes are the
     group's ranks, one device each (``devices``, if given, names this rank's
-    one device; default the current GPU).  ``n_class > 1`` raises
-    NotImplementedError (ROADMAP A6b)."""
-    if n_class != 1:
-        raise NotImplementedError(f"make_mesh(n_class={n_class}): {A6B}")
+    one device; default the current GPU): ``n_data x n_class`` must be the
+    world size (``n_data`` defaults to world / n_class).  Every rank must
+    call it, in the same order as the others, since a class axis creates
+    its subgroups on every rank.  A class axis outside a process group
+    raises: it needs ranks, as training does."""
+    if n_class < 1:
+        raise ValueError(f"make_mesh: n_class={n_class}")
     if dist.is_initialized():
+        n = world_size()
         if devices is None:
             devices = [torch.device("cuda", torch.cuda.current_device())]
-        if len(devices) != 1 or n_data not in (None, world_size()):
-            raise ValueError(f"inside a process group of {world_size()} ranks each rank holds one device; got "
-                             f"devices={devices}, n_data={n_data}")
-        return Mesh(devices=(torch.device(devices[0]),), ranks=world_size())
+        if len(devices) != 1:
+            raise ValueError(f"inside a process group of {n} ranks each rank holds one device; got "
+                             f"devices={devices}")
+        if n_data is None and n % n_class == 0:
+            n_data = n // n_class
+        if n_data is None or n_data * n_class != n:
+            raise ValueError(f"make_mesh(n_data={n_data}, n_class={n_class}) does not fill the group's {n} ranks")
+        if n_class == 1:
+            return Mesh(devices=(torch.device(devices[0]),), ranks=n)
+        # every rank creates every subgroup, in one order: rows, then columns
+        rows = [dist.new_group(list(range(d * n_class, (d + 1) * n_class))) for d in range(n_data)]
+        columns = [dist.new_group(list(range(c, n, n_class))) for c in range(n_class)]
+        data_index, class_index = divmod(rank(), n_class)
+        return Mesh(devices=(torch.device(devices[0]),), ranks=n, n_class=n_class,
+                    class_group=rows[data_index], data_group=columns[class_index])
+    if n_class != 1:
+        raise ValueError(f"make_mesh(n_class={n_class}) outside a process group: the class axis is a set of ranks "
+                         "(parallel.mesh.spawn or init_process_group first), one device each")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: no CUDA device visible; pass devices= (e.g. ['cpu'] * 3) to build a "
@@ -157,16 +197,18 @@ def spawn(fn, world_size: int, *args, backend: str, devices=None, tmp_dir: str |
 
 def shard_batch(batch, rank: int | None = None, world_size: int | None = None):
     """This rank's contiguous slice of a global batch (an array or tensor,
-    or a tuple / list of them, split on axis 0).  A batch that does not
-    divide by the world size raises (ROADMAP A6b: catseg_tpu falls back to
-    its GSPMD class-axis path there)."""
+    or a tuple / list of them, split on axis 0), by default over every rank
+    of the group; on a class axis pass ``mesh.data_index`` and
+    ``mesh.shape["data"]``, since a data row's class ranks share its images.
+    A batch that does not divide over the ranks raises, as catseg_tpu's
+    jitted step does."""
     r = _rank() if rank is None else rank
     n = _world_size() if world_size is None else world_size
     if isinstance(batch, (tuple, list)):
         return type(batch)(shard_batch(b, r, n) for b in batch)
     B = batch.shape[0]
     if B % n:
-        raise NotImplementedError(f"a batch of {B} does not divide over {n} ranks: {A6B}")
+        raise NotImplementedError(f"a batch of {B} does not divide over {n} ranks: {INDIVISIBLE}")
     return batch[r * (B // n):(r + 1) * (B // n)]
 
 

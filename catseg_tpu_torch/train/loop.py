@@ -22,6 +22,20 @@ process, so frozen encoders and recomputed blocks need nothing of DDP's
 elements, so the mean of the ranks' means is the global mean.  Only rank 0
 writes metrics.json and checkpoints; a SIGINT or SIGTERM on any rank stops
 every rank at the same step boundary (one ``all_reduce`` of a flag).
+
+Class-axis model parallelism (catseg_tpu's GSPMD step on a mesh with a
+class axis): the ranks of a data row share its images, and each aggregates
+its slab of the classes (``aggregator_forward(class_axis=)``).  Each rank's
+loss is the BCE of its slab's logits summed and divided by the element
+count of the whole loss, so the ranks' losses and gradients add up to the
+global ones; the one ``all_reduce`` then sums instead of averaging.  The
+loss is never taken on gathered logits: every class rank would then
+backpropagate the whole loss.  The parts every class rank computes alike
+(CLIP, the text encoder, the top-k) get a partial gradient on each, made
+whole by the sum.  Where the class count does not divide over the class
+axis every class rank aggregates all classes, holds the same loss, and the
+sum over the class group becomes a mean.  The fusion families do not run
+on a class axis (ROADMAP A6c).
 """
 
 from __future__ import annotations
@@ -38,7 +52,7 @@ import torch.distributed as dist
 from ..configs import CATSegConfig
 from ..core.catseg import CATSeg, bce_loss, build_catseg, compute_dtype
 from ..core.clip import encode_text, truncate_context
-from ..parallel.mesh import A6B, rank, replicate, world_size
+from ..parallel.mesh import INDIVISIBLE, rank, replicate, world_size
 from .optim import TrainOptimizer
 
 
@@ -68,11 +82,12 @@ def init_train_state(cfg: CATSegConfig, *, seed: int | None = None, params: dict
 
 
 def train_loss(cfg: CATSegConfig, model: CATSeg, tokens: torch.Tensor, images: torch.Tensor,
-               targets: torch.Tensor) -> torch.Tensor:
+               targets: torch.Tensor, class_axis=None) -> torch.Tensor:
     """Text re-encode with L2 norm, forward, BCE: the step's loss (with grad).
     Ver14 (``fusion.mode == "sam_refine"``) supervises both its proposals and
     its refined masks with the same BCE and sums the two
-    (implicit_fusion_Ver14.py:413-415)."""
+    (implicit_fusion_Ver14.py:413-415).  On a ``class_axis`` this rank's
+    share of the global loss (the module docstring)."""
     dt = compute_dtype(cfg)
     emb = encode_text(model.clip, tokens, compute_dtype=dt)
     emb = emb / torch.linalg.vector_norm(emb.float(), dim=-1, keepdim=True).to(emb.dtype)
@@ -80,16 +95,30 @@ def train_loss(cfg: CATSegConfig, model: CATSeg, tokens: torch.Tensor, images: t
     if cfg.fusion is not None and cfg.fusion.mode == "sam_refine":
         coarse, refined = model(images.float(), emb[:, None, :], with_coarse=True)
         return bce_loss(coarse, targets, cfg.ignore_value, hw) + bce_loss(refined, targets, cfg.ignore_value, hw)
-    return bce_loss(model(images.float(), emb[:, None, :]), targets, cfg.ignore_value, hw)
+    if class_axis is None:
+        return bce_loss(model(images.float(), emb[:, None, :]), targets, cfg.ignore_value, hw)
+    logits, (t0, t1), kept = model(images.float(), emb[:, None, :], class_axis=class_axis, return_local=True)
+    B, T = images.shape[0], emb.shape[0]
+    count = B * class_axis.shape["data"] * hw[0] * hw[1] * T
+    ids = (torch.arange(t0, t1, device=logits.device).expand(B, -1) if kept is None else kept[:, t0:t1])
+    loss = bce_loss(logits, targets, cfg.ignore_value, hw, classes=ids, count=count)
+    if kept is not None and t0 == 0:
+        # the classes top-k dropped hold -100 logits: a constant 100 where
+        # the target is one of them (the rest rounds to 0), once a data row
+        valid = targets != cfg.ignore_value
+        dropped = valid & ~(targets[..., None] == kept[:, None, None, :]).any(-1)
+        loss = loss + 100.0 * dropped.sum() / count
+    return loss
 
 
 @torch.no_grad()
-def all_reduce_mean_(loss: torch.Tensor, params: list[torch.Tensor]) -> torch.Tensor:
-    """Average ``loss`` and the ``.grad`` of ``params`` over the default
-    group, in place, by one ``all_reduce`` of a flat fp32 buffer (a presence
-    flag a parameter beside its gradient).  A parameter without a gradient on
-    every rank keeps ``grad=None``; one with a gradient on some ranks only
-    raises.  Returns the mean loss."""
+def all_reduce_grads_(loss: torch.Tensor, params: list[torch.Tensor], divisor: int) -> torch.Tensor:
+    """Sum ``loss`` and the ``.grad`` of ``params`` over the default group
+    and divide them by ``divisor`` (the world size for a mean), in place, by
+    one ``all_reduce`` of a flat fp32 buffer (a presence flag a parameter
+    beside its gradient).  A parameter without a gradient on every rank
+    keeps ``grad=None``; one with a gradient on some ranks only raises.
+    Returns the reduced loss."""
     n = world_size()
     dev = loss.device
     have = [p.grad is not None for p in params]
@@ -106,7 +135,7 @@ def all_reduce_mean_(loss: torch.Tensor, params: list[torch.Tensor]) -> torch.Te
     if any(c not in (0, n) for c in counts) or any(c == 0 and h for c, h in zip(counts, have)):
         raise RuntimeError("a trainable parameter got a gradient on some ranks only: the ranks ran different "
                            "programs")
-    flat.div_(n)
+    flat.div_(divisor)
     for g, p, h in zip(grads, params, have):
         if h:
             p.grad.copy_(g.view_as(p.grad))
@@ -124,18 +153,33 @@ def make_train_step(cfg: CATSegConfig, optimizer: TrainOptimizer, text_tokens: n
     ``data.mapper.train_batches(rank=, world_size=)``) and the returned loss
     is the global mean.  ``mesh``, if given, must be that group's
     (``parallel.mesh.make_mesh()``): training runs one process per device,
-    so a mesh of several devices in one process raises, as does a global
-    batch ``cfg.batch_size`` that does not divide over the ranks (ROADMAP
-    A6b)."""
+    so a mesh of several devices in one process raises.  A mesh with a class
+    axis (``make_mesh(n_data=, n_class=)``) shards the classes over each
+    data row's ranks (the module docstring); the slice is then the data
+    index's.  A global batch ``cfg.batch_size`` that does not divide over
+    the data axis raises, as catseg_tpu's jitted step does, and so does a
+    fusion config on a class axis (ROADMAP A6c)."""
     n = world_size()
     grouped = dist.is_initialized()
+    n_class = 1 if mesh is None else mesh.n_class
+    if n_class > 1 and cfg.fusion is not None:
+        raise NotImplementedError(f"the fusion family {cfg.fusion.mode!r} on a class axis of {n_class} ranks is not "
+                                  "ported (ROADMAP A6c: the class axis through the fusion families)")
     if mesh is not None and (len(mesh.devices) != 1 or mesh.ranks != n):
         raise NotImplementedError(f"training over {mesh.size} devices runs one process per device "
                                   f"(parallel.mesh.spawn); this mesh holds {len(mesh.devices)} in one process "
                                   f"of a group of {n}")
-    if cfg.batch_size % n:
-        raise NotImplementedError(f"a global batch of {cfg.batch_size} does not divide over {n} ranks: {A6B}")
+    n_data = n // n_class
+    if cfg.batch_size % n_data:
+        raise NotImplementedError(f"a global batch of {cfg.batch_size} does not divide over {n_data} ranks: "
+                                  f"{INDIVISIBLE}")
     tokens = np.ascontiguousarray(truncate_context(np.asarray(text_tokens)), dtype=np.int64)
+    class_axis = mesh if n_class > 1 else None
+    # each rank's loss is a mean over its images (a data axis: the ranks'
+    # mean), or its class slab's share of the global loss (a class axis: the
+    # ranks' sum; the class ranks' mean where T does not divide over them)
+    T = len(tokens) if cfg.pad_len <= 0 else min(len(tokens), cfg.pad_len)
+    divisor = n if class_axis is None else n_class if T % n_class else 1
     on_device = {}
 
     def step(model: CATSeg, images, targets) -> torch.Tensor:
@@ -144,10 +188,10 @@ def make_train_step(cfg: CATSegConfig, optimizer: TrainOptimizer, text_tokens: n
             on_device[dev] = torch.from_numpy(tokens).to(dev)
         images = torch.as_tensor(images).to(dev)
         targets = torch.as_tensor(targets).to(dev)
-        loss = train_loss(cfg, model, on_device[dev], images, targets)
+        loss = train_loss(cfg, model, on_device[dev], images, targets, class_axis=class_axis)
         loss.backward()
         if grouped:
-            loss = all_reduce_mean_(loss, optimizer.trainable)
+            loss = all_reduce_grads_(loss, optimizer.trainable, divisor)
         optimizer.step()
         return loss.detach()
 

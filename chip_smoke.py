@@ -284,6 +284,23 @@ Phases (any failure raises and the script exits non-zero):
    x 32 x 96 input, fp32, weights perturbed from the seeded init: the card
    against the port on the CPU within 1e-5 of max(1, |ref|), its LayerNorms
    on kernel #1; ms a call.
+43. Class-axis model parallelism, forward (parallel.class_axis; a check of
+   the code, not of scaling): two gloo ranks sharing cuda:0 on the mesh
+   {1, 2}, the eval_preset(vitb384()) aggregator at full width on 2 images
+   of random CLIP features and guidance, T = 847 (top-k to 256, 128 a rank)
+   and T = 150 (75 a rank).  fp32: max |d logit| within 2e-4 of one process
+   on the card, equal kept sets.  bf16: one counted forward a rank (the
+   corr embed, Swin pair, class layer and decoder launched), every kernel
+   call of another held against its plain version at [3]'s bound, ms a
+   forward a rank; seconds from spawn to the last result.
+44. Class-axis train step: three gloo ranks sharing cuda:0 on the mesh
+   {1, 3} at T = 171 (57 classes a rank): an fp32 step at one crop with
+   CLIP cut to 8 image and 4 text layers against one process (loss within
+   1e-5, parameters within 1e-4 x max(1, max |p|), ranks bit-equal); then
+   vitb384() in bf16 at 2 crops: one counted step launching #3-#9, ms/step
+   (median of 3) and the allocator's peak a rank.  The same fp32 step on
+   [43]'s ranks as the mesh {1, 2}, where 171 does not divide: the warning
+   on both ranks and the result of one process.
 
 Phase [3] also gives each call under 1 ms a device time: 20 calls captured
 in one CUDA graph, timed over its replays (no host launch path inside),
@@ -298,6 +315,7 @@ per kernel.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import hashlib
 import json
@@ -318,10 +336,22 @@ STAGE_BOUND = {torch.float32: 2e-4, torch.bfloat16: 2.0 ** -5}   # unfused vs fu
 SEED = 0
 STEADY_IMAGES = 256   # entries of [19]'s steady-state dataset of 480x640 JPEGs
 DECIDED_TIE = 1e-6    # [38]: a top-2 gap at or below it is a tie within fp32 rounding
+PARITY_TEXT_LAYERS = 4   # the text tower's depth in the fp32 parity runs (cut_depth)
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def cut_depth(cfg):
+    """A parity run's config: the CLIP image tower cut to just past its last
+    guidance tap and the text tower to PARITY_TEXT_LAYERS layers, widths
+    unchanged.  The fp32 parity runs check the kernels' arithmetic against
+    the CPU port or one process; depth repeats the same layers, and the
+    runs at full depth ([4], [8], ...) drive the kernels at full depth."""
+    clip = dataclasses.replace(cfg.clip, layers=max(cfg.guidance_layers) + 1,
+                               text_layers=min(cfg.clip.text_layers, PARITY_TEXT_LAYERS))
+    return dataclasses.replace(cfg, clip=clip)
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -560,8 +590,9 @@ def train_parity_phase(dev, cfg=None, prepare=None) -> None:
     from catseg_tpu_torch.train.optim import TrainOptimizer
 
     if cfg is None:
-        log("[9] fp32 train-step parity: vitb384(compute_dtype='float32'), 1 crop, 8 classes, GPU vs CPU")
-        cfg = vitb384(compute_dtype="float32")
+        log("[9] fp32 train-step parity: vitb384(compute_dtype='float32'), CLIP cut (cut_depth), 1 crop, 8 classes, "
+            "GPU vs CPU")
+        cfg = cut_depth(vitb384(compute_dtype="float32"))
     cpu = init_train_state(cfg, seed=SEED, device="cpu")
     if prepare is not None:
         prepare(cpu.model)
@@ -654,8 +685,9 @@ def full_parity_phase(images, names) -> None:
     from catseg_tpu_torch.core.catseg import CATSeg, init_catseg_
     from catseg_tpu_torch.infer.pipeline import Predictor
 
-    log("[11] fp32 parity with attention_type='full': GPU kernels vs the port on the CPU, 1 image, 20 classes")
-    cfg = eval_preset(vitb384(compute_dtype="float32", attention_type="full"))
+    log("[11] fp32 parity with attention_type='full': GPU kernels vs the port on the CPU, 1 image, 20 classes, CLIP "
+        "cut (cut_depth)")
+    cfg = cut_depth(eval_preset(vitb384(compute_dtype="float32", attention_type="full")))
     cpu_model = init_catseg_(CATSeg(cfg), SEED).eval()
     gpu_pred = Predictor(copy.deepcopy(cpu_model), cfg, names[:20])
     p_gpu = gpu_pred.probs_sliding_batch(images[1:]).cpu()
@@ -788,8 +820,9 @@ def single_image_parity_phase(_build, image, names, cpu_model, p_cpu_sliding) ->
     from catseg_tpu_torch.configs import eval_preset, vitb384
     from catseg_tpu_torch.infer.pipeline import Predictor
 
-    log("[16] fp32 parity of the single-image API: vitb384(compute_dtype='float32'), 1 image, 20 classes, GPU vs CPU")
-    cfg = vitb384(compute_dtype="float32")
+    log("[16] fp32 parity of the single-image API: vitb384(compute_dtype='float32'), CLIP cut (cut_depth), 1 image, "
+        "20 classes, GPU vs CPU")
+    cfg = cut_depth(vitb384(compute_dtype="float32"))
     gpu = Predictor(copy.deepcopy(cpu_model), cfg, names)
     cpu = Predictor(cpu_model, cfg, names, device="cpu")
     p_gpu, launches = run_counted(lambda: gpu.probs_whole(image).cpu(), _build)
@@ -1061,7 +1094,7 @@ def tta_phase(smi, _build, names) -> None:
         raise AssertionError("TTA did not run 18 passes, gave probabilities outside [0, 1], or skipped a kernel")
     del pred, tta
 
-    cfg32 = eval_preset(vitb384(compute_dtype="float32"))
+    cfg32 = cut_depth(eval_preset(vitb384(compute_dtype="float32")))
     cpu_model = init_catseg_(CATSeg(cfg32), SEED).eval()
     gpu = TTAPredictor(Predictor(copy.deepcopy(cpu_model), cfg32, names[:20]), min_sizes=(400,))
     cpu = TTAPredictor(Predictor(cpu_model, cfg32, names[:20], device="cpu"), min_sizes=(400,))
@@ -1215,8 +1248,9 @@ def tier_parity_phase(image, names) -> None:
     from catseg_tpu_torch.core.catseg import CATSeg, init_catseg_
     from catseg_tpu_torch.infer.pipeline import Predictor
 
-    log("[23] fp32 parity of vitl336: one whole-image forward, 20 classes, GPU kernels vs the port on the CPU")
-    cfg = vitl336(compute_dtype="float32")
+    log("[23] fp32 parity of vitl336: one whole-image forward, 20 classes, CLIP cut (cut_depth), GPU kernels vs the "
+        "port on the CPU")
+    cfg = cut_depth(vitl336(compute_dtype="float32"))
     cpu_model = init_catseg_(CATSeg(cfg), SEED).eval()
     gpu = Predictor(copy.deepcopy(cpu_model), cfg, names)
     p_gpu = gpu.probs_whole(image).cpu()
@@ -1362,8 +1396,9 @@ def ver31_parity_phase(image, names) -> None:
     from catseg_tpu_torch.core.catseg import build_catseg
     from catseg_tpu_torch.infer.pipeline import Predictor
 
-    log("[27] fp32 parity of fusion_ver31(): one whole-image forward, 20 classes, GPU kernels vs the port on the CPU")
-    cfg = fusion_ver31(compute_dtype="float32")
+    log("[27] fp32 parity of fusion_ver31(): one whole-image forward, 20 classes, CLIP cut (cut_depth), GPU kernels "
+        "vs the port on the CPU")
+    cfg = cut_depth(fusion_ver31(compute_dtype="float32"))
     cpu_model = build_catseg(cfg, seed=SEED, device="cpu")
     gpu = Predictor(copy.deepcopy(cpu_model), cfg, names)
     p_gpu = gpu.probs_whole(image).cpu()
@@ -1573,10 +1608,10 @@ def fusion_train_parity_phase(dev) -> None:
 
     from catseg_tpu_torch import configs
 
-    log("[33] fp32 train-step parity of fusion_ver31() and fusion_ver14() (refine_chunk 8, mask decoder x5): "
-        "1 crop, 8 classes, GPU vs CPU")
+    log("[33] fp32 train-step parity of fusion_ver31() (CLIP cut, cut_depth) and fusion_ver14() (refine_chunk 8, "
+        "mask decoder x5): 1 crop, 8 classes, GPU vs CPU")
     log("    Ver31:")
-    train_parity_phase(dev, configs.fusion_ver31(compute_dtype="float32"))
+    train_parity_phase(dev, cut_depth(configs.fusion_ver31(compute_dtype="float32")))
     cfg = configs.fusion_ver14(compute_dtype="float32")
     log("    Ver14:")
     train_parity_phase(dev, cfg.replace(fusion=dataclasses.replace(cfg.fusion, refine_chunk=8)),
@@ -1848,7 +1883,7 @@ def export_phase(smi, _build) -> None:
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        cfg32 = eval_preset(vitb384(compute_dtype="float32"))
+        cfg32 = cut_depth(eval_preset(vitb384(compute_dtype="float32")))
         cpu_model = init_catseg_(CATSeg(cfg32), SEED).eval()
         gpu_model = copy.deepcopy(cpu_model).to(dev)
         spec32 = texport.ExportSpec((1024, 1024), (768, 768), 20)
@@ -1977,7 +2012,7 @@ def shared_card_rank(images, targets, params_path: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = vitb384(compute_dtype="float32", batch_size=2)
+    cfg = cut_depth(vitb384(compute_dtype="float32", batch_size=2))
     state = init_train_state(cfg, seed=SEED)
     step = make_train_step(cfg, state.optimizer, class_tokens(class_names("coco")[:SHARED_CLASSES]),
                            mesh=mesh.make_mesh())
@@ -2015,7 +2050,7 @@ def shared_card_phase(smi, _build, want_cm, harness_cm) -> list:
         f"scaling): fp32 vitb384 step at global batch 2 (one crop a rank), {SHARED_CLASSES} classes; "
         "evaluate_sharded over the 4 fixtures in bf16 (per-device batch 2)")
     images, targets = synthetic_batch(2, SHARED_CLASSES, SEED)
-    cfg = vitb384(compute_dtype="float32", batch_size=2)
+    cfg = cut_depth(vitb384(compute_dtype="float32", batch_size=2))
     state = init_train_state(cfg, seed=SEED)
     step = make_train_step(cfg, state.optimizer, class_tokens(class_names("coco")[:SHARED_CLASSES]))
     want_loss = step(state.model, images.cuda(), targets.cuda()).item()
@@ -2133,6 +2168,269 @@ def mamba_phase(smi, _build) -> None:
         raise AssertionError("the VSSBlock on the card disagrees with the CPU, or its LayerNorms never launched #1")
 
 
+CLASS_FORWARD_T = (847, 150)   # [43]: top-k to 256 kept (128 a rank), and 150 (75 a rank)
+CLASS_STEP_T = 171              # [44]: COCO-Stuff's train classes, 57 a rank over three
+CLASS_LOGIT_BOUND = 2e-4        # [43] fp32 max |d logit| against one process (catseg_tpu's sharded-aggregator bound)
+
+
+def class_forward_inputs(T: int, seed: int):
+    """[43]'s aggregator inputs at vitb384's widths: 2 images of random CLIP
+    features (24 x 24 x 512), T random text features, the three guidances."""
+    g = torch.Generator().manual_seed(seed)
+    img = torch.randn(2, 24, 24, 512, generator=g)
+    txt = torch.randn(2, T, 1, 512, generator=g)
+    guid = tuple(torch.randn(2, s, s, c, generator=g) for s, c in ((24, 512), (48, 256), (96, 128)))
+    return img, txt, guid
+
+
+def on_card(inputs, dt):
+    img, txt, guid = inputs
+    return img.cuda().to(dt), txt.cuda().to(dt), tuple(g.cuda().to(dt) for g in guid)
+
+
+def class_forward(agg, cfg, inputs, class_axis=None):
+    """The aggregator on card ``inputs``: (logits, kept classes or None)."""
+    from catseg_tpu_torch.core.aggregator import aggregator_forward
+
+    with torch.no_grad():
+        return aggregator_forward(agg, *inputs, cfg, return_classes=True, class_axis=class_axis)
+
+
+def class_step_cfg(dt: str, batch: int):
+    """[44]'s config: vitb384 at full width; the fp32 parity run at one crop
+    and cut depth, as one process on the card runs it beside the ranks."""
+    from catseg_tpu_torch.configs import vitb384
+
+    cfg = vitb384(compute_dtype=dt, batch_size=batch)
+    return cut_depth(cfg) if dt == "float32" else cfg
+
+
+def class_step_rank(cfg, images, targets, n_class: int, params_path: str | None):
+    """One train step of ``cfg`` over the mesh {1, n_class} on this rank:
+    (loss, a checksum of every parameter after it); rank 0 saves the
+    parameters to ``params_path`` where given."""
+    from catseg_tpu_torch.configs import class_names
+    from catseg_tpu_torch.parallel import mesh
+    from catseg_tpu_torch.train.loop import class_tokens, init_train_state, make_train_step
+
+    state = init_train_state(cfg, seed=SEED)
+    axis = mesh.make_mesh(n_data=1, n_class=n_class)
+    step = make_train_step(cfg, state.optimizer, class_tokens(class_names("coco")), mesh=axis)
+    loss = step(state.model, images.cuda(), targets.cuda()).item()
+    params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    if params_path is not None and mesh.rank() == 0:
+        torch.save(params, params_path)
+    return loss, [float(p.double().abs().sum()) for p in params.values()]
+
+
+def class_mesh12_rank(step_images, step_targets, params_path: str) -> dict:
+    """Phase 43 on one of two ranks sharing cuda:0 over gloo (mesh {1, 2}):
+    the fp32 aggregator at each CLASS_FORWARD_T (logits and kept classes),
+    then bf16: one counted forward each, every kernel call of another held
+    against its plain version, ms a forward; then [44]'s fp32 step at T = 171,
+    which does not divide over two ranks (the warning recorded)."""
+    import warnings
+
+    from catseg_tpu_torch.configs import eval_preset, vitb384
+    from catseg_tpu_torch.core.catseg import CATSeg, init_catseg_
+    from catseg_tpu_torch.kernels import _build, selfcheck
+    from catseg_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    axis = mesh.make_mesh(n_data=1, n_class=2)
+    out = {"rank": mesh.rank(), "fp32": [], "bf16": []}
+    # the parameters stay fp32 in either compute dtype: one seeded aggregator serves both
+    agg = init_catseg_(CATSeg(eval_preset(vitb384(compute_dtype="float32"))), SEED).agg.cuda().eval()
+    for dt in (torch.float32, torch.bfloat16):
+        cfg = eval_preset(vitb384(compute_dtype=str(dt)[6:]))
+        for T in CLASS_FORWARD_T:
+            inputs = on_card(class_forward_inputs(T, SEED + T), dt)
+            if dt == torch.float32:
+                logits, kept = class_forward(agg, cfg, inputs, axis)
+                out["fp32"].append((logits.cpu(), None if kept is None else kept.cpu()))
+                continue
+            class_forward(agg, cfg, inputs, axis)                      # warm-up
+            _, launches = run_counted(lambda: class_forward(agg, cfg, inputs, axis), _build)
+            with selfcheck.recorded_calls() as calls:
+                class_forward(agg, cfg, inputs, axis)
+            checks = selfcheck.check_calls(calls, dt)
+            shapes = {name: tuple(args[0].shape) for name, args in calls}
+            del calls
+            ms = time_ms(lambda: class_forward(agg, cfg, inputs, axis), reps=5, warmup=1)
+            out["bf16"].append({"T": T, "launches": launches, "checks": checks, "shapes": shapes, "ms": ms})
+    del agg
+    torch.cuda.empty_cache()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        out["step"] = class_step_rank(class_step_cfg("float32", 1), step_images, step_targets, 2, params_path)
+    out["warnings"] = [str(w.message) for w in seen if issubclass(w.category, UserWarning)]
+    return out
+
+
+def class_mesh13_rank(step_images, step_targets, params_path: str, images, targets) -> dict:
+    """Phase 44 on one of three ranks sharing cuda:0 over gloo (mesh {1, 3},
+    57 classes a rank): the fp32 step at one crop and cut depth (rank 0
+    saves its parameters), then vitb384() in bf16 at 2 crops: one counted
+    step, 3 timed steps and the allocator's peak, and one more step whose
+    every kernel call, forward and backward, is held against its plain
+    version: {(name, dtype): (calls, max abs error, judged error)}."""
+    from catseg_tpu_torch.configs import class_names
+    from catseg_tpu_torch.kernels import _build, selfcheck
+    from catseg_tpu_torch.parallel import mesh
+    from catseg_tpu_torch.train.loop import class_tokens, init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank(), "step": class_step_rank(class_step_cfg("float32", 1), step_images, step_targets, 3,
+                                                        params_path)}
+    torch.cuda.empty_cache()
+    cfg = class_step_cfg("bfloat16", 2)
+    state = init_train_state(cfg, seed=SEED)
+    axis = mesh.make_mesh(n_data=1, n_class=3)
+    step = make_train_step(cfg, state.optimizer, class_tokens(class_names("coco")), mesh=axis)
+    img, tgt = images.cuda(), targets.cuda()
+    torch.cuda.reset_peak_memory_stats()
+    loss, launches = run_counted(lambda: step(state.model, img, tgt).item(), _build)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state.model, img, tgt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out.update(bf16_loss=loss, launches=launches, ms=statistics.median(times), ms_all=times,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    with selfcheck.recorded_calls(backward=True) as calls:
+        step(state.model, img, tgt)
+    groups = {}
+    for name, args in calls:
+        groups.setdefault((name, args[0].dtype), []).append((name, args))
+    del calls
+    out["checks"] = {(name, dt): selfcheck.check_calls(cs, dt)[name] for (name, dt), cs in groups.items()}
+    return out
+
+
+def class_axis_phases(smi) -> None:
+    """Phases 43 and 44: class-axis model parallelism over gloo ranks
+    sharing cuda:0 (a check of the code; one card reads no scaling)."""
+    from catseg_tpu_torch.configs import class_names, eval_preset, vitb384
+    from catseg_tpu_torch.core.catseg import CATSeg, init_catseg_
+    from catseg_tpu_torch.kernels import selfcheck
+    from catseg_tpu_torch.parallel import mesh
+    from catseg_tpu_torch.train.loop import class_tokens, init_train_state, make_train_step
+
+    log(f"[43] class-axis forward over two gloo ranks sharing cuda:0 (mesh {{1, 2}}): the eval_preset(vitb384()) "
+        f"aggregator at full width, 2 images of random CLIP features, T = {CLASS_FORWARD_T} (847: top-k to 256, "
+        "128 a rank); fp32 against one process on the card, bf16 kernels against their plain versions")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = eval_preset(vitb384(compute_dtype="float32"))
+    agg = init_catseg_(CATSeg(cfg), SEED).agg.cuda().eval()
+    want = [class_forward(agg, cfg, on_card(class_forward_inputs(T, SEED + T), torch.float32))
+            for T in CLASS_FORWARD_T]
+    want = [(lg.cpu(), None if kept is None else kept.cpu()) for lg, kept in want]
+    del agg
+    # [44]'s reference: one process stepping the same crop at the same cut depth
+    step_images, step_targets = synthetic_batch(1, CLASS_STEP_T, SEED + 5)
+    cfg32 = class_step_cfg("float32", 1)
+    state = init_train_state(cfg32, seed=SEED)
+    start = {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()}
+    one = make_train_step(cfg32, state.optimizer, class_tokens(class_names("coco")))
+    want_loss = one(state.model, step_images.cuda(), step_targets.cuda()).item()
+    want_params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    del state, one
+    torch.cuda.empty_cache()
+
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path2 = os.path.join(tmp, "params_2.pt")
+        t0 = time.perf_counter()
+        out = mesh.spawn(class_mesh12_rank, 2, step_images, step_targets, path2, backend="gloo",
+                         devices=["cuda:0", "cuda:0"], tmp_dir=tmp)
+        wall = time.perf_counter() - t0
+        for i, T in enumerate(CLASS_FORWARD_T):
+            w_logits, w_kept = want[i]
+            worst, kept_equal = 0.0, True
+            for r in out:
+                logits, kept = r["fp32"][i]
+                if (kept is None) != (w_kept is None) or (kept is not None and any(
+                        set(kept[b].tolist()) != set(w_kept[b].tolist()) for b in range(2))):
+                    kept_equal = False
+                    continue
+                ref = w_logits
+                if kept is not None:   # by class id: top-k may order tied classes apart
+                    logits = torch.stack([logits[b, torch.argsort(kept[b])] for b in range(2)])
+                    ref = torch.stack([w_logits[b, torch.argsort(w_kept[b])] for b in range(2)])
+                worst = max(worst, (logits - ref).abs().max().item())
+            log(f"    fp32 T={T}: logits {tuple(out[0]['fp32'][i][0].shape)} on both ranks, max |d logit| against "
+                f"one process {worst:.3e} (bound {CLASS_LOGIT_BOUND:.0e}), kept sets equal {kept_equal}")
+            if not kept_equal or not worst <= CLASS_LOGIT_BOUND:
+                bad.append(f"fp32 T={T}")
+        for r in out:
+            for rec in r["bf16"]:
+                T = rec["T"]
+                for name, (n, err, rel) in rec["checks"].items():
+                    bound = selfcheck.bound(name, torch.bfloat16)
+                    log(f"    rank {r['rank']} bf16 T={T} {name:12s} {n:2d} calls, first input {rec['shapes'][name]}: "
+                        f"max_abs_err {err:.3e} rel {rel:.3e} (bound {bound:.1e})")
+                    if not rel <= bound:
+                        bad.append(f"rank {r['rank']} T={T} {name}")
+                need = ("corr_embed", "swin_block", "class_layer", "decoder")
+                missing = [k for k in need if rec["launches"][k] == 0 or k not in rec["checks"]]
+                bad += [f"rank {r['rank']} T={T} never launched {missing}"] if missing else []
+                log(f"    rank {r['rank']} bf16 T={T}: {rec['ms']:.2f} ms a forward (median of 5, both ranks on one "
+                    f"card, gloo gathers through the host); launches {rec['launches']}; on {smi}")
+        log(f"    the two ranks' processes {wall:.1f} s from spawn to the last result")
+        got2 = torch.load(path2, weights_only=True)
+
+        log(f"[44] class-axis train step over gloo ranks sharing cuda:0: mesh {{1, 3}} at T = {CLASS_STEP_T} "
+            f"({CLASS_STEP_T // 3} classes a rank); fp32 at one crop, CLIP cut (cut_depth), against one process; then "
+            "vitb384() in bf16, 2 crops, every kernel call of a step against its plain version; and mesh {1, 2} at "
+            "T = 171 (does not divide: the warning, every rank aggregates all 171), in [43]'s ranks")
+        images, targets = synthetic_batch(2, CLASS_STEP_T, SEED + 6)
+        path3 = os.path.join(tmp, "params_3.pt")
+        t0 = time.perf_counter()
+        out3 = mesh.spawn(class_mesh13_rank, 3, step_images, step_targets, path3, images, targets, backend="gloo",
+                          devices=["cuda:0"] * 3, tmp_dir=tmp)
+        wall3 = time.perf_counter() - t0
+        got3 = torch.load(path3, weights_only=True)
+    scale = max(1.0, max(float(p.abs().max()) for p in want_params.values()))
+    warned = all(any(f"T={CLASS_STEP_T} not divisible by mesh class axis 2" in w for w in r["warnings"]) for r in out)
+    for mesh_name, ranks, got in (("{1, 3}", out3, got3), ("{1, 2}", out, got2)):
+        loss = ranks[0]["step"][0]
+        d_loss = abs(loss - want_loss)
+        worst = max(float((got[n] - want_params[n]).abs().max()) for n in want_params)
+        equal = all(r["step"] == ranks[0]["step"] for r in ranks)
+        moved = sum(not torch.equal(got[n], p) for n, p in start.items())
+        log(f"    fp32 mesh {mesh_name}: loss {loss:.7f} vs one process {want_loss:.7f} (|d| {d_loss:.2e}, bound "
+            f"1e-5); parameters max |d| {worst:.2e} (bound 1e-4 x max(1, max |p|) = {1e-4 * scale:.2e}); ranks "
+            f"bit-equal {equal}; {moved} tensors moved")
+        if not d_loss < 1e-5 or not worst <= 1e-4 * scale or not equal or moved == 0:
+            bad.append(f"fp32 step {mesh_name}")
+    log(f"    mesh {{1, 2}} warned on both ranks: {warned}")
+    bad += [] if warned else ["no warning for T=171 over 2 class ranks"]
+    need = ("corr_embed", "swin_block", "class_layer", "decoder", "swin_block_bwd", "class_layer_bwd", "decoder_bwd")
+    for r in out3:
+        missing = [k for k in need if r["launches"][k] == 0]
+        log(f"    rank {r['rank']} bf16 step: loss {r['bf16_loss']:.6f}, {r['ms']:.1f} ms/step median of 3 (all "
+            f"{[round(t, 1) for t in r['ms_all']]}; three ranks on one card), peak {r['peak_gib']:.2f} GiB; "
+            f"launches {r['launches']}; on {smi}")
+        bad += [f"rank {r['rank']} bf16 step never launched {missing}"] if missing else []
+        bad += [] if math.isfinite(r["bf16_loss"]) else [f"rank {r['rank']} bf16 loss"]
+        for (name, dt), (n, err, rel) in sorted(r["checks"].items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
+            bound = selfcheck.bound(name, dt)
+            log(f"    rank {r['rank']} step {name:16s} {str(dt)[6:]:8s} {n:3d} calls: max_abs_err {err:.3e} rel "
+                f"{rel:.3e} (bound {bound:.1e})")
+            bad += [] if rel <= bound else [f"rank {r['rank']} step {name} {dt}"]
+        unchecked = [k for k in need if not any(name == k for name, _ in r["checks"])]
+        bad += [f"rank {r['rank']} step calls never recorded {unchecked}"] if unchecked else []
+    bad += [] if len({r["bf16_loss"] for r in out3}) == 1 else ["bf16 losses differ between ranks"]
+    log(f"    the three ranks' processes {wall3:.1f} s from spawn to the last result")
+    if bad:
+        raise AssertionError(f"class-axis phases: {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs an NVIDIA GPU",
@@ -2207,8 +2505,9 @@ def main() -> int:
     del pred
     torch.cuda.empty_cache()
 
-    log("[5] fp32 parity of the default configuration: GPU kernels vs the port on the CPU, 1 image, 20 classes")
-    cfg32 = eval_preset(vitb384(compute_dtype="float32"))
+    log("[5] fp32 parity of the default configuration: GPU kernels vs the port on the CPU, 1 image, 20 classes, "
+        "CLIP cut (cut_depth)")
+    cfg32 = cut_depth(eval_preset(vitb384(compute_dtype="float32")))
     cpu_model = init_catseg_(CATSeg(cfg32), SEED).eval()
     gpu_pred = Predictor(copy.deepcopy(cpu_model), cfg32, names[:20])
     p_gpu, gpu_launches = run_counted(lambda: gpu_pred.probs_sliding_batch(images[1:]).cpu(), _build)
@@ -2239,7 +2538,7 @@ def main() -> int:
     del pred
     torch.cuda.empty_cache()
 
-    cfg16 = eval_preset(vitb384(compute_dtype="float32", pad_len=16))
+    cfg16 = cut_depth(eval_preset(vitb384(compute_dtype="float32", pad_len=16)))
     cpu_model = init_catseg_(CATSeg(cfg16), SEED).eval()
     gpu_pred = Predictor(copy.deepcopy(cpu_model), cfg16, names847[:40])
     cpu_pred = Predictor(cpu_model, cfg16, names847[:40], device="cpu")
@@ -2324,6 +2623,7 @@ def main() -> int:
     shared_card_phase(smi, _build, nccl_cm, harness_cm)
     tile_shard_phase(smi, _build, images[1])
     mamba_phase(smi, _build)
+    class_axis_phases(smi)
 
     kernels = []
     for name, route, source, replaces in selfcheck.KERNELS:

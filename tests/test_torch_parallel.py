@@ -30,9 +30,12 @@ the rank bodies of tests/torch_parallel_ranks.py (no JAX in them).
   virtual devices and the port's unsharded path, within atol 2e-5, rtol
   1e-4 (tests/test_latency_parallel.py's bound); ``Predictor(mesh=)`` takes
   that path;
-- (f) the refusals: a class axis, a batch that does not divide over the
-  ranks (ROADMAP A6b), NCCL without a GPU, a several-device mesh for
-  training.
+- (f) the refusals: a class axis outside a process group (one process of
+  several devices), a mesh that does not fill its group, a fusion family on
+  a class axis (ROADMAP A6c), a batch that does not divide over the ranks
+  (as catseg_tpu's jitted step refuses it), NCCL without a GPU, a
+  several-device mesh for training.  Class axes inside a group:
+  tests/test_torch_class_parallel.py.
 """
 
 import dataclasses
@@ -144,7 +147,7 @@ def test_dp_train_step_matches_jax_and_one_process(params, tmp_path):
         assert worst < 1e-4, worst
     assert any(k.endswith("q_proj_weight") and not np.array_equal(got[k], sd[k]) for k in got)
     # (f) in the group: an indivisible global batch, and two devices in one rank
-    assert len(refusals) == 2 and "ROADMAP A6b" in refusals[0] and "one device" in refusals[1], refusals
+    assert len(refusals) == 2 and "pjit" in refusals[0] and "one device" in refusals[1], refusals
     # a SIGTERM on rank 1 during the loop's 2nd step stops both ranks at the next boundary; rank 0 alone
     # writes: two loss lines and the interrupt line, one checkpoint at step 2
     assert stopped == stopped_r1 == 2, (stopped, stopped_r1)
@@ -286,15 +289,26 @@ def test_tile_sharded_probs_match_jax_and_unsharded(params):
 
 
 def test_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+    with pytest.raises(ValueError, match="class axis is a set of ranks"):
         mesh.make_mesh(n_class=2, devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+    with pytest.raises(NotImplementedError, match="pjit"):
         mesh.shard_batch(np.zeros((3, 2)), rank=0, world_size=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+    with pytest.raises(NotImplementedError, match="pjit"):
         next(train_batches([("a", "b")] * 4, 3, np.random.default_rng(0), rank=0, world_size=2))
     with pytest.raises(RuntimeError, match="nccl"):
         mesh.init_process_group("nccl", 0, 1, str(tmp_path / "store"))
     assert not torch.distributed.is_initialized()
+    # a class mesh of a fusion family (its shape alone; the groups are not needed to refuse)
+    class_mesh = mesh.Mesh(devices=(torch.device("cpu"),), ranks=2, n_class=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6c"):
+        make_train_step(tconfigs.fusion_ver31(), None, np.zeros((2, 77), np.int64), mesh=class_mesh)
+    mesh.init_process_group("gloo", 0, 1, str(tmp_path / "gloo_store"))
+    try:
+        with pytest.raises(ValueError, match="does not fill the group's 1 ranks"):
+            mesh.make_mesh(n_data=1, n_class=2, devices=["cpu"])
+        assert mesh.make_mesh(n_class=1, devices=["cpu"]).shape == {"data": 1, "class": 1}
+    finally:
+        mesh.destroy_process_group()
     np.testing.assert_array_equal(mesh.shard_batch(np.arange(6), rank=1, world_size=3), [2, 3])
     one = mesh.make_mesh(devices=["cpu"] * 2, n_data=1)
     assert one.shape == {"data": 1, "class": 1} and one.size == 1
