@@ -429,6 +429,23 @@ def conv_decoder(x: torch.Tensor, guidance: list, agg: Aggregator, use_fused: bo
     return out.reshape(B, T, out.shape[1], out.shape[2])
 
 
+def aggregator_layers(x: torch.Tensor, proj_guid, text_guid, agg: Aggregator, cfg: CATSegConfig, class_axis=None,
+                      slab: tuple[int, int] | None = None) -> torch.Tensor:
+    """Every aggregator layer on x (B, T, H, W, C): the Swin pair on x's
+    classes, then the class layer.  On a ``class_axis`` x is this rank's
+    ``slab`` (t0, t1) of the classes: each class layer attends over all of
+    them, so its input is gathered over the class group and this rank keeps
+    its slab of the output (made contiguous for the next kernel)."""
+    for layer in agg.layers:
+        x = spatial_aggregation(x, proj_guid, layer, cfg)
+        if class_axis is None:
+            x = class_aggregation(x, text_guid, layer, cfg)
+        else:
+            x = class_aggregation(gather_classes_axis(x, class_axis), text_guid, layer, cfg)
+            x = x[:, slab[0]:slab[1]].contiguous()
+    return x
+
+
 def aggregator_forward(agg: Aggregator, img_feats: torch.Tensor, text_feats: torch.Tensor,
                        appearance_guidance: tuple, cfg: CATSegConfig, return_classes: bool = False,
                        class_axis=None, return_local: bool = False):
@@ -495,13 +512,7 @@ def aggregator_forward(agg: Aggregator, img_feats: torch.Tensor, text_feats: tor
         tp = agg.text_guidance_projection[0]
         text_guid = torch.relu(linear(tf.to(x.dtype), tp.weight, tp.bias))
 
-    for layer in agg.layers:
-        x = spatial_aggregation(x, proj_guid, layer, cfg)
-        if sharded:
-            x = class_aggregation(gather_classes_axis(x, class_axis), text_guid, layer, cfg)
-            x = x[:, t0:t1].contiguous()
-        else:
-            x = class_aggregation(x, text_guid, layer, cfg)
+    x = aggregator_layers(x, proj_guid, text_guid, agg, cfg, class_axis if sharded else None, (t0, t1))
     logits = conv_decoder(x, dec_guid, agg, use_fused=cfg.fused_decoder)
     if return_local:
         return logits, (t0, t1), classes

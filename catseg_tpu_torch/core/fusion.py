@@ -32,6 +32,11 @@ Under autograd (train/loop.py) the Swin pair and class layer backwards
 are #5 and #7 (Ver31's class layers unguided), and for head proposals
 the decoder's #9; the FusionUP decoder, the embeds and the mask decoder
 take autograd through their plain compositions.
+
+On a class axis (``class_axis=``, parallel/class_axis.py) both families
+split the kept classes over the ranks of a data row as the base
+aggregator does; the encoders, the full-T costs and their top-ks run whole
+on every rank.
 """
 
 from __future__ import annotations
@@ -43,9 +48,9 @@ import torch.utils.checkpoint
 from ..configs import CATSegConfig
 from ..kernels.decoder import guidance_planes, up_tail
 from ..ops import conv2d, conv_transpose2d_nonoverlap, resize_bilinear
-from .aggregator import (Aggregator, Conv, ConvTranspose, aggregator_forward, class_aggregation,
-                         correlation, corr_embed, gather_classes, l2_normalize, scatter_full_logits,
-                         spatial_aggregation, topk_classes)
+from ..parallel.class_axis import class_slab, gather_classes_axis
+from .aggregator import (Aggregator, Conv, ConvTranspose, aggregator_forward, aggregator_layers, correlation,
+                         corr_embed, gather_classes, l2_normalize, scatter_full_logits, topk_classes)
 from .catseg import CATSeg, compute_dtype, normalize_clip
 from .clip import linear
 from .dino import DINO, DINO_VARIANTS, get_intermediate_layers, init_dino_
@@ -74,14 +79,38 @@ def _embed(corr: torch.Tensor, conv: Conv) -> torch.Tensor:
     return conv2d(corr.reshape(B * T, H, W, P), conv.weight, conv.bias, padding=3).reshape(B, T, H, W, -1)
 
 
+def _kept_slab(volume: torch.Tensor, kept, t0: int, t1: int) -> torch.Tensor:
+    """Positions [t0, t1) of a volume's kept classes: of ``kept`` (B, pad_len),
+    that volume's own top-k order, or of all its classes (``kept`` None)."""
+    return volume[:, t0:t1] if kept is None else gather_classes(volume, kept[:, t0:t1])
+
+
+def _full_logits(logits: torch.Tensor, class_axis, slab: tuple[int, int], classes, T: int) -> torch.Tensor:
+    """A class slab's logits gathered over the class group of ``class_axis``
+    where the slab is not every kept class, then scattered to all T (-100
+    for the classes top-k dropped)."""
+    kept = T if classes is None else classes.shape[1]
+    if slab[1] - slab[0] < kept:
+        logits = gather_classes_axis(logits, class_axis)
+    return logits if classes is None else scatter_full_logits(logits, classes, T)
+
+
 def fusion_aggregator_forward(agg: FusionAggregator, img_feats: torch.Tensor, dino_feats: torch.Tensor | None,
                               text_feats: torch.Tensor, appearance_guidance: tuple, dino_guidance: tuple,
-                              cfg: CATSegConfig) -> torch.Tensor:
+                              cfg: CATSegConfig, class_axis=None, return_local: bool = False):
     """FusionAggregatorVer31.forward: img_feats / dino_feats (B, 24, 24, E)
     (dino_feats None: ``second_corr`` off, the single-volume embed); text
     (B, T, P, E); the CLIP guidance (res3, res4, res5) and the DINO decoder
     guidance pair (or Nones) -> (B, T, 96, 96) fp32 logits, -100 for the
-    classes top-k dropped."""
+    classes top-k dropped.
+
+    ``class_axis`` shards the kept classes as ``aggregator_forward`` does:
+    both full-T volumes, their top-ks and the text guidance run on every
+    rank; the embeds, each Swin pair and both FusionUP stages on this rank's
+    positions [t0, t1) of the kept classes (each volume's positions in its
+    own top-k order, fused position by position), each class layer on the
+    gathered classes.  With ``return_local`` returns ``(logits over the
+    slab, (t0, t1), classes)``."""
     T = text_feats.shape[1]
     corr = correlation(img_feats, text_feats)
     classes = None
@@ -89,16 +118,16 @@ def fusion_aggregator_forward(agg: FusionAggregator, img_feats: torch.Tensor, di
     if cfg.pad_len > 0 and T > cfg.pad_len:
         classes = topk_classes(corr, cfg.pad_len)
         text_kept = gather_classes(l2_normalize(text_feats), classes)
+    t0, t1 = class_slab(text_kept.shape[1], class_axis)
+    sharded = t1 - t0 < text_kept.shape[1]
+    corr = _kept_slab(corr, classes, t0, t1)
     if dino_feats is None:
-        if classes is not None:
-            corr = gather_classes(corr, classes)
         x = corr_embed(corr, agg)
     else:
+        # each volume its own top-k (the logits scatter by the CLIP one's)
         dino_corr = correlation(dino_feats, text_feats)
-        if classes is not None:
-            # each volume its own top-k (the logits scatter by the CLIP one's)
-            dino_corr = gather_classes(dino_corr, topk_classes(dino_corr, cfg.pad_len))
-            corr = gather_classes(corr, classes)
+        dino_kept = None if classes is None else topk_classes(dino_corr, cfg.pad_len)
+        dino_corr = _kept_slab(dino_corr, dino_kept, t0, t1)
         clip_embed = torch.sigmoid(_embed(corr, agg.conv1).float()).to(corr.dtype)
         dino_embed = torch.sigmoid(_embed(dino_corr, agg.conv2).float()).to(corr.dtype)
         fused = _embed(torch.cat([clip_embed, dino_embed], dim=-1), agg.fusion_corr)
@@ -115,22 +144,21 @@ def fusion_aggregator_forward(agg: FusionAggregator, img_feats: torch.Tensor, di
                 for p, g in zip(agg.DINO_decoder_guidance_projection, dino_guidance)]
     text_guid = None
     if hasattr(agg, "text_guidance_projection"):
+        # on every kept class: the class layer attends over all of them
         tf = text_kept.float().mean(-2)
         tf = tf / tf.norm(dim=-1, keepdim=True)
         tp = agg.text_guidance_projection[0]
         text_guid = torch.relu(linear(tf.to(x.dtype), tp.weight, tp.bias))
 
-    for layer in agg.layers:
-        x = spatial_aggregation(x, proj_guid, layer, cfg)
-        x = class_aggregation(x, text_guid, layer, cfg)
+    x = aggregator_layers(x, proj_guid, text_guid, agg, cfg, class_axis if sharded else None, (t0, t1))
     d1, d2 = agg.Fusiondecoder1.packed(), agg.Fusiondecoder2.packed()
     xs = up_tail(x.reshape(B * Tc, H, W, -1), guidance_planes(d1, (clip_dec[0], dino_dec[0]), x.dtype), d1, None)
     logits = up_tail(xs, guidance_planes(d2, (clip_dec[1], dino_dec[1]), x.dtype), d2,
                      {"w": agg.head.weight, "b": agg.head.bias})
     logits = logits.reshape(B, Tc, *logits.shape[1:])
-    if classes is not None:
-        logits = scatter_full_logits(logits, classes, T)
-    return logits
+    if return_local:
+        return logits, (t0, t1), classes
+    return _full_logits(logits, class_axis, (t0, t1), classes, T)
 
 
 def _clip_and_second_images(images: torch.Tensor, cfg: CATSegConfig, normalized: bool, second_images):
@@ -170,9 +198,12 @@ class DualEncoderCATSeg(CATSeg):
         self.dino_decod_proj2 = ConvTranspose(dvar.width, dg[1], 2)
 
     def forward(self, images: torch.Tensor, text_feats: torch.Tensor, cfg: CATSegConfig | None = None,
-                normalized: bool = False, second_images: torch.Tensor | None = None) -> torch.Tensor:
+                normalized: bool = False, second_images: torch.Tensor | None = None, class_axis=None,
+                return_local: bool = False):
         """images (B, H, W, 3) raw RGB (CLIP-normalized with ``normalized``);
-        text (T, P, E) or (B, T, P, E) -> (B, T, 96, 96) fp32 logits."""
+        text (T, P, E) or (B, T, P, E) -> (B, T, 96, 96) fp32 logits.
+        ``class_axis`` / ``return_local`` go to :func:`fusion_aggregator_forward`
+        (CLIP, DINO and their projections run whole on every rank)."""
         cfg = self.cfg if cfg is None else cfg
         fus = cfg.fusion
         dt = compute_dtype(cfg)
@@ -196,7 +227,7 @@ class DualEncoderCATSeg(CATSeg):
                 g1 = conv2d(grid(layers[fus.guidance_blocks[0]]), p1.weight, p1.bias)
                 g2 = conv_transpose2d_nonoverlap(grid(layers[fus.guidance_blocks[1]]), p2.weight, p2.bias, kernel=2)
         return fusion_aggregator_forward(self.agg, res3, dino_feats, _broadcast_text(text_feats, B, dt),
-                                         (res3, res4, res5), (g1, g2), cfg)
+                                         (res3, res4, res5), (g1, g2), cfg, class_axis, return_local)
 
     @torch.no_grad()
     def _init_extra_(self, gen: torch.Generator) -> None:
@@ -275,7 +306,8 @@ class SAMRefineCATSeg(CATSeg):
         self.recompute_refinement = True
 
     def forward(self, images: torch.Tensor, text_feats: torch.Tensor, cfg: CATSegConfig | None = None,
-                normalized: bool = False, second_images: torch.Tensor | None = None, with_coarse: bool = False):
+                normalized: bool = False, second_images: torch.Tensor | None = None, with_coarse: bool = False,
+                class_axis=None, return_local: bool = False):
         """images (B, H, W, 3) raw RGB (CLIP-normalized with ``normalized``)
         -> (B, T, 256, 256) fp32 refined logits; with ``with_coarse``,
         ``(coarse, refined)``: the proposals too (fp32: the aggregator's
@@ -285,7 +317,15 @@ class SAMRefineCATSeg(CATSeg):
         SAM-normalized one (implicit_fusion_Ver14.py:274).  For T > pad_len
         the top-k classes are refined and the rest get -100 in both outputs
         (the reference's own pad_len branch cannot run: catseg_tpu's
-        documented divergence)."""
+        documented divergence).
+
+        ``class_axis`` shards the refined classes: CLIP, the full-T cost and
+        its top-k and the SAM encoder run whole on every rank, the proposals
+        (the aggregator on a class slab, ``aggregator_forward(class_axis=)``,
+        or this rank's positions [t0, t1) of the kept raw cost) and their
+        refinement on this rank's classes; both outputs are gathered back.
+        With ``return_local`` returns ``(output over the slab, (t0, t1),
+        classes)``, the output ``(coarse, refined)`` with ``with_coarse``."""
         cfg = self.cfg if cfg is None else cfg
         fus = cfg.fusion
         dt = compute_dtype(cfg)
@@ -293,26 +333,29 @@ class SAMRefineCATSeg(CATSeg):
         img_feats, guidance = self.guidance_features(clip_images, cfg)
         text_feats = _broadcast_text(text_feats, img_feats.shape[0], dt)
         T = text_feats.shape[1]
-        classes = None
         if fus.refine_from == "head":
-            coarse, classes = aggregator_forward(self.agg, img_feats, text_feats, guidance, cfg, return_classes=True)
+            coarse, slab, classes = aggregator_forward(self.agg, img_feats, text_feats, guidance, cfg,
+                                                       class_axis=class_axis, return_local=True)
         elif fus.refine_from == "raw_corr":
             corr = correlation(img_feats, text_feats)
+            classes = None
             if cfg.pad_len > 0 and T > cfg.pad_len:
                 classes = topk_classes(corr, cfg.pad_len)
-                corr = gather_classes(corr, classes)
-            coarse = corr.mean(-1).float()   # template-averaged; the reference's squeeze at P = 1
+            slab = class_slab(T if classes is None else cfg.pad_len, class_axis)
+            # template-averaged; the reference's squeeze at P = 1
+            coarse = _kept_slab(corr, classes, *slab).mean(-1).float()
         else:
             raise ValueError(f"unknown refine_from {fus.refine_from!r}")
         sam_feat = self.sam_encoder(sam_images.to(dt), compute_dtype=dt)
         refined = sam_mask_refine(self.sam_prompt_encoder, self.sam_decoder, coarse.to(dt), sam_feat,
                                   fus.refine_chunk, recompute=self.recompute_refinement).float()
-        if classes is not None:
-            refined = scatter_full_logits(refined, classes, T)
+        coarse = coarse.float()
+        if return_local:
+            return ((coarse, refined) if with_coarse else refined), slab, classes
+        refined = _full_logits(refined, class_axis, slab, classes, T)
         if not with_coarse:
             return refined
-        coarse = coarse.float()
-        return (coarse if classes is None else scatter_full_logits(coarse, classes, T)), refined
+        return _full_logits(coarse, class_axis, slab, classes, T), refined
 
     @torch.no_grad()
     def _init_extra_(self, gen: torch.Generator) -> None:

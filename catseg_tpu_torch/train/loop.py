@@ -34,8 +34,9 @@ backpropagate the whole loss.  The parts every class rank computes alike
 (CLIP, the text encoder, the top-k) get a partial gradient on each, made
 whole by the sum.  Where the class count does not divide over the class
 axis every class rank aggregates all classes, holds the same loss, and the
-sum over the class group becomes a mean.  The fusion families do not run
-on a class axis (ROADMAP A6c).
+sum over the class group becomes a mean.  The fusion families shard the
+same way: Ver31 its aggregator's kept classes, Ver14 its proposals and
+their refinement, each of its two outputs taking its slab's share.
 """
 
 from __future__ import annotations
@@ -87,28 +88,32 @@ def train_loss(cfg: CATSegConfig, model: CATSeg, tokens: torch.Tensor, images: t
     Ver14 (``fusion.mode == "sam_refine"``) supervises both its proposals and
     its refined masks with the same BCE and sums the two
     (implicit_fusion_Ver14.py:413-415).  On a ``class_axis`` this rank's
-    share of the global loss (the module docstring)."""
+    share of the global loss (the module docstring), of both outputs for
+    Ver14."""
     dt = compute_dtype(cfg)
     emb = encode_text(model.clip, tokens, compute_dtype=dt)
     emb = emb / torch.linalg.vector_norm(emb.float(), dim=-1, keepdim=True).to(emb.dtype)
     targets, hw = targets.long(), tuple(targets.shape[1:3])
-    if cfg.fusion is not None and cfg.fusion.mode == "sam_refine":
-        coarse, refined = model(images.float(), emb[:, None, :], with_coarse=True)
-        return bce_loss(coarse, targets, cfg.ignore_value, hw) + bce_loss(refined, targets, cfg.ignore_value, hw)
+    # Ver14's proposals and refined masks, or the one output of the others
+    kw = {"with_coarse": True} if cfg.fusion is not None and cfg.fusion.mode == "sam_refine" else {}
     if class_axis is None:
-        return bce_loss(model(images.float(), emb[:, None, :]), targets, cfg.ignore_value, hw)
-    logits, (t0, t1), kept = model(images.float(), emb[:, None, :], class_axis=class_axis, return_local=True)
+        out = model(images.float(), emb[:, None, :], **kw)
+        losses = [bce_loss(logits, targets, cfg.ignore_value, hw) for logits in (out if kw else (out,))]
+        return sum(losses[1:], losses[0])
+    out, (t0, t1), kept = model(images.float(), emb[:, None, :], class_axis=class_axis, return_local=True, **kw)
     B, T = images.shape[0], emb.shape[0]
     count = B * class_axis.shape["data"] * hw[0] * hw[1] * T
-    ids = (torch.arange(t0, t1, device=logits.device).expand(B, -1) if kept is None else kept[:, t0:t1])
-    loss = bce_loss(logits, targets, cfg.ignore_value, hw, classes=ids, count=count)
+    ids = (torch.arange(t0, t1, device=targets.device).expand(B, -1) if kept is None else kept[:, t0:t1])
+    losses = [bce_loss(logits, targets, cfg.ignore_value, hw, classes=ids, count=count)
+              for logits in (out if kw else (out,))]
     if kept is not None and t0 == 0:
-        # the classes top-k dropped hold -100 logits: a constant 100 where
-        # the target is one of them (the rest rounds to 0), once a data row
+        # the classes top-k dropped hold -100 logits in each output: a
+        # constant 100 where the target is one of them (the rest rounds to
+        # 0), once a data row
         valid = targets != cfg.ignore_value
         dropped = valid & ~(targets[..., None] == kept[:, None, None, :]).any(-1)
-        loss = loss + 100.0 * dropped.sum() / count
-    return loss
+        losses = [loss + 100.0 * dropped.sum() / count for loss in losses]
+    return sum(losses[1:], losses[0])
 
 
 @torch.no_grad()
@@ -157,14 +162,10 @@ def make_train_step(cfg: CATSegConfig, optimizer: TrainOptimizer, text_tokens: n
     axis (``make_mesh(n_data=, n_class=)``) shards the classes over each
     data row's ranks (the module docstring); the slice is then the data
     index's.  A global batch ``cfg.batch_size`` that does not divide over
-    the data axis raises, as catseg_tpu's jitted step does, and so does a
-    fusion config on a class axis (ROADMAP A6c)."""
+    the data axis raises, as catseg_tpu's jitted step does."""
     n = world_size()
     grouped = dist.is_initialized()
     n_class = 1 if mesh is None else mesh.n_class
-    if n_class > 1 and cfg.fusion is not None:
-        raise NotImplementedError(f"the fusion family {cfg.fusion.mode!r} on a class axis of {n_class} ranks is not "
-                                  "ported (ROADMAP A6c: the class axis through the fusion families)")
     if mesh is not None and (len(mesh.devices) != 1 or mesh.ranks != n):
         raise NotImplementedError(f"training over {mesh.size} devices runs one process per device "
                                   f"(parallel.mesh.spawn); this mesh holds {len(mesh.devices)} in one process "

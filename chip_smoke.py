@@ -301,6 +301,20 @@ Phases (any failure raises and the script exits non-zero):
    (median of 3) and the allocator's peak a rank.  The same fp32 step on
    [43]'s ranks as the mesh {1, 2}, where 171 does not divide: the warning
    on both ranks and the result of one process.
+45. The fusion families on a class axis, in [43]'s and [44]'s ranks. On
+   {1, 2}: the eval_preset(fusion_ver31()) forward on 2 random 384^2 tiles
+   at T = 847 (each volume its own top-k to 256, 128 a rank) and 150, and
+   eval_preset(fusion_ver14()) (raw-corr proposals, the mask decoder x5)
+   at 150; fp32 at cut depth within 2e-4 of one process on the card with
+   equal kept sets; bf16 at full depth: one counted forward a rank (#1,
+   #2, #4, #6 for Ver31; #1, #2 for Ver14), every kernel call of another
+   held against its plain version at [3]'s bound, ms a forward a rank.
+   On {1, 3} at T = 171: each family's fp32 step at one crop and cut depth
+   against one process (loss within 1e-6, parameters within 1e-5, ranks
+   bit-equal; the reduced gradients' worst relative error logged), then
+   its bf16 step at full depth and 2 crops: one counted step, ms/step
+   (median of 3) and the allocator's peak a rank, every forward and
+   backward kernel call of another step held against its plain version.
 
 Phase [3] also gives each call under 1 ms a device time: 20 calls captured
 in one CUDA graph, timed over its replays (no host launch path inside),
@@ -580,6 +594,14 @@ def train_step_phase(dev, smi, _build, cfg, expect, absent, steps: int = TRAIN_S
     return counts
 
 
+def zero_by_symmetry(name: str) -> bool:
+    """An attention k bias, whose gradient is zero by symmetry (softmax
+    ignores a per-query constant): both sides of a comparison hold rounding
+    noise there."""
+    return ((".swin_block." in name and name.endswith(".attn.k.bias"))
+            or (name.startswith("sam_decoder.") and name.endswith(".k_proj.bias")))
+
+
 def train_parity_phase(dev, cfg=None, prepare=None) -> None:
     """Phases 9 and 33: an fp32 step on the card (kernels) against the port on
     the CPU, of ``cfg`` (default ``vitb384(compute_dtype="float32")``); the
@@ -620,9 +642,7 @@ def train_parity_phase(dev, cfg=None, prepare=None) -> None:
         if not g_cpu.any() and not g_gpu.any():
             zero.append(n)     # Ver14's hypernetwork MLPs of the mask tokens a single-mask output drops
             continue
-        if (".swin_block." in n and n.endswith(".attn.k.bias")) or (n.startswith("sam_decoder.")
-                                                                     and n.endswith(".k_proj.bias")):
-            # zero by symmetry (softmax ignores a per-query constant): both hold rounding noise
+        if zero_by_symmetry(n):
             symmetric = max(symmetric, g_cpu.abs().max().item(), g_gpu.abs().max().item())
             continue
         r = (g_gpu.cpu() - g_cpu).abs().max().item() / max(g_cpu.abs().max().item(), 1e-30)
@@ -2223,12 +2243,198 @@ def class_step_rank(cfg, images, targets, n_class: int, params_path: str | None)
     return loss, [float(p.double().abs().sum()) for p in params.values()]
 
 
-def class_mesh12_rank(step_images, step_targets, params_path: str) -> dict:
+FUSION_FORWARD = (("fusion_ver31", 847), ("fusion_ver31", 150), ("fusion_ver14", 150))   # [45] on {1, 2}
+FUSION_FAMILIES = ("fusion_ver31", "fusion_ver14")
+# [45]'s bounds on the fp32 step over {1, 3} against one process ([44]'s
+# vitb384 step read a loss 6e-8 and parameters 1.1e-6 apart)
+FUSION_LOSS_BOUND, FUSION_PARAM_BOUND = 1e-6, 1e-5
+# kernels each family's serving forward and train step launch ([26], [29], [31], [32])
+FUSION_LAUNCHES = {"fusion_ver31": ("layer_norm", "dense_attention", "swin_block", "class_layer"),
+                   "fusion_ver14": ("layer_norm", "dense_attention")}
+FUSION_STEP_LAUNCHES = {"fusion_ver31": VER31_TRAIN, "fusion_ver14": FUSION_LAUNCHES["fusion_ver14"]}
+
+
+def fusion_cfg(family: str, dt: str, batch: int | None = None):
+    """[45]'s config of ``family``: the serving preset (``batch`` None) or
+    the train config at ``batch`` crops, at full width; the fp32 runs at cut
+    depth."""
+    from catseg_tpu_torch import configs
+
+    cfg = getattr(configs, family)(compute_dtype=dt)
+    cfg = configs.eval_preset(cfg) if batch is None else cfg.replace(batch_size=batch)
+    return cut_depth(cfg) if dt == "float32" else cfg
+
+
+def fusion_state(cfg):
+    """The seeded train state of a fusion config on the card; Ver14's mask
+    decoder made livelier ([29]), so its refined logits are O(1)."""
+    from catseg_tpu_torch.train.loop import init_train_state
+
+    state = init_train_state(cfg, seed=SEED)
+    if cfg.fusion.mode == "sam_refine":
+        livelier_sam_(state.model, SEED + 7)
+    return state
+
+
+def fusion_forward_inputs(cfg, T: int, seed: int):
+    """[45]'s serving inputs: 2 random uint8 384^2 tiles and T random text
+    features of the family's CLIP width, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    images = torch.randint(0, 256, (2, 384, 384, 3), generator=g).float()
+    return images.cuda(), torch.randn(T, 1, cfg.clip.embed_dim, generator=g).cuda()
+
+
+def fusion_forward(model, cfg, inputs, class_axis=None) -> torch.Tensor:
+    """The family's serving forward: logits (Ver31) or refined logits (Ver14)."""
+    with torch.no_grad():
+        return model(*inputs, cfg, class_axis=class_axis)
+
+
+def kept_sets(logits) -> list:
+    """Per image, the classes whose planes are not all -100 (top-k kept)."""
+    return [set(torch.nonzero(~(lg == -100.0).flatten(1).all(1)).flatten().tolist()) for lg in logits]
+
+
+def fusion_fp32_step(cfg, images, targets, mesh=None):
+    """One fp32 step of the seeded ``cfg`` on the card, over ``mesh`` where
+    given: (loss, parameters after it, the gradients the update took, i.e.
+    reduced over the ranks and before the clip), on the host."""
+    from catseg_tpu_torch.configs import class_names
+    from catseg_tpu_torch.train.loop import class_tokens, make_train_step
+
+    state = fusion_state(cfg)
+    step = make_train_step(cfg, state.optimizer, class_tokens(class_names("coco")), mesh=mesh)
+    grads, update = {}, state.optimizer.step
+
+    def keep_grads_and_update():
+        grads.update({n: p.grad.detach().cpu().clone() for n, p in state.model.named_parameters()
+                      if p.grad is not None})
+        return update()
+
+    state.optimizer.step = keep_grads_and_update
+    loss = step(state.model, images.cuda(), targets.cuda()).item()
+    params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    del state, step
+    torch.cuda.empty_cache()
+    return loss, params, grads
+
+
+def grouped_checks(calls) -> dict:
+    """{(kernel, dtype): (calls, max abs error, judged error)} of recorded
+    kernel calls, each against its plain version on its own inputs."""
+    from catseg_tpu_torch.kernels import selfcheck
+
+    groups = {}
+    for name, args in calls:
+        groups.setdefault((name, args[0].dtype), []).append((name, args))
+    return {(name, dt): selfcheck.check_calls(cs, dt)[name] for (name, dt), cs in groups.items()}
+
+
+def rank_bf16_step(step, model, images, targets) -> dict:
+    """A rank's bf16 step ([44], [45]): one counted step, 3 timed steps and
+    the allocator's peak, and one more step whose every kernel call, forward
+    and backward, is held against its plain version (:func:`grouped_checks`)."""
+    from catseg_tpu_torch.kernels import _build, selfcheck
+
+    img, tgt = images.cuda(), targets.cuda()
+    torch.cuda.reset_peak_memory_stats()
+    loss, launches = run_counted(lambda: step(model, img, tgt).item(), _build)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, img, tgt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec = dict(bf16_loss=loss, launches=launches, ms=statistics.median(times), ms_all=times,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    with selfcheck.recorded_calls(backward=True) as calls:
+        step(model, img, tgt)
+    rec["checks"] = grouped_checks(calls)
+    return rec
+
+
+def fusion_forward_rank(axis, want_path: str) -> list:
+    """[45]'s forwards on this rank of the mesh {1, 2}, per FUSION_FORWARD
+    case: the fp32 output against one process's (``want_path``: kept sets
+    equal, then max |d|), then bf16 at full depth: one counted
+    forward, every kernel call of another against its plain version, ms a
+    forward, the first input of the Swin pair's calls."""
+    from catseg_tpu_torch.kernels import _build, selfcheck
+
+    want = torch.load(want_path, weights_only=True)
+    out = []
+    for family in FUSION_FAMILIES:
+        cases = [(i, T) for i, (f, T) in enumerate(FUSION_FORWARD) if f == family]
+        cfg = fusion_cfg(family, "float32")
+        model = fusion_state(cfg).model.eval()
+        fp32 = {}
+        for i, T in cases:
+            got = fusion_forward(model, cfg, fusion_forward_inputs(cfg, T, SEED + T), axis).cpu()
+            kept = kept_sets(got) == kept_sets(want[i])
+            fp32[i] = (kept, (got - want[i]).abs().max().item() if kept else float("inf"), tuple(got.shape))
+        del model
+        torch.cuda.empty_cache()
+        cfg = fusion_cfg(family, "bfloat16")
+        model = fusion_state(cfg).model.eval()
+        for i, T in cases:
+            inputs = fusion_forward_inputs(cfg, T, SEED + T)
+            fusion_forward(model, cfg, inputs, axis)                          # warm-up
+            _, launches = run_counted(lambda: fusion_forward(model, cfg, inputs, axis), _build)
+            with selfcheck.recorded_calls() as calls:
+                fusion_forward(model, cfg, inputs, axis)
+            checks = grouped_checks(calls)
+            swin = [tuple(a[0].shape) for name, a in calls if name == "swin_block"]
+            del calls
+            ms = time_ms(lambda: fusion_forward(model, cfg, inputs, axis), reps=5, warmup=1)
+            out.append({"family": family, "T": T, "fp32": fp32[i], "launches": launches, "checks": checks,
+                        "swin_shapes": sorted(set(swin)), "ms": ms})
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def fusion_step_rank(axis, step_images, step_targets, images, targets, want_path: str) -> dict:
+    """[45]'s steps on this rank of the mesh {1, 3}, per family: the fp32
+    step at one crop against one process's (``want_path``): loss and
+    parameter differences, the worst reduced gradient's max |d| / max |g|,
+    a checksum of the parameters; then the bf16 step at 2 crops and full
+    depth: one counted step, 3 timed steps and the allocator's peak, and one
+    more step whose every kernel call is held against its plain version."""
+    from catseg_tpu_torch.configs import class_names
+    from catseg_tpu_torch.train.loop import class_tokens, make_train_step
+
+    want = torch.load(want_path, weights_only=True)
+    out = {}
+    for family in FUSION_FAMILIES:
+        loss, params, grads = fusion_fp32_step(fusion_cfg(family, "float32", 1), step_images, step_targets, axis)
+        w_loss, w_params, w_grads = want[family]
+        if grads.keys() != w_grads.keys():
+            raise AssertionError(f"[45] {family}: the ranks' step formed gradients for other tensors than one "
+                                 "process's")
+        worst_grad = max(((g - w_grads[n]).abs().max().item() / max(w_grads[n].abs().max().item(), 1e-30), n)
+                         for n, g in grads.items() if w_grads[n].any() and not zero_by_symmetry(n))
+        rec = {"d_loss": abs(loss - w_loss), "d_params": max((params[n] - p).abs().max().item()
+                                                            for n, p in w_params.items()),
+               "worst_grad": worst_grad, "checksum": [float(p.double().abs().sum()) for p in params.values()]}
+        del params, grads
+        cfg = fusion_cfg(family, "bfloat16", 2)
+        state = fusion_state(cfg)
+        step = make_train_step(cfg, state.optimizer, class_tokens(class_names("coco")), mesh=axis)
+        rec.update(rank_bf16_step(step, state.model, images, targets))
+        del state, step
+        torch.cuda.empty_cache()
+        out[family] = rec
+    return out
+
+
+def class_mesh12_rank(step_images, step_targets, params_path: str, fusion_path: str) -> dict:
     """Phase 43 on one of two ranks sharing cuda:0 over gloo (mesh {1, 2}):
     the fp32 aggregator at each CLASS_FORWARD_T (logits and kept classes),
     then bf16: one counted forward each, every kernel call of another held
     against its plain version, ms a forward; then [44]'s fp32 step at T = 171,
-    which does not divide over two ranks (the warning recorded)."""
+    which does not divide over two ranks (the warning recorded); then [45]'s
+    fusion forwards (:func:`fusion_forward_rank`)."""
     import warnings
 
     from catseg_tpu_torch.configs import eval_preset, vitb384
@@ -2265,18 +2471,20 @@ def class_mesh12_rank(step_images, step_targets, params_path: str) -> dict:
         warnings.simplefilter("always")
         out["step"] = class_step_rank(class_step_cfg("float32", 1), step_images, step_targets, 2, params_path)
     out["warnings"] = [str(w.message) for w in seen if issubclass(w.category, UserWarning)]
+    torch.cuda.empty_cache()
+    out["fusion"] = fusion_forward_rank(axis, fusion_path)
     return out
 
 
-def class_mesh13_rank(step_images, step_targets, params_path: str, images, targets) -> dict:
+def class_mesh13_rank(step_images, step_targets, params_path: str, images, targets, fusion_path: str) -> dict:
     """Phase 44 on one of three ranks sharing cuda:0 over gloo (mesh {1, 3},
     57 classes a rank): the fp32 step at one crop and cut depth (rank 0
     saves its parameters), then vitb384() in bf16 at 2 crops: one counted
     step, 3 timed steps and the allocator's peak, and one more step whose
     every kernel call, forward and backward, is held against its plain
-    version: {(name, dtype): (calls, max abs error, judged error)}."""
+    version: {(name, dtype): (calls, max abs error, judged error)}; then
+    [45]'s fusion steps (:func:`fusion_step_rank`)."""
     from catseg_tpu_torch.configs import class_names
-    from catseg_tpu_torch.kernels import _build, selfcheck
     from catseg_tpu_torch.parallel import mesh
     from catseg_tpu_torch.train.loop import class_tokens, init_train_state, make_train_step
 
@@ -2289,30 +2497,75 @@ def class_mesh13_rank(step_images, step_targets, params_path: str, images, targe
     state = init_train_state(cfg, seed=SEED)
     axis = mesh.make_mesh(n_data=1, n_class=3)
     step = make_train_step(cfg, state.optimizer, class_tokens(class_names("coco")), mesh=axis)
-    img, tgt = images.cuda(), targets.cuda()
-    torch.cuda.reset_peak_memory_stats()
-    loss, launches = run_counted(lambda: step(state.model, img, tgt).item(), _build)
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(state.model, img, tgt)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    out.update(bf16_loss=loss, launches=launches, ms=statistics.median(times), ms_all=times,
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    with selfcheck.recorded_calls(backward=True) as calls:
-        step(state.model, img, tgt)
-    groups = {}
-    for name, args in calls:
-        groups.setdefault((name, args[0].dtype), []).append((name, args))
-    del calls
-    out["checks"] = {(name, dt): selfcheck.check_calls(cs, dt)[name] for (name, dt), cs in groups.items()}
+    out.update(rank_bf16_step(step, state.model, images, targets))
+    del state, step
+    torch.cuda.empty_cache()
+    out["fusion"] = fusion_step_rank(axis, step_images, step_targets, images, targets, fusion_path)
     return out
 
 
+def judge_bf16_step(r: dict, need, what: str, smi) -> list:
+    """Logs a rank's bf16 step record (:func:`rank_bf16_step`); returns what
+    failed: a kernel of ``need`` never launched or never recorded, a kernel
+    call outside its bound, a loss that is not finite."""
+    from catseg_tpu_torch.kernels import selfcheck
+
+    bad = []
+    missing = [k for k in need if r["launches"][k] == 0]
+    log(f"    rank {r['rank']} {what} bf16 step: loss {r['bf16_loss']:.6f}, {r['ms']:.1f} ms/step median of 3 (all "
+        f"{[round(t, 1) for t in r['ms_all']]}; three ranks on one card), peak {r['peak_gib']:.2f} GiB; "
+        f"launches {r['launches']}; on {smi}")
+    bad += [f"rank {r['rank']} {what} bf16 step never launched {missing}"] if missing else []
+    bad += [] if math.isfinite(r["bf16_loss"]) else [f"rank {r['rank']} {what} bf16 loss"]
+    for (name, dt), (n, err, rel) in sorted(r["checks"].items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
+        bound = selfcheck.bound(name, dt)
+        log(f"    rank {r['rank']} {what} step {name:16s} {str(dt)[6:]:8s} {n:3d} calls: max_abs_err {err:.3e} rel "
+            f"{rel:.3e} (bound {bound:.1e})")
+        bad += [] if rel <= bound else [f"rank {r['rank']} {what} step {name} {dt}"]
+    unchecked = [k for k in need if not any(name == k for name, _ in r["checks"])]
+    return bad + ([f"rank {r['rank']} {what} step calls never recorded {unchecked}"] if unchecked else [])
+
+
+def fusion_judge(out: list, out3: list, smi) -> list:
+    """Phase 45's readings from [43]'s ranks (the forwards, ``out``) and
+    [44]'s (the steps, ``out3``), logged; returns what failed."""
+    from catseg_tpu_torch.kernels import selfcheck
+
+    bad = []
+    for i, (family, T) in enumerate(FUSION_FORWARD):
+        for r in out:
+            rec = r["fusion"][i]
+            kept, worst, shape = rec["fp32"]
+            log(f"    rank {r['rank']} {family} T={T}: fp32 output {shape}, kept sets equal {kept}, max |d| against "
+                f"one process {worst:.3e} (bound {CLASS_LOGIT_BOUND:.0e}); bf16 {rec['ms']:.2f} ms a forward (median "
+                f"of 5, both ranks on one card), Swin pair inputs {rec['swin_shapes']}, launches {rec['launches']}; "
+                f"on {smi}")
+            bad += [] if kept and worst <= CLASS_LOGIT_BOUND else [f"rank {r['rank']} {family} T={T} fp32"]
+            for (name, dt), (n, err, rel) in sorted(rec["checks"].items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
+                bound = selfcheck.bound(name, dt)
+                log(f"      {name:16s} {str(dt)[6:]:8s} {n:4d} calls: max_abs_err {err:.3e} rel {rel:.3e} (bound "
+                    f"{bound:.1e})")
+                bad += [] if rel <= bound else [f"rank {r['rank']} {family} T={T} {name} {dt}"]
+            missing = [k for k in FUSION_LAUNCHES[family]
+                       if rec["launches"][k] == 0 or not any(name == k for name, _ in rec["checks"])]
+            bad += [f"rank {r['rank']} {family} T={T} never launched or recorded {missing}"] if missing else []
+    for family in FUSION_FAMILIES:
+        recs = [r["fusion"][family] for r in out3]
+        equal = all(rec["checksum"] == recs[0]["checksum"] for rec in recs)
+        for r, rec in zip(out3, recs):
+            log(f"    rank {r['rank']} {family} fp32 step: loss |d| {rec['d_loss']:.2e} (bound "
+                f"{FUSION_LOSS_BOUND:.0e}), parameters max |d| {rec['d_params']:.2e} (bound {FUSION_PARAM_BOUND:.0e}), "
+                f"the reduced gradients' worst max |d| / max |g| {rec['worst_grad'][0]:.2e} ({rec['worst_grad'][1]}; "
+                f"the attention k biases aside); ranks bit-equal {equal}")
+            if not rec["d_loss"] <= FUSION_LOSS_BOUND or not rec["d_params"] <= FUSION_PARAM_BOUND or not equal:
+                bad.append(f"rank {r['rank']} {family} fp32 step")
+            bad += judge_bf16_step({**rec, "rank": r["rank"]}, FUSION_STEP_LAUNCHES[family], family, smi)
+        bad += [] if len({rec["bf16_loss"] for rec in recs}) == 1 else [f"{family} bf16 losses differ between ranks"]
+    return bad
+
+
 def class_axis_phases(smi) -> None:
-    """Phases 43 and 44: class-axis model parallelism over gloo ranks
+    """Phases 43, 44 and 45: class-axis model parallelism over gloo ranks
     sharing cuda:0 (a check of the code; one card reads no scaling)."""
     from catseg_tpu_torch.configs import class_names, eval_preset, vitb384
     from catseg_tpu_torch.core.catseg import CATSeg, init_catseg_
@@ -2341,12 +2594,29 @@ def class_axis_phases(smi) -> None:
     want_params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
     del state, one
     torch.cuda.empty_cache()
+    # [45]'s: one process's forwards and fp32 steps, each family's seeded model at cut depth
+    t0 = time.perf_counter()
+    fusion_want, fusion_steps = [None] * len(FUSION_FORWARD), {}
+    for family in FUSION_FAMILIES:
+        cfg = fusion_cfg(family, "float32")
+        model = fusion_state(cfg).model.eval()
+        for i, (f, T) in enumerate(FUSION_FORWARD):
+            if f == family:
+                fusion_want[i] = fusion_forward(model, cfg, fusion_forward_inputs(cfg, T, SEED + T)).cpu()
+        del model
+        torch.cuda.empty_cache()
+        fusion_steps[family] = fusion_fp32_step(fusion_cfg(family, "float32", 1), step_images, step_targets)
+    fusion_ref_s = time.perf_counter() - t0
 
     bad = []
     with tempfile.TemporaryDirectory() as tmp:
         path2 = os.path.join(tmp, "params_2.pt")
+        forward_path, step_path = os.path.join(tmp, "fusion_forward.pt"), os.path.join(tmp, "fusion_step.pt")
+        torch.save(fusion_want, forward_path)
+        torch.save(fusion_steps, step_path)
+        del fusion_want, fusion_steps
         t0 = time.perf_counter()
-        out = mesh.spawn(class_mesh12_rank, 2, step_images, step_targets, path2, backend="gloo",
+        out = mesh.spawn(class_mesh12_rank, 2, step_images, step_targets, path2, forward_path, backend="gloo",
                          devices=["cuda:0", "cuda:0"], tmp_dir=tmp)
         wall = time.perf_counter() - t0
         for i, T in enumerate(CLASS_FORWARD_T):
@@ -2381,7 +2651,7 @@ def class_axis_phases(smi) -> None:
                 bad += [f"rank {r['rank']} T={T} never launched {missing}"] if missing else []
                 log(f"    rank {r['rank']} bf16 T={T}: {rec['ms']:.2f} ms a forward (median of 5, both ranks on one "
                     f"card, gloo gathers through the host); launches {rec['launches']}; on {smi}")
-        log(f"    the two ranks' processes {wall:.1f} s from spawn to the last result")
+        log(f"    the two ranks' processes {wall:.1f} s from spawn to the last result, [45]'s forwards included")
         got2 = torch.load(path2, weights_only=True)
 
         log(f"[44] class-axis train step over gloo ranks sharing cuda:0: mesh {{1, 3}} at T = {CLASS_STEP_T} "
@@ -2391,8 +2661,8 @@ def class_axis_phases(smi) -> None:
         images, targets = synthetic_batch(2, CLASS_STEP_T, SEED + 6)
         path3 = os.path.join(tmp, "params_3.pt")
         t0 = time.perf_counter()
-        out3 = mesh.spawn(class_mesh13_rank, 3, step_images, step_targets, path3, images, targets, backend="gloo",
-                          devices=["cuda:0"] * 3, tmp_dir=tmp)
+        out3 = mesh.spawn(class_mesh13_rank, 3, step_images, step_targets, path3, images, targets, step_path,
+                          backend="gloo", devices=["cuda:0"] * 3, tmp_dir=tmp)
         wall3 = time.perf_counter() - t0
         got3 = torch.load(path3, weights_only=True)
     scale = max(1.0, max(float(p.abs().max()) for p in want_params.values()))
@@ -2412,21 +2682,15 @@ def class_axis_phases(smi) -> None:
     bad += [] if warned else ["no warning for T=171 over 2 class ranks"]
     need = ("corr_embed", "swin_block", "class_layer", "decoder", "swin_block_bwd", "class_layer_bwd", "decoder_bwd")
     for r in out3:
-        missing = [k for k in need if r["launches"][k] == 0]
-        log(f"    rank {r['rank']} bf16 step: loss {r['bf16_loss']:.6f}, {r['ms']:.1f} ms/step median of 3 (all "
-            f"{[round(t, 1) for t in r['ms_all']]}; three ranks on one card), peak {r['peak_gib']:.2f} GiB; "
-            f"launches {r['launches']}; on {smi}")
-        bad += [f"rank {r['rank']} bf16 step never launched {missing}"] if missing else []
-        bad += [] if math.isfinite(r["bf16_loss"]) else [f"rank {r['rank']} bf16 loss"]
-        for (name, dt), (n, err, rel) in sorted(r["checks"].items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
-            bound = selfcheck.bound(name, dt)
-            log(f"    rank {r['rank']} step {name:16s} {str(dt)[6:]:8s} {n:3d} calls: max_abs_err {err:.3e} rel "
-                f"{rel:.3e} (bound {bound:.1e})")
-            bad += [] if rel <= bound else [f"rank {r['rank']} step {name} {dt}"]
-        unchecked = [k for k in need if not any(name == k for name, _ in r["checks"])]
-        bad += [f"rank {r['rank']} step calls never recorded {unchecked}"] if unchecked else []
+        bad += judge_bf16_step(r, need, "vitb384", smi)
     bad += [] if len({r["bf16_loss"] for r in out3}) == 1 else ["bf16 losses differ between ranks"]
-    log(f"    the three ranks' processes {wall3:.1f} s from spawn to the last result")
+    log(f"    the three ranks' processes {wall3:.1f} s from spawn to the last result, [45]'s included")
+    log(f"[45] the fusion families on a class axis, in [43]'s and [44]'s ranks: fusion_ver31() at T = 847 (top-k to "
+        "256, 128 a rank) and 150, fusion_ver14() (raw-corr proposals) at 150, on {1, 2}: the fp32 serving forward "
+        "at cut depth against one process, bf16 at full depth with every kernel call against its plain version; "
+        f"each family's train step on {{1, 3}} at T = {CLASS_STEP_T}: fp32 at one crop and cut depth against one "
+        f"process, bf16 at 2 crops with every kernel call checked; one process's references {fusion_ref_s:.1f} s")
+    bad += fusion_judge(out, out3, smi)
     if bad:
         raise AssertionError(f"class-axis phases: {bad}")
 

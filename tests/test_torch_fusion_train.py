@@ -102,9 +102,14 @@ def test_train_step_matches_jax(trees, case):
     sd0 = {k: v.clone() for k, v in state.model.state_dict().items()}
     loss = loop.make_train_step(cfg, state.optimizer, tokens)(state.model, images, targets)
 
-    assert abs(loss.item() - float(jl)) <= 1e-5, (loss.item(), float(jl))
-    got = state.model.state_dict()
-    labels = state.optimizer.labels
+    check_step(loss.item(), float(jl), state.model.state_dict(), want, sd0, state.optimizer.labels)
+
+
+def check_step(loss, want_loss, got, want, sd0, labels):
+    """A step's loss and tensors after it (``got``) against catseg_tpu's
+    (``want``), from the tensors before it (``sd0``), by the module
+    docstring's bounds; ``labels`` the optimizer's name -> label."""
+    assert abs(loss - want_loss) <= 1e-5, (loss, want_loss)
     assert any(lbl == "frozen" for lbl in labels.values())
     jax_moved, port_moved = set(), set()
     for name, lbl in labels.items():

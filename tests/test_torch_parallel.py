@@ -31,11 +31,11 @@ the rank bodies of tests/torch_parallel_ranks.py (no JAX in them).
   1e-4 (tests/test_latency_parallel.py's bound); ``Predictor(mesh=)`` takes
   that path;
 - (f) the refusals: a class axis outside a process group (one process of
-  several devices), a mesh that does not fill its group, a fusion family on
-  a class axis (ROADMAP A6c), a batch that does not divide over the ranks
-  (as catseg_tpu's jitted step refuses it), NCCL without a GPU, a
-  several-device mesh for training.  Class axes inside a group:
-  tests/test_torch_class_parallel.py.
+  several devices), a mesh that does not fill its group, a batch that does
+  not divide over the ranks (as catseg_tpu's jitted step refuses it), NCCL
+  without a GPU, a several-device mesh for training; and a fusion family's
+  step on a class mesh builds.  Class axes inside a group:
+  tests/test_torch_class_parallel.py, tests/test_torch_fusion_class_parallel.py.
 """
 
 import dataclasses
@@ -64,6 +64,7 @@ from catseg_tpu_torch.evaluation.distributed import evaluate_sharded
 from catseg_tpu_torch.evaluation.harness import evaluate_benchmark
 from catseg_tpu_torch.infer.pipeline import Predictor, sliding_window_probs_from_canvas
 from catseg_tpu_torch.parallel import latency, mesh
+from catseg_tpu_torch.train import loop as train_loop
 from catseg_tpu_torch.train.loop import make_train_step
 from catseg_tpu_torch.train.optim import TrainOptimizer
 from catseg_tpu_torch.weights.from_jax import state_dict_from_params
@@ -288,7 +289,7 @@ def test_tile_sharded_probs_match_jax_and_unsharded(params):
                                atol=2e-5, rtol=1e-4)
 
 
-def test_refusals(tmp_path):
+def test_refusals(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="class axis is a set of ranks"):
         mesh.make_mesh(n_class=2, devices=["cpu"] * 4)
     with pytest.raises(NotImplementedError, match="pjit"):
@@ -298,10 +299,12 @@ def test_refusals(tmp_path):
     with pytest.raises(RuntimeError, match="nccl"):
         mesh.init_process_group("nccl", 0, 1, str(tmp_path / "store"))
     assert not torch.distributed.is_initialized()
-    # a class mesh of a fusion family (its shape alone; the groups are not needed to refuse)
+    # a fusion family on a class mesh builds its step (the mesh's shape
+    # alone, in a world of its two ranks; the groups are needed only to step)
     class_mesh = mesh.Mesh(devices=(torch.device("cpu"),), ranks=2, n_class=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6c"):
-        make_train_step(tconfigs.fusion_ver31(), None, np.zeros((2, 77), np.int64), mesh=class_mesh)
+    with monkeypatch.context() as m:
+        m.setattr(train_loop, "world_size", lambda: 2)
+        assert callable(make_train_step(tconfigs.fusion_ver31(), None, np.zeros((2, 77), np.int64), mesh=class_mesh))
     mesh.init_process_group("gloo", 0, 1, str(tmp_path / "gloo_store"))
     try:
         with pytest.raises(ValueError, match="does not fill the group's 1 ranks"):
