@@ -19,12 +19,14 @@ otherwise it runs the reference's unfused stage under the reference's names
 ``_class_attention_inner`` with the linear-attention kernel or the plain
 ``_full_attention``, then the MLP kernel).  Both routes compute the same
 function; ``attention_type="full"`` always takes the unfused class stage.
-No route picks a plain version for CUDA tensors: a kernel's wrapper is
-called wherever the reference calls its kernel, and on the card a geometry
-outside that kernel's ``kernel_takes`` raises there (hidden 256 or 512, a
-head dim of 128, a text width not a multiple of 32: ROADMAP B9).  Only
-outside the reference's own gates (corr embed's, the decoder's) does the
-port run the reference's plain composition, as the reference does.
+A kernel's wrapper is called wherever the reference calls its kernel.  On
+the card a geometry outside that kernel's ``kernel_takes`` raises where the
+reference's own gate would run its kernel (a head dim of 128 for window and
+linear attention, hidden 512 for those and the MLP, a head dim of 24 for
+window attention: ROADMAP B9), and runs the plain composition where that
+gate fails, as the reference does: outside the corr embed's and the
+decoder's gates (decided here), and outside the MLP's and the linear
+attention's (decided in their wrappers, ``mlp.route``, ``linear_attn.route``).
 """
 
 from __future__ import annotations
@@ -471,10 +473,10 @@ def aggregator_forward(agg: Aggregator, img_feats: torch.Tensor, text_feats: tor
     t1), classes)``, for a loss taken on the slab."""
     T = text_feats.shape[1]
     w_hwio = agg.conv1.weight.permute(2, 3, 1, 0)
-    # the reference's gate: its kernel there (raising on the card outside
-    # the port's kernel_takes), its plain composition elsewhere.  img_feats
-    # may be a view one token into CLIP's output: E elements, a multiple of
-    # 32 wherever the kernel takes it, so 16-byte aligned
+    # the reference's gate (with one prompt, the port's kernel_takes): the
+    # kernel there, its plain composition elsewhere.  img_feats may be a view
+    # one token into CLIP's output: E elements, a multiple of 8 wherever the
+    # kernel takes it, so 16-byte aligned in bf16 and fp32
     fused_ok = corr_embed_applicable(img_feats, text_feats, w_hwio)
     classes = None
     if cfg.pad_len > 0 and T > cfg.pad_len:

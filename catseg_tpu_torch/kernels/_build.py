@@ -53,7 +53,7 @@ UNFUSED = ("window_attention", "mlp", "linear_attention")
 _SIGNATURES = {
     "catseg_layer_norm": "ppppiifi",
     "catseg_dense_attention": "ppppiiiiifi",
-    "catseg_corr_embed": "pppppp" + "iiiiii",
+    "catseg_corr_embed": "pppppp" + "iiiiiii",
     "catseg_swin_block": "pppp" + "p" * 12 + "iiiiiii",
     "catseg_class_layer": "pppppp" + "p" * 10 + "iiiifi",
     "catseg_decoder": "ppppp" + "p" * 18 + "iiii",

@@ -5,9 +5,12 @@ Replaces catseg_tpu/kernels/corr_embed.py:fused_corr_embed (Pallas _kernel).
 The kernel (csrc/corr_embed.cu) never writes the (B, T, H, W, P) cost volume;
 its note there says what bounds it on the card.  Weights use the reference's
 HWIO layout so the two packages are called alike; the bf16 kernel takes them
-packed (:func:`pack_taps`).  A CUDA call outside the kernel's geometry
-(:func:`kernel_takes`) raises; the aggregator calls it wherever the
-reference's gate (:func:`corr_embed_applicable`) holds.
+packed (:func:`pack_taps`).  The kernel takes every geometry the
+reference's gate (:func:`corr_embed_applicable`) takes with one prompt: a
+24x24 grid, an embed width C a multiple of 128 (walked in 128-channel
+blocks) and a text width E a multiple of 8 (:func:`kernel_takes`).  A CUDA
+call outside it raises; the aggregator calls the wrapper wherever the
+reference's gate holds.
 
 Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
 backward is autograd through the plain version (catseg_tpu/kernels/
@@ -39,15 +42,16 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
 
 def kernel_takes(H: int, W: int, P: int, C: int, E: int) -> bool:
     """The geometry the CUDA kernel is built for: a 24x24 grid, one prompt
-    (P = 1), C = 128 embed channels, E a multiple of 32."""
-    return (H, W, P, C) == (BASE, BASE, 1, 128) and E % 32 == 0
+    (P = 1), C a positive multiple of 128 embed channels, E a positive
+    multiple of 8 (16-byte rows in bf16)."""
+    return (H, W, P) == (BASE, BASE, 1) and C > 0 and C % 128 == 0 and E > 0 and E % 8 == 0
 
 
 def corr_embed_applicable(img_feats: torch.Tensor, text_feats: torch.Tensor, w: torch.Tensor) -> bool:
-    """The reference's gate: 24x24 grid, 128-multiple embed width, P <= 1."""
-    return (img_feats.shape[1] == BASE and img_feats.shape[2] == BASE
-            and w.shape[-1] % 128 == 0 and text_feats.shape[2] <= MAX_P
-            and img_feats.shape[-1] % 8 == 0)
+    """The reference's gate: P <= 1 and, at one prompt, the kernel's
+    geometry (a 24x24 grid, C % 128, E % 8)."""
+    _, H, W, E = img_feats.shape
+    return text_feats.shape[2] <= MAX_P and kernel_takes(H, W, 1, w.shape[-1], E)
 
 
 def corr_embed_plain(img_feats: torch.Tensor, text_n: torch.Tensor, w: torch.Tensor,
@@ -67,7 +71,8 @@ def corr_embed_plain(img_feats: torch.Tensor, text_n: torch.Tensor, w: torch.Ten
 def pack_taps(w: torch.Tensor) -> torch.Tensor:
     """(7, 7, 1, C) HWIO taps -> the bf16 kernel's B operand: the (64, C) tap
     matrix, row dy * 8 + dx (rows with dy = 7 or dx = 7 zero), rounded to bf16
-    and packed in mma fragment order (``swin_block.pack_mma_b``, depth 16)."""
+    and packed in mma fragment order (``swin_block.pack_mma_b``, depth 16):
+    each 128-channel block is 16 n8 tiles, read by the kernel in turn."""
     C = w.shape[-1]
     w64 = torch.zeros(8, 8, C, dtype=torch.bfloat16, device=w.device)
     w64[:7, :7] = w[:, :, 0, :].to(torch.bfloat16)
@@ -82,8 +87,8 @@ def _corr_embed_cuda(img_feats, text_n, w, b) -> torch.Tensor:
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"corr embed kernel takes fp32 or bf16, got {dt}")
     if not kernel_takes(H, W, P, C, E):
-        raise NotImplementedError(f"corr embed kernel is built for 24x24, P=1, C=128 and E a multiple of 32; "
-                                  f"got {(H, W, P, C)}, E={E}")
+        raise NotImplementedError(f"corr embed kernel is built for 24x24, P=1, C a multiple of 128 and E a "
+                                  f"multiple of 8; got {(H, W, P, C)}, E={E}")
     img = img_feats.contiguous()
     txt = text_n.reshape(B, T, E).to(dt).contiguous()
     if img.data_ptr() % 16 or txt.data_ptr() % 16:
@@ -93,7 +98,7 @@ def _corr_embed_cuda(img_feats, text_n, w, b) -> torch.Tensor:
     bias = b.float().contiguous()
     imgn = torch.empty((B, H * W, E), dtype=dt, device=img.device)   # the normalized image, once per image
     out = torch.empty((B, T, H, W, C), dtype=dt, device=img.device)
-    _build.launch("catseg_corr_embed", img, txt, taps, bias, imgn, out, B, T, H, W, E, int(dt == torch.bfloat16))
+    _build.launch("catseg_corr_embed", img, txt, taps, bias, imgn, out, B, T, H, W, C, E, int(dt == torch.bfloat16))
     _build.count("corr_embed")
     return out
 

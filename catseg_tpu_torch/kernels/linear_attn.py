@@ -7,10 +7,14 @@ _kernel), which the unfused linear class stage (core/aggregator.py
 each sequence's per-head KV and K-sum on chip; its note there says what
 bounds it on the card.
 
-Every call on a CUDA tensor launches the kernel, which takes any S and the
-head dims and widths :func:`kernel_takes` names; it raises outside them.  The
-reference's own gate (C % 128 == 0, S % 8 == 0) is a TPU tiling limit and is
-not repeated here.
+The kernel takes any S and the head dims and widths :func:`kernel_takes`
+names.  A call is routed by geometry alone, before any launch
+(:func:`route`): on a CUDA tensor the kernel runs where it takes the
+geometry; elsewhere the plain version runs where the reference's own Pallas
+gate fails (:func:`reference_gate`: C % 128 == 0 and S % 8 == 0), as the
+reference runs its ``_reference`` there, and the call raises where that gate
+holds (a geometry the reference runs on its kernel and the port's does not
+take).  A CPU tensor always takes the plain version.
 
 Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
 backward is autograd through the plain version on every device, as the
@@ -52,15 +56,34 @@ def kernel_takes(C: int, heads: int) -> bool:
     return C % max(C // heads, 16) == 0 and (C <= 128 or C % 128 == 0)
 
 
+def reference_gate(C: int, S: int) -> bool:
+    """Where the reference runs its Pallas kernel (catseg_tpu/kernels/
+    linear_attn.py ``fused_linear_attention``): C % 128 == 0, S % 8 == 0."""
+    return C % 128 == 0 and S % 8 == 0
+
+
+def route(C: int, heads: int, S: int) -> str:
+    """What a CUDA call at this geometry runs: "kernel" where the kernel
+    takes it, else "plain" where the reference runs its plain composition,
+    else "raise" (the reference's kernel takes it, the port's does not)."""
+    if kernel_takes(C, heads):
+        return "kernel"
+    return "raise" if reference_gate(C, S) else "plain"
+
+
 def _linear_attention_cuda(q, k, v, heads: int) -> torch.Tensor:
     N, S, C = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"linear attention kernel takes fp32 or bf16, got {q.dtype}")
     if not (k.shape == v.shape == q.shape and k.dtype == v.dtype == q.dtype):
         raise ValueError("q, k, v must share shape and dtype")
-    if not kernel_takes(C, heads):
+    way = route(C, heads, S)
+    if way == "plain":
+        return linear_attention_plain(q, k, v, heads)
+    if way == "raise":
         raise NotImplementedError(f"linear attention kernel takes head dims {HEAD_DIMS} and C a multiple of 16 "
-                                  f"and of the head dim up to 128, or a multiple of 128; got C={C}, heads={heads}")
+                                  f"and of the head dim up to 128, or a multiple of 128; got C={C}, heads={heads}, "
+                                  "where the reference's kernel runs")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("linear attention kernel reads rows by 16-byte cp.async: q, k and v must start 16-byte "

@@ -11,11 +11,16 @@ read as they are (no packing).  GELU takes the tanh form in bf16 and erf in
 fp32 (the reference's dtype predicate); the hidden is rounded to x's dtype
 before the second product.
 
-Every call on a CUDA tensor launches the kernel, which takes C a multiple of
-16 up to 256, H a multiple of 128 and 32, 64, 128 or 256 outputs, any row
-count (:func:`kernel_takes`); it raises outside them, and for x, w1 or w2
-not 16-byte aligned.  The reference's own gate (C and H multiples
-of 128, one 1024-row tile) is a TPU tiling limit and is not repeated here.
+The kernel takes C a multiple of 16 up to 256, H a multiple of 128 and 32,
+64, 128 or 256 outputs, any row count (:func:`kernel_takes`).  A call is
+routed by geometry alone, before any launch (:func:`route`): on a CUDA
+tensor the kernel runs where it takes the geometry; elsewhere the plain
+version runs where the reference's own Pallas gate fails
+(:func:`reference_gate`: C and H multiples of 128, at least one 1024-row
+tile, C * H <= 2^20), as the reference runs its ``_reference`` there, and
+the call raises where that gate holds (a geometry the reference runs on its
+kernel and the port's does not take).  A CPU tensor always takes the plain
+version.  The kernel also raises for x, w1 or w2 not 16-byte aligned.
 
 Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
 backward is autograd through the plain version on every device, as the
@@ -49,15 +54,38 @@ def kernel_takes(C: int, H: int, Co: int) -> bool:
     return C % 16 == 0 and 0 < C <= 256 and H % 128 == 0 and Co in (32, 64, 128, 256)
 
 
+def reference_gate(C: int, H: int, M: int) -> bool:
+    """Where the reference runs its Pallas kernel (catseg_tpu/kernels/mlp.py
+    ``fused_mlp``): C and H multiples of 128, at least one 1024-row tile of
+    M rows, C * H <= 2^20 (the weights beside the tiles in VMEM)."""
+    return C % 128 == 0 and H % 128 == 0 and M >= 1024 and C * H <= 1 << 20
+
+
+def route(C: int, H: int, Co: int, M: int) -> str:
+    """What a CUDA call at this geometry runs: "kernel" where the kernel
+    takes it, else "plain" where the reference runs its plain composition,
+    else "raise" (the reference's kernel takes it, the port's does not)."""
+    if kernel_takes(C, H, Co):
+        return "kernel"
+    return "raise" if reference_gate(C, H, M) else "plain"
+
+
 def _mlp_cuda(x, w1, b1, w2, b2, act: str) -> torch.Tensor:
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"mlp kernel takes fp32 or bf16, got {dt}")
     C, H = w1.shape
     Co = w2.shape[1]
-    if w2.shape[0] != H or not kernel_takes(C, H, Co):
+    if w2.shape[0] != H or x.shape[-1] != C:
+        raise ValueError(f"mlp shapes do not chain: x (..., {x.shape[-1]}), w1 {tuple(w1.shape)}, "
+                         f"w2 {tuple(w2.shape)}")
+    way = route(C, H, Co, x.numel() // C)
+    if way == "plain":
+        return mlp_plain(x, w1, b1, w2, b2, act)
+    if way == "raise":
         raise NotImplementedError(f"mlp kernel takes C a multiple of 16 up to 256, H a multiple of 128 and "
-                                  f"32, 64, 128 or 256 outputs; got {C}->{H}->{Co}")
+                                  f"32, 64, 128 or 256 outputs; got {C}->{H}->{Co}, where the reference's "
+                                  "kernel runs")
     x2 = x.reshape(-1, C).contiguous()
     w1, w2 = w1.to(dt).contiguous(), w2.to(dt).contiguous()
     # the bf16 kernel lands x rows and weight chunks by 16-byte cp.async

@@ -15,7 +15,10 @@ the GELU Swin MLP at its 864,000 tokens as ``mlp@swin``; linear attention
 over 5760 sequences of 256 classes), and for the three forward kernels
 whose shapes the larger encoder tiers change (LayerNorm rows of 1024, 1280
 and 1664, dense attention at 16 heads of 64, corr embed at E 768, 1024 and
-1280; ``name@shape``) — or all at small ones — and returns, per case,
+1280; ``name@shape``), for the corr embed at the widths the hidden-256
+aggregator and narrow text towers give it (C = 256 at E = 512, and E = 40
+and 48 at C = 128, all at the serving shape) — or all at small ones — and
+returns, per case,
 a :class:`Case`: thunks (kernel, plain) that run the same call, the one
 PyTorch call that computes the same function where there is one
 (``library``, a yardstick the port never calls), and the work the call must
@@ -25,18 +28,23 @@ chip_smoke.py and tests/test_torch_cuda.py both use it.
 
 ``ROUTES`` and :func:`route_aggregator` give the aggregator at geometries
 some kernels do not take (hidden width, heads, text width, window, grid),
-with the kernel wrappers its routes call there and those of them whose
-CUDA path refuses the geometry: the CPU tests check both sets,
+with three sets of kernel wrappers: those its routes call there, those of
+them whose CUDA path raises (the kernel does not take the geometry and the
+reference's own gate runs its kernel there), and those that run their plain
+version on the card (the kernel does not take it and the reference's gate
+sends the call to its plain composition too: ``mlp.route``,
+``linear_attn.route``).  The CPU tests check all three sets,
 chip_smoke.py [17] and tests/test_torch_cuda.py that the card raises where
-one refuses, and elsewhere launches exactly the called kernels and agrees
-with the CPU.
+one raises, and elsewhere launches exactly the called kernels that do not
+run plain and agrees with the CPU.
 
 :func:`recorded_calls` records every call the port makes to a forward
 kernel's wrapper while a path runs (and, asked, to a backward kernel's),
 and :func:`check_calls` holds each recorded call's kernel against its plain
 version (``FORWARD_PAIRS``, ``BACKWARD_PAIRS``) on the same inputs:
 chip_smoke.py [15] checks the whole-image branch's kernels at the very
-shapes and values that path hands them, [31] a train step's.
+shapes and values that path hands them, [31] a train step's, [46] those of
+hidden-256 serving (the unfused stages' kernels among them).
 
 A backward case's thunks return a dict of every gradient it produces (dx,
 the guidance or pad cotangents, each parameter's); the plain version there is
@@ -188,14 +196,14 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
         return Case(kern, lambda: clip_attn.dense_attention_plain(q, k, v, n_heads), lib,
                     4.0 * B * S * S * width, 4 * _nbytes(q), mm, fresh=lambda: calls(q.clone(), k.clone(), v.clone()))
 
-    def corr_case(E):
+    def corr_case(E, C=128):
         img = rn(B, 24, 24, E).to(dtype)
         txt = corr_embed.l2_normalize(rn(B, T, 1, E)).to(dtype)
-        cw, cb = un(7, 7, 1, 128, bound=1 / 7), un(128, bound=1 / 7)
+        cw, cb = un(7, 7, 1, C, bound=1 / 7), un(C, bound=1 / 7)
         return Case(lambda: corr_embed.fused_corr_embed(img, txt, cw, cb),
                     lambda: corr_embed.corr_embed_plain(img, txt, cw, cb), None,
-                    2.0 * B * T * 576 * (E + 49 * 128),
-                    _nbytes(img, txt, cw, cb) + B * T * 576 * 128 * img.element_size(), mm)
+                    2.0 * B * T * 576 * (E + 49 * C),
+                    _nbytes(img, txt, cw, cb) + B * T * 576 * C * img.element_size(), mm)
 
     out["layer_norm"] = ln_case(768)
     out["dense_attention"] = attn_case(768, 12)
@@ -358,30 +366,42 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
         out["dense_attention@16h"] = attn_case(1024, 16)   # L; H and G (head dims 80, 104) take no kernel
         for E in (768, 1024, 1280):   # the embed width of L, H, G
             out[f"corr_embed@E{E}"] = corr_case(E)
+        # hidden 256 (two 128-channel blocks), and text widths not a multiple of 32
+        out["corr_embed@C256"] = corr_case(512, C=256)
+        for E in (40, 48):
+            out[f"corr_embed@E{E}"] = corr_case(E)
     return out
 
 
+_UNFUSED = {"window_attention", "mlp", "linear_attention"}
+
 # name: (hidden, heads, text width E, window, grid, pooling, attention type,
 #        the kernel wrappers the aggregator's routes call at that geometry,
-#        those of them whose kernel does not take it: the card raises there)
+#        those of them that raise on the card (their kernel does not take the
+#        geometry, the reference's own gate runs its kernel there: ROADMAP
+#        B9's gaps), those that run their plain version on the card (their
+#        kernel does not take it, the reference's gate fails: the reference
+#        runs its plain composition too)).  #11's gate reads the row count
+#        and #12's the class count, so the last two sets hold at the T that
+#        route_aggregator gives, any 2 <= T <= pad_len = 8: the class stage
+#        always sees pad_len = 8 classes (S % 8 == 0) and the Swin MLP 576 T
+#        >= 1024 rows at the 24x24 grid.
 ROUTES = {
-    "flagship": (128, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed", "swin_block", "class_layer", "decoder"}, set()),
+    "flagship": (128, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed", "swin_block", "class_layer", "decoder"},
+                 set(), set()),
     "E48 pool2": (128, 4, 48, 12, 24, (2, 2), "linear", {"corr_embed", "swin_block", "class_layer", "decoder"},
-                  {"corr_embed"}),
-    "heads1": (128, 1, 64, 12, 24, (1, 1), "linear",
-               {"corr_embed", "window_attention", "mlp", "linear_attention", "decoder"},
-               {"window_attention", "linear_attention"}),
-    "hidden256": (256, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed", "window_attention", "mlp", "linear_attention"},
-                  {"corr_embed"}),
+                  set(), set()),
+    "heads1": (128, 1, 64, 12, 24, (1, 1), "linear", {"corr_embed", "decoder"} | _UNFUSED,
+               {"window_attention", "linear_attention"}, set()),
+    "hidden256": (256, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, set(), set()),
     "hidden256 E40 full": (256, 4, 40, 12, 24, (2, 2), "full", {"corr_embed", "window_attention", "mlp"},
-                           {"corr_embed"}),
-    "hidden512": (512, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed", "window_attention", "mlp", "linear_attention"},
-                  {"corr_embed", "window_attention", "mlp", "linear_attention"}),
-    "hidden96": (96, 4, 64, 12, 24, (1, 1), "linear", {"window_attention", "mlp", "linear_attention"},
-                 {"window_attention", "mlp", "linear_attention"}),
-    "hidden32 win4": (32, 4, 48, 4, 8, (2, 2), "linear", {"window_attention", "mlp", "linear_attention"}, set()),
-    "hidden64 heads8 E24": (64, 8, 24, 4, 8, (1, 1), "linear", {"window_attention", "mlp", "linear_attention"},
-                            set()),
+                           set(), set()),
+    "hidden512": (512, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, _UNFUSED, set()),
+    "hidden96": (96, 4, 64, 12, 24, (1, 1), "linear", _UNFUSED, {"window_attention"},
+                 {"mlp", "linear_attention"}),
+    "hidden192 heads3": (192, 3, 64, 12, 24, (1, 1), "linear", _UNFUSED, set(), {"mlp", "linear_attention"}),
+    "hidden32 win4": (32, 4, 48, 4, 8, (2, 2), "linear", _UNFUSED, set(), set()),
+    "hidden64 heads8 E24": (64, 8, 24, 4, 8, (1, 1), "linear", _UNFUSED, set(), set()),
 }
 
 
@@ -393,7 +413,7 @@ def route_aggregator(name: str, T: int = 8, seed: int = 0):
     from ..configs import CATSegConfig
     from ..core.aggregator import Aggregator
 
-    C, heads, E, win, grid, pool, attn, _, _ = ROUTES[name]
+    C, heads, E, win, grid, pool, attn, *_ = ROUTES[name]
     dec = dict(decoder_dims=(64, 32), decoder_guidance_dims=(64, 32), decoder_guidance_proj_dims=(32, 16))
     if C < 64:
         dec = dict(decoder_dims=(32, 16), decoder_guidance_dims=(24, 12), decoder_guidance_proj_dims=(8, 4))
@@ -426,6 +446,9 @@ FORWARD_PAIRS = {
     "swin_block": (swin_block.fused_swin_pair, swin_block.swin_pair_plain),
     "class_layer": (class_layer.fused_class_layer, class_layer.class_layer_plain),
     "decoder": (decoder.fused_decoder, decoder.decoder_plain),
+    "window_attention": (window_attn.fused_window_attention, window_attn.window_attention_plain),
+    "mlp": (mlp.fused_mlp, mlp.mlp_plain),
+    "linear_attention": (linear_attn.fused_linear_attention, linear_attn.linear_attention_plain),
 }
 
 

@@ -17,6 +17,8 @@ above 0.01), so the gate would hold nothing there; ``GATE_SEED`` is the
 first seed whose fp32 model decides at least 1000, found by ``--scan`` from
 the fp32 gaps alone (PERF.md).  chip_smoke.py phase [14] runs
 :func:`readings` at ``GATE_SEED``; ``--scan`` prints each seed's fp32 gaps.
+Architecture fields of ``vitb384`` go to :func:`readings` as keywords:
+phase [46] runs the gate at ``hidden_dim=256``.
 
 ``--control`` reads the gate on bf16 runs made worse on purpose, to show
 what it can catch: ``no-guidance`` drops the appearance guidance from both
@@ -48,8 +50,9 @@ def _inputs():
     return img, text
 
 
-def probs(dtype: str, seed: int) -> tuple[np.ndarray, dict]:
-    """(640, 640, T) probabilities of one dtype's run, and the kernel
+def probs(dtype: str, seed: int, **arch) -> tuple[np.ndarray, dict]:
+    """(640, 640, T) probabilities of one dtype's run of
+    ``eval_preset(vitb384(compute_dtype=dtype, **arch))``, and the kernel
     launches it made (counts set to 0 just before)."""
     from ..configs import eval_preset, vitb384
     from ..core.catseg import build_catseg
@@ -57,7 +60,7 @@ def probs(dtype: str, seed: int) -> tuple[np.ndarray, dict]:
     from ..kernels import _build
 
     img, text = _inputs()
-    cfg = eval_preset(vitb384(compute_dtype=dtype))
+    cfg = eval_preset(vitb384(compute_dtype=dtype, **arch))
     pred = Predictor(build_catseg(cfg, seed=seed), cfg, [f"c{i}" for i in range(T)], text_feats=text)
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -107,12 +110,12 @@ def _decided(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return gap, gap > DECIDED_GAP
 
 
-def readings(seed: int = GATE_SEED, fp32: np.ndarray | None = None) -> dict:
+def readings(seed: int = GATE_SEED, fp32: np.ndarray | None = None, **arch) -> dict:
     """The gate's readings at ``seed`` (``fp32``: that seed's fp32
-    probabilities, if already made); ``ok`` says whether all three bounds
-    hold over a non-empty decided set."""
-    a = probs("float32", seed)[0] if fp32 is None else fp32
-    b, launches = probs("bfloat16", seed)
+    probabilities, if already made) for the architecture ``arch``; ``ok``
+    says whether all three bounds hold over a non-empty decided set."""
+    a = probs("float32", seed, **arch)[0] if fp32 is None else fp32
+    b, launches = probs("bfloat16", seed, **arch)
     d = np.abs(a - b)
     _, decided = _decided(a)
     same = a.argmax(-1) == b.argmax(-1)

@@ -28,7 +28,9 @@ Phases (any failure raises and the script exits non-zero):
    (a call under 1 ms timed over 20 back-to-back calls).  Also at the larger
    encoder tiers' shapes: LayerNorm at rows of 1024, 1280 and 1664, the dense
    attention at 16 heads of 64 (width 1024), the corr embed at E 768, 1024
-   and 1280.
+   and 1280; and the corr embed at the serving shape with C = 256 (E = 512:
+   hidden 256, two 128-channel blocks) and with E = 40 and 48 (C = 128:
+   text widths not a multiple of 32).
 4. The slice at the default configuration: a Predictor at
    eval_preset(vitb384()) — ViT-B/16 at full depth and width, bf16, the
    fused decoder, random weights from seed 0 — on the 150 ADE-20k class
@@ -54,7 +56,7 @@ Phases (any failure raises and the script exits non-zero):
    decoder, CLIP q/v finetune, AdamW recipe), seed 0, the 171 COCO-Stuff
    train prompts, 4 synthetic 384^2 crops with targets in [0, 171) and ~10%
    ignore: one counted warm-up step (every forward and backward kernel
-   launched, the unfused stages' never; finite loss), 20 steps each timed
+   launched, the unfused stages' never; finite loss), 10 steps each timed
    on the host clock to a synchronize (ms/step as median, min and max;
    images/s at the median), frozen parameters bit-equal and > 90% of the
    trainable tensors moved.
@@ -111,12 +113,16 @@ Phases (any failure raises and the script exits non-zero):
    phase 5's CPU result, the same function) and equal, exactly, to row 0 of
    probs_sliding_batch on the card.
 17. The aggregator's routes at geometries some kernels do not take
-   (kernels/selfcheck.py ROUTES: hidden 256, one head, hidden 512, ...),
-   fp32, T = 8, random weights and features.  No route picks a plain
-   version on the card: where a kernel the routes call refuses the
-   geometry the card must raise NotImplementedError naming it; elsewhere
-   the run launches exactly the kernels the routes name (LayerNorm aside)
-   and its sigmoid probabilities match the port on the CPU below 5e-4.
+   (kernels/selfcheck.py ROUTES: hidden 256, one head, hidden 512, hidden
+   192 at 3 heads, ...), fp32, T = 8, random weights and features.  Where a
+   kernel the routes call does not take the geometry and the reference's
+   own gate runs its kernel there, the card must raise NotImplementedError
+   naming it; where that gate fails (the MLP and linear attention at hidden
+   96 and 192) the wrapper runs its plain version, as the reference runs
+   its plain composition, and launches nothing; elsewhere the run launches
+   exactly the kernels the routes call and do not run plain (LayerNorm
+   aside), and its sigmoid probabilities match the port on the CPU below
+   5e-4.
 18. The host data path: the host C++ library built with this machine's g++;
    every committed fixture (tests/torch_fixtures: JPEGs 4:2:0 / 4:4:4 /
    progressive / grey, L / P / RGBA PNGs, a uint16 TIFF, the 4-image
@@ -132,7 +138,7 @@ Phases (any failure raises and the script exits non-zero):
    Predictor.preds_sliding_batch on the same loaded inputs.  Images/s of the
    harness with decode and resize included (median of 3 passes) beside the
    Predictor alone on those inputs and [4]'s.  Then the steady state: the
-   harness over 256 entries of the 480x640 JPEG (each with a 480x640 PNG
+   harness over 128 entries of the 480x640 JPEG (each with a 480x640 PNG
    label map, written to a temporary ADE-150 layout) beside the Predictor
    alone on the same loaded inputs, and the harness's load ms an image.
 20. TTAPredictor with D2's 9 scales (400..1200, max 4000) x hflip on the
@@ -315,6 +321,21 @@ Phases (any failure raises and the script exits non-zero):
    its bf16 step at full depth and 2 crops: one counted step, ms/step
    (median of 3) and the allocator's peak a rank, every forward and
    backward kernel call of another step held against its plain version.
+46. vitb384 at hidden 256 (4 heads of 64) served: a Predictor at
+   eval_preset(vitb384(hidden_dim=256)), seeded random weights, bf16, on
+   phase 4's two images at T = 150.  The Swin and class stages take the
+   unfused route (the fused #4 / #6 take C = 128) and the decoder the plain
+   composition (the reference's gate wants 128 channels).  One counted
+   run: LayerNorm, dense attention, corr embed (C = 256), window attention,
+   MLP and linear attention launch, the Swin, class-layer, decoder and
+   backward kernels never; shapes and ranges as [4]; every kernel call of
+   a second run (#1, #2, #3 at C = 256, #10 at head dim 64, #11 at 256 ->
+   1024 -> 256, #12 at C = 256) against its plain version on its own
+   inputs, at [3]'s bounds; images/s (median of 3) and the allocator's
+   peak.  Then the aggregator alone at full width
+   (24x24, E 512, hidden 256, T = 150, one image of random features) in
+   fp32 on the card against the port on the CPU, below 5e-4; and the bf16
+   gate of [14] at this width (tools/bf16_gate.py, its seed and bounds).
 
 Phase [3] also gives each call under 1 ms a device time: 20 calls captured
 in one CUDA graph, timed over its replays (no host launch path inside),
@@ -348,13 +369,30 @@ import torch
 PROB_BOUND = 5e-4   # fp32 GPU-vs-CPU max |d prob| (the README's oracle bound)
 STAGE_BOUND = {torch.float32: 2e-4, torch.bfloat16: 2.0 ** -5}   # unfused vs fused stage, of max(1, |fused|)
 SEED = 0
-STEADY_IMAGES = 256   # entries of [19]'s steady-state dataset of 480x640 JPEGs
+STEADY_IMAGES = 128   # entries of [19]'s steady-state dataset of 480x640 JPEGs
 DECIDED_TIE = 1e-6    # [38]: a top-2 gap at or below it is a tie within fp32 rounding
 PARITY_TEXT_LAYERS = 4   # the text tower's depth in the fp32 parity runs (cut_depth)
 
 
+PHASE_SECONDS = {}   # a phase's number -> seconds from its header to the next one's
+_phase = [None, 0.0]
+
+
 def log(*a):
+    """Print a line; a phase's header ("[N] ...") also starts its clock."""
+    head = str(a[0]).split(" ", 1)[0] if a else ""
+    if head[:1] == "[" and head[1:2].isdigit() and head.endswith("]"):
+        phase_clock(head)
     print(*a, flush=True)
+
+
+def phase_clock(head=None) -> None:
+    """Charge the time since the last phase header to that phase and start
+    ``head``'s (None: stop)."""
+    now = time.perf_counter()
+    if _phase[0] is not None:
+        PHASE_SECONDS[_phase[0]] = PHASE_SECONDS.get(_phase[0], 0.0) + now - _phase[1]
+    _phase[:] = [head, now]
 
 
 def cut_depth(cfg):
@@ -439,6 +477,7 @@ def check_kernels(dev, dtype, selfcheck, _build) -> dict:
     fails (case "mlp@swin" counts as "mlp")."""
     out, bad = {}, []
     for name, case in selfcheck.cases(dev, dtype).items():
+        t_case = time.perf_counter()
         got, counts = run_counted(case.kernel, _build)
         if counts[name.split("@")[0]] == 0:
             bad.append(f"{name} (never launched its kernel)")
@@ -464,7 +503,8 @@ def check_kernels(dev, dtype, selfcheck, _build) -> dict:
         dev = "" if dev_ms is None else f"  device (CUDA graph) kernel {dev_ms:.4f} ms" + (
             "" if lib_dev_ms is None else f" library {lib_dev_ms:.4f} ms (kernel / library {dev_ms / lib_dev_ms:.2f})")
         log(f"  {name:16s} {str(dtype)[6:]:9s} max_abs_err {err:.3e} rel {rel:.3e} (bound {bound:.1e}){worst} "
-            f"kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms  library {lib}  bound {b_ms:.4f} ms ({b_by}){dev}")
+            f"kernel {k_ms:.3f} ms  plain {p_ms:.3f} ms  library {lib}  bound {b_ms:.4f} ms ({b_by}){dev}  "
+            f"(case {time.perf_counter() - t_case:.1f} s)")
         if not rel <= bound:
             bad.append(name)
         out[name] = {"max_abs_err": err, "rel_err": rel, "rel_bound": bound, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
@@ -520,7 +560,7 @@ def synthetic_batch(B: int, T: int, seed: int):
     return torch.from_numpy(images), torch.from_numpy(targets)
 
 
-TRAIN_STEPS = 20   # timed train steps after the warm-up, [8] and [12]
+TRAIN_STEPS = 10   # timed train steps after the warm-up, [8], [12] and [24]
 STEP_MS: dict = {}   # config -> median ms/step of its train_step_phase ([39] reads [8]'s)
 
 
@@ -872,7 +912,7 @@ def routes_phase(dev, _build) -> None:
     log("[17] aggregator routes outside some kernels' limits: fp32, T=8, GPU vs CPU, or the card's refusal")
     bad = []
     for name, route in selfcheck.ROUTES.items():
-        called, refused = route[-2:]
+        called, raises, plain = route[-3:]
         cfg, agg, (img, txt, guid) = selfcheck.route_aggregator(name)
         head = f"    {name:20s} (hidden {cfg.hidden_dim}, {cfg.num_heads} heads, E {img.shape[-1]}):"
         with torch.no_grad():
@@ -882,18 +922,19 @@ def routes_phase(dev, _build) -> None:
                 got, launches = run_counted(lambda: torch.sigmoid(aggregator_forward(
                     agg, img.to(dev), txt.to(dev), tuple(g.to(dev) for g in guid), cfg)).cpu(), _build)
             except NotImplementedError as e:
-                log(f"{head} raised, as {sorted(refused)} refuse it: {e}")
-                if not any(k.replace("_", " ") in str(e) for k in refused):
+                log(f"{head} raised, as {sorted(raises)} raise there: {e}")
+                if not any(k.replace("_", " ") in str(e) for k in raises):
                     bad.append(name)
                 continue
         d = (got - want).abs().max().item()
         launched = {k for k, n in launches.items() if n}
-        log(f"{head} max|d prob| {d:.3e} (bound {PROB_BOUND:.0e})  launched {sorted(launched)}")
-        if refused or not d < PROB_BOUND or launched - {"layer_norm"} != called:
+        log(f"{head} max|d prob| {d:.3e} (bound {PROB_BOUND:.0e})  launched {sorted(launched)}"
+            + (f", {sorted(plain)} plain as the reference's gates say" if plain else ""))
+        if raises or not d < PROB_BOUND or launched - {"layer_norm"} != called - plain:
             bad.append(name)
     if bad:
         raise AssertionError(f"aggregator routes disagree with the CPU, launched the wrong kernels, or did not "
-                             f"raise where a kernel refuses the geometry: {bad}")
+                             f"raise where ROUTES says the card raises: {bad}")
 
 
 def bf16_gate_phase(_build) -> None:
@@ -911,6 +952,83 @@ def bf16_gate_phase(_build) -> None:
     missing = [k for k in _build.FORWARD if r["bf16_launches"][k] == 0]
     if not r["ok"] or missing:
         raise AssertionError(f"bf16 serving drifts past the reference's bounds from fp32, or never launched {missing}")
+
+
+# [46]: the kernels vitb384 at hidden 256 serves through, and those it never
+# launches (fused #4 / #6 take C = 128; the decoder's gate wants 128 channels)
+HIDDEN256_KERNELS = ("layer_norm", "dense_attention", "corr_embed", "window_attention", "mlp", "linear_attention")
+HIDDEN256_ABSENT = ("swin_block", "class_layer", "decoder", "swin_block_bwd", "class_layer_bwd", "decoder_bwd")
+
+
+def hidden256_phase(dev, smi, _build, images, hws, canvas, names) -> dict:
+    """Phase 46: vitb384 at hidden 256 served on the card; returns the
+    launches of its counted run."""
+    from catseg_tpu_torch.configs import eval_preset, vitb384
+    from catseg_tpu_torch.core.aggregator import aggregator_forward
+    from catseg_tpu_torch.core.catseg import CATSeg, build_catseg, init_catseg_
+    from catseg_tpu_torch.infer.pipeline import Predictor
+    from catseg_tpu_torch.kernels import selfcheck
+    from catseg_tpu_torch.tools import bf16_gate as gate
+
+    t_phase = time.perf_counter()
+    log(f"[46] sliding-window Predictor, eval_preset(vitb384(hidden_dim=256)) (4 heads of 64), bf16, T={len(names)}")
+    cfg = eval_preset(vitb384(hidden_dim=256))
+    torch.cuda.reset_peak_memory_stats()
+    pred = Predictor(build_catseg(cfg, seed=SEED), cfg, names)
+    pred.preds_sliding_batch(images, hws, canvas)
+    preds, launches = run_counted(lambda: pred.preds_sliding_batch(images, hws, canvas), _build)
+    log(f"    launches in one 2-image run: {launches}")
+    check_launches(launches, HIDDEN256_KERNELS, HIDDEN256_ABSENT, "[46] hidden 256 serving")
+    preds = check_preds(preds, canvas, len(names))
+    ips, med = images_per_s(pred, images, hws, canvas)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"    {ips:.3f} images/s (median of 3 2-image runs, {med * 1e3:.1f} ms), allocator peak {peak:.2f} GiB, "
+        f"on {smi}; {len(np.unique(preds.numpy()))} distinct labels")
+    # each kernel on the very inputs this path hands it (#3 at C = 256, #10 at
+    # head dim 64, #11 at 256 -> 1024 -> 256, #12 at C = 256)
+    with selfcheck.recorded_calls() as calls:
+        probs = pred.probs_sliding_batch(images)
+    check_probs(probs, len(names))
+    del probs
+    check_path_calls(calls, "[46] hidden 256 sliding", HIDDEN256_KERNELS)
+    del calls
+    del pred
+    torch.cuda.empty_cache()
+
+    cfg32 = cut_depth(eval_preset(vitb384(hidden_dim=256, compute_dtype="float32")))
+    agg = init_catseg_(CATSeg(cfg32), SEED).agg.eval()
+    g = torch.Generator().manual_seed(SEED)
+    T, E = len(names), cfg32.text_guidance_dim
+    img, txt = torch.randn(1, 24, 24, E, generator=g), torch.randn(1, T, 1, E, generator=g)
+    d1, d2 = cfg32.decoder_guidance_dims
+    guid = (torch.randn(1, 24, 24, cfg32.appearance_guidance_dim, generator=g),
+            torch.randn(1, 48, 48, d1, generator=g), torch.randn(1, 96, 96, d2, generator=g))
+    with torch.no_grad():
+        want = torch.sigmoid(aggregator_forward(agg, img, txt, guid, cfg32))
+        agg.to(dev)
+        got, agg_launches = run_counted(lambda: torch.sigmoid(aggregator_forward(
+            agg, img.to(dev), txt.to(dev), tuple(t.to(dev) for t in guid), cfg32)).cpu(), _build)
+    d = (got - want).abs().max().item()
+    log(f"    fp32 aggregator at full width (24x24, E {E}, hidden 256, T={T}, one image), GPU vs the port on the "
+        f"CPU: max|d prob| {d:.3e} (bound {PROB_BOUND:.0e}); launches {agg_launches}")
+    if not d < PROB_BOUND:
+        raise AssertionError("[46] the fp32 hidden-256 aggregator on the GPU disagrees with the CPU port")
+    check_launches(agg_launches, [k for k in HIDDEN256_KERNELS if k != "dense_attention"], HIDDEN256_ABSENT,
+                   "[46] fp32 hidden-256 aggregator")
+    del agg
+    torch.cuda.empty_cache()
+
+    r = gate.readings(hidden_dim=256)
+    log(f"    bf16 vs fp32 end to end ([14]'s gate, seed {r['seed']}): max|d prob| {r['max_abs_dprob']:.4e} (bound "
+        f"{gate.BOUND_MAX:.0e})  mean {r['mean_abs_dprob']:.4e} (bound {gate.BOUND_MEAN:.0e})  argmax agreement "
+        f"{r['decided_agreement']:.5f} on {r['decided_pixels']} of {r['pixels']} pixels whose fp32 top-2 gap exceeds "
+        f"{gate.DECIDED_GAP} (bound {gate.BOUND_AGREE}; all pixels {r['all_agreement']:.5f})  bf16 launches "
+        f"{r['bf16_launches']}")
+    if not r["ok"]:
+        raise AssertionError("[46] bf16 serving at hidden 256 drifts past the reference's bounds from fp32")
+    check_launches(r["bf16_launches"], HIDDEN256_KERNELS, HIDDEN256_ABSENT, "[46] bf16 gate run")
+    log(f"    [46] took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_fixtures"
@@ -2723,7 +2841,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     checks = {dt: check_kernels(dev, dt, selfcheck, _build) for dt in (torch.float32, torch.bfloat16)}
     for name in ("swin_block_bwd", "class_layer_bwd", "decoder_bwd", "mlp", "mlp@swin", "corr_embed",
-                 "linear_attention"):   # bf16 on the tensor cores
+                 "corr_embed@C256", "corr_embed@E40", "corr_embed@E48", "linear_attention"):   # bf16 on the tensor cores
         c = checks[torch.bfloat16][name]
         what = "worst gradient" if name.endswith("_bwd") else "error"
         log(f"    {name} bf16 (tensor cores): kernel {c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms, bound "
@@ -2888,6 +3006,7 @@ def main() -> int:
     tile_shard_phase(smi, _build, images[1])
     mamba_phase(smi, _build)
     class_axis_phases(smi)
+    hidden256_phase(dev, smi, _build, images, hws, canvas, names)
 
     kernels = []
     for name, route, source, replaces in selfcheck.KERNELS:
@@ -2896,7 +3015,9 @@ def main() -> int:
              else launches[name] if name in _build.FORWARD else train_launches[name])
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": n, **checks[torch.bfloat16][name]})
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    phase_clock()
+    log(f"total {time.perf_counter() - t_start:.1f} s; by phase: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2905,4 +3026,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        if _phase[0] is not None:   # main() did not reach its end: where the time went
+            phase_clock()
+            print("by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()), file=sys.stderr)

@@ -51,11 +51,13 @@ def _mma_sum(a, b, steps):
 
 def _cost_steps(E):
     """The cost product's k-steps: per 32-wide block a lane t holds E
-    elements 8t .. 8t + 7; k-step 0 takes 8t .. 8t + 3, k-step 1 the rest."""
+    elements 8t .. 8t + 7; k-step 0 takes 8t .. 8t + 3, k-step 1 the rest.
+    In a last block past E (E % 32 in 8, 16, 24) a lane whose run lies past
+    E holds zeros: its products drop out of the step."""
     out = []
     for e0 in range(0, E, 32):
         for half in (0, 4):
-            out.append([e0 + 8 * t + half + i for t in range(4) for i in range(4)])
+            out.append([e0 + 8 * t + half + i for t in range(4) for i in range(4) if e0 + 8 * t < E])
     return out
 
 
@@ -81,9 +83,12 @@ def corr_kernel_order(img, txt, w, b):
 
 
 @pytest.mark.parametrize("against", ["reference", "pallas"])
-@pytest.mark.parametrize("T", [6, 20])
-def test_corr_kernel_order_matches_jax(T, against):
-    img, txt, w, b = _corr_inputs(seed=4 + T, T=T)
+@pytest.mark.parametrize("T,E,C", [(6, 64, 128), (20, 64, 128), (6, 40, 256), (5, 48, 128)],
+                         ids=["6", "20", "6-E40-C256", "5-E48"])
+def test_corr_kernel_order_matches_jax(T, E, C, against):
+    """At E a multiple of 32 or not (the last k step's lanes past E) and C =
+    128 or two 128-channel blocks."""
+    img, txt, w, b = _corr_inputs(seed=4 + T, T=T, E=E, C=C)
     ji, jt = jnp.asarray(img, jnp.bfloat16), jnp.asarray(txt, jnp.bfloat16)
     fn = jce._reference if against == "reference" else jce.fused_corr_embed   # Pallas in interpret mode here
     want = np.asarray(fn(ji, jt, jnp.asarray(w), jnp.asarray(b)), np.float32)
@@ -98,9 +103,9 @@ def test_corr_taps_pack_in_fragment_order():
     """csrc/corr_embed.cu reads the packed taps as uint2 (j * 4 + p) * 32 +
     lane: b0 = taps (16 p + 2t, +1) and b1 = (16 p + 8 + 2t, +1) of channel
     8 j + g, tap k = dy * 8 + dx."""
-    w = torch.from_numpy(_corr_inputs()[2])
+    w = torch.from_numpy(_corr_inputs(C=256)[2])
     packed = tce.pack_taps(w).reshape(-1, 4)      # rows: (j, p, lane), columns b0 lo, b0 hi, b1 lo, b1 hi
-    for j in (0, 5, 15):
+    for j in (0, 5, 15, 16, 31):   # 128-channel block cb: tiles 16 cb .. 16 cb + 15
         for p in range(4):
             for lane in (0, 7, 30):
                 g, t = lane // 4, lane % 4

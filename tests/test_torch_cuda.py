@@ -376,29 +376,30 @@ def test_small_geometry_runs_the_unfused_kernels(cuda, attn):
 def test_routes_on_cuda_launch_or_raise(cuda, name):
     """The aggregator at geometries some kernels do not take (hidden 256,
     one head, hidden 512, ...): where a kernel the routes call refuses the
-    geometry, the card raises NotImplementedError naming one of those
-    kernels; elsewhere exactly the kernels the routes name launch (LayerNorm
-    aside) and the fp32 logits match the port on the CPU within 5e-4 abs and
-    1e-3 rel."""
+    geometry where the reference's gate runs its kernel, the card raises
+    NotImplementedError naming one of those kernels; elsewhere exactly the
+    kernels the routes call and do not run plain launch (LayerNorm aside)
+    and the fp32 logits match the port on the CPU within 5e-4 abs and 1e-3
+    rel."""
     from catseg_tpu_torch.core import aggregator as A
 
-    called, refused = selfcheck.ROUTES[name][-2:]
+    called, raises, plain = selfcheck.ROUTES[name][-3:]
     cfg, agg, (img, txt, guid) = selfcheck.route_aggregator(name)
     with torch.no_grad():
         want = A.aggregator_forward(agg, img, txt, guid, cfg)
         agg.to(cuda)
         run = lambda: A.aggregator_forward(agg, img.to(cuda), txt.to(cuda),  # noqa: E731
                                            tuple(t.to(cuda) for t in guid), cfg)
-        if refused:
+        if raises:
             with pytest.raises(NotImplementedError) as err:
                 run()
-            assert any(k.replace("_", " ") in str(err.value) for k in refused), err.value
+            assert any(k.replace("_", " ") in str(err.value) for k in raises), err.value
             return
         _build.reset_launches()
         got = run()
         torch.cuda.synchronize()
     launched = {k for k, n in _build.LAUNCHES.items() if n}
-    assert launched - {"layer_norm"} == called, launched
+    assert launched - {"layer_norm"} == called - plain, launched
     torch.testing.assert_close(got.cpu(), want, atol=5e-4, rtol=1e-3)
 
 
@@ -888,31 +889,36 @@ def test_mlp_refuses_misaligned_rows(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("B", [1, 10])
 @pytest.mark.parametrize("T", [1, 150, 171, 256])
-def test_corr_embed_geometries(cuda, T, B, dtype):
+@pytest.mark.parametrize("E", [40, 48, 512])
+@pytest.mark.parametrize("C", [128, 256, 384])
+def test_corr_embed_geometries(cuda, C, E, T, B, dtype):
     """Class counts that fill a CTA's 8 classes or not (171 leaves 3), one
-    image or ten: one launch a call, two runs bit-equal, the plain version
-    within the stated bound."""
+    image or ten, one to three 128-channel blocks, text widths a multiple of
+    32 or not (40, 48: a last k step with one or two lanes' runs inside E):
+    one launch a call, two runs bit-equal, the plain version within the
+    stated bound."""
     from catseg_tpu_torch.kernels import corr_embed
 
-    g = torch.Generator().manual_seed(T + B)
-    img = torch.randn(B, 24, 24, 512, generator=g).to(cuda, dtype)
-    txt = corr_embed.l2_normalize(torch.randn(B, T, 1, 512, generator=g)).to(cuda, dtype)
-    w = ((torch.rand(7, 7, 1, 128, generator=g) * 2 - 1) / 7).to(cuda)
-    b = ((torch.rand(128, generator=g) * 2 - 1) / 7).to(cuda)
+    g = torch.Generator().manual_seed(T + B + C + E)
+    img = torch.randn(B, 24, 24, E, generator=g).to(cuda, dtype)
+    txt = corr_embed.l2_normalize(torch.randn(B, T, 1, E, generator=g)).to(cuda, dtype)
+    w = ((torch.rand(7, 7, 1, C, generator=g) * 2 - 1) / 7).to(cuda)
+    b = ((torch.rand(C, generator=g) * 2 - 1) / 7).to(cuda)
     before = _build.LAUNCHES["corr_embed"]
     got = corr_embed.fused_corr_embed(img, txt, w, b)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["corr_embed"] == before + 1
     assert torch.equal(got, corr_embed.fused_corr_embed(img, txt, w, b))
     want = corr_embed.corr_embed_plain(img, txt, w, b)
-    assert got.shape == want.shape == (B, T, 24, 24, 128) and got.dtype == want.dtype
+    assert got.shape == want.shape == (B, T, 24, 24, C) and got.dtype == want.dtype
     assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_corr_embed_refuses_what_it_cannot_take(cuda, dtype):
-    """E not a multiple of 32 raises NotImplementedError, an image or text
-    view not 16-byte aligned a ValueError, both before any launch."""
+    """E not a multiple of 8 (44) and C not a multiple of 128 (192) raise
+    NotImplementedError, an image or text view not 16-byte aligned a
+    ValueError, all before any launch."""
     from catseg_tpu_torch.kernels import corr_embed
 
     g = torch.Generator().manual_seed(3)
@@ -921,7 +927,9 @@ def test_corr_embed_refuses_what_it_cannot_take(cuda, dtype):
     txt = corr_embed.l2_normalize(torch.randn(1, 5, 1, 512, generator=g)).to(cuda, dtype)
     before = _build.LAUNCHES["corr_embed"]
     with pytest.raises(NotImplementedError):
-        corr_embed.fused_corr_embed(img[..., :48], txt[..., :48], w, b)
+        corr_embed.fused_corr_embed(img[..., :44], txt[..., :44], w, b)
+    with pytest.raises(NotImplementedError):
+        corr_embed.fused_corr_embed(img, txt, torch.zeros(7, 7, 1, 192, device=cuda), torch.zeros(192, device=cuda))
     for args in ((_misaligned(img), txt), (img, _misaligned(txt))):
         with pytest.raises(ValueError, match="16-byte"):
             corr_embed.fused_corr_embed(*args, w, b)
@@ -964,18 +972,58 @@ def test_linear_attention_widths(cuda, C, heads, dtype):
 
 
 def test_linear_attention_refuses_what_it_cannot_take(cuda):
-    """C = 8 (one head of 8: narrower than a warp's 16 channels) and a head
-    dim of 128 raise NotImplementedError, a view not 16-byte aligned a
+    """A head dim of 128 at C = 128 and S = 16 (where the reference's gate
+    runs its kernel) raises NotImplementedError, a view not 16-byte aligned a
     ValueError, before any launch."""
     from catseg_tpu_torch.kernels import linear_attn
 
     before = _build.LAUNCHES["linear_attention"]
-    x = torch.zeros(2, 16, 8, device=cuda)
-    with pytest.raises(NotImplementedError):
-        linear_attn.fused_linear_attention(x, x, x, 1)
     y = torch.zeros(2, 16, 128, device=cuda)
     with pytest.raises(NotImplementedError):
         linear_attn.fused_linear_attention(y, y, y, 1)
     with pytest.raises(ValueError, match="16-byte"):
         linear_attn.fused_linear_attention(_misaligned(y), y, y, 4)
     assert _build.LAUNCHES["linear_attention"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("C,heads,S", [(8, 1, 16), (192, 3, 16), (128, 1, 13)])
+def test_linear_attention_runs_plain_outside_the_reference_gate(cuda, C, heads, S, dtype):
+    """Outside the kernel's geometry and the reference's gate (C % 128, S %
+    8), the card runs the plain version, as the reference runs its own
+    plain composition there: the result equals linear_attention_plain and
+    nothing launches."""
+    from catseg_tpu_torch.kernels import linear_attn
+
+    assert linear_attn.route(C, heads, S) == "plain"
+    g = torch.Generator().manual_seed(C + S)
+    q, k, v = (torch.randn(3, S, C, generator=g).to(cuda, dtype) for _ in range(3))
+    _build.reset_launches()
+    got = linear_attn.fused_linear_attention(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
+    assert torch.equal(got, linear_attn.linear_attention_plain(q, k, v, heads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("C,H,Co,M", [(192, 768, 192, 2000), (128, 512, 96, 500), (512, 2048, 512, 100)])
+def test_mlp_runs_plain_outside_the_reference_gate(cuda, C, H, Co, M, dtype):
+    """Outside the kernel's geometry and the reference's gate (C and H
+    multiples of 128, >= 1024 rows, C * H <= 2^20), the card runs the plain
+    version: equal to mlp_plain, nothing launched; and hidden 512 at 1024
+    rows (inside that gate) raises."""
+    from catseg_tpu_torch.kernels import mlp
+
+    assert mlp.route(C, H, Co, M) == "plain"
+    g = torch.Generator().manual_seed(C + Co)
+    x = torch.randn(M, C, generator=g).to(cuda, dtype)
+    w1, b1 = (torch.randn(C, H, generator=g) * C ** -0.5).to(cuda), torch.randn(H, generator=g).to(cuda)
+    w2, b2 = (torch.randn(H, Co, generator=g) * H ** -0.5).to(cuda), torch.randn(Co, generator=g).to(cuda)
+    _build.reset_launches()
+    got = mlp.fused_mlp(x, w1, b1, w2, b2, "gelu")
+    torch.cuda.synchronize()
+    assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
+    assert torch.equal(got, mlp.mlp_plain(x, w1, b1, w2, b2, "gelu"))
+    if C == 512:
+        with pytest.raises(NotImplementedError, match="mlp kernel"):
+            mlp.fused_mlp(x.repeat(11, 1), w1, b1, w2, b2, "gelu")

@@ -101,13 +101,13 @@ def test_dense_attention_matches_reference(dt):
     assert not tca.dense_attention_applicable(512, 8, np.zeros((1,)))
 
 
-def _corr_inputs(seed=2, T=6, E=64):
+def _corr_inputs(seed=2, T=6, E=64, C=128):
     rng = np.random.RandomState(seed)
     img = rng.randn(1, 24, 24, E).astype(np.float32)
     txt = rng.randn(1, T, 1, E).astype(np.float32)
     txt /= np.linalg.norm(txt, axis=-1, keepdims=True)
-    w = rng.uniform(-0.15, 0.15, (7, 7, 1, 128)).astype(np.float32)
-    b = rng.uniform(-0.15, 0.15, (128,)).astype(np.float32)
+    w = rng.uniform(-0.15, 0.15, (7, 7, 1, C)).astype(np.float32)
+    b = rng.uniform(-0.15, 0.15, (C,)).astype(np.float32)
     return img, txt, w, b
 
 
@@ -130,6 +130,21 @@ def test_corr_embed_matches_reference_bf16():
     # moves one tap by 2^-8, one output rounding tip by 2^-7
     assert mx <= 2 ** -6 and mean <= 1e-3, (mx, mean)
     assert tce.corr_embed_applicable(ti, tt, torch.from_numpy(w))
+
+
+def test_corr_embed_kernel_takes_the_reference_gate():
+    """The port's gate (kernel_takes at one prompt) is catseg_tpu's on every
+    grid, embed width, text width and prompt count of a small grid around
+    the edges (C % 128, E % 8, 24x24, P <= 1)."""
+    for H, W in ((24, 24), (24, 12), (12, 24), (32, 32)):
+        for C in (64, 128, 192, 256, 384, 512):
+            for E in (8, 12, 24, 36, 40, 44, 48, 64, 100, 512, 768):
+                for P in (1, 2):
+                    img, txt, w = np.zeros((1, H, W, E)), np.zeros((1, 2, P, E)), np.zeros((7, 7, P, C))
+                    want = jce.corr_embed_applicable(img, txt, w)
+                    assert tce.corr_embed_applicable(torch.from_numpy(img), torch.from_numpy(txt),
+                                                     torch.from_numpy(w)) == want, (H, W, C, E, P)
+                    assert tce.kernel_takes(H, W, P, C, E) == want, (H, W, C, E, P)
 
 
 def _swin_params(rng, C=128):

@@ -24,10 +24,14 @@ test_torch_aggregator.py.
 
 The routes (``selfcheck.ROUTES``, geometries some kernels do not take): the
 aggregator calls exactly the kernel wrappers ROUTES names (no route picks a
-plain version instead), those outside their kernel's ``kernel_takes`` are
-exactly the ones ROUTES says the card refuses, and every call inside hands
-the kernel rows laid out as its CUDA path takes them; and the mini model at
-hidden 256 and at one head matches catseg_tpu's on the CPU.
+plain version instead), those outside their kernel's ``kernel_takes`` split
+exactly into the ones ROUTES says raise on the card and the ones it says run
+plain there (the MLP's and linear attention's ``route``: the reference's
+own gate fails), and every call inside hands the kernel rows laid out as
+its CUDA path takes them; and the mini model at hidden 256, at one head and
+at hidden 192 with 3 heads matches catseg_tpu's on the CPU.  The MLP's and
+linear attention's decision (kernel, plain or raise) is checked against a
+table of geometries at the edges of both gates.
 """
 
 import dataclasses
@@ -309,46 +313,52 @@ def _rows_as_taken(t) -> bool:
 
 
 # aggregator attribute: (kernel, whether its CUDA path takes the call's
-# geometry, whether it takes the call's layout after the wrapper's own copies)
+# geometry, whether it takes the call's layout after the wrapper's own copies,
+# and for a call it does not take, whether the card runs it plain)
 WRAPPER_TAKES = {
     "fused_corr_embed": ("corr_embed", lambda img, txt, w, b: corr_embed.kernel_takes(
         img.shape[1], img.shape[2], txt.shape[2], w.shape[-1], img.shape[-1]),
-        lambda img, txt, w, b: _aligned(img.contiguous(), txt.contiguous())),
+        lambda img, txt, w, b: _aligned(img.contiguous(), txt.contiguous()), lambda *_: False),
     "fused_swin_pair": ("swin_block", lambda x, guid4, p1, p2, heads, win: swin_block.kernel_takes(
         x.shape[-1], heads, win, x.shape[2], x.shape[3]),
-        lambda x, guid4, *_: _aligned(x.contiguous(), *(guid4 or ()))),
+        lambda x, guid4, *_: _aligned(x.contiguous(), *(guid4 or ())), lambda *_: False),
     "fused_class_layer": ("class_layer", lambda x, qg, kg, pkv, pks, p, heads, Tp: class_layer.kernel_takes(
-        x.shape[-1], heads, x.shape[1]), lambda x, qg, kg, *_: _aligned(x.contiguous(), qg, kg)),
+        x.shape[-1], heads, x.shape[1]), lambda x, qg, kg, *_: _aligned(x.contiguous(), qg, kg), lambda *_: False),
     "fused_decoder": ("decoder", lambda x, g1, g2, d1, d2, head: decoder.decoder_kernel_applicable(x, d1, d2),
-                      lambda *_: True),
+                      lambda *_: True, lambda *_: False),
     "fused_window_attention": ("window_attention", lambda q, k, v, mask, heads, scale: twa.kernel_takes(
-        q.shape[1], q.shape[2], heads), lambda q, k, v, *_: all(_rows_as_taken(t) for t in (q, k, v))),
+        q.shape[1], q.shape[2], heads), lambda q, k, v, *_: all(_rows_as_taken(t) for t in (q, k, v)),
+        lambda *_: False),
     "fused_mlp": ("mlp", lambda x, w1, b1, w2, b2, act: tmlp.kernel_takes(w1.shape[0], w1.shape[1], w2.shape[1]),
-                  lambda x, w1, *_: _aligned(x.reshape(-1, w1.shape[0]).contiguous())),
+                  lambda x, w1, *_: _aligned(x.reshape(-1, w1.shape[0]).contiguous()),
+                  lambda x, w1, b1, w2, b2, act: tmlp.route(*w1.shape, w2.shape[1], x.numel() // w1.shape[0])
+                  == "plain"),
     "fused_linear_attention": ("linear_attention", lambda q, k, v, heads: tla.kernel_takes(q.shape[-1], heads),
-                               lambda q, k, v, heads: _aligned(*(t.contiguous() for t in (q, k, v)))),
+                               lambda q, k, v, heads: _aligned(*(t.contiguous() for t in (q, k, v))),
+                               lambda q, k, v, heads: tla.route(q.shape[-1], heads, q.shape[1]) == "plain"),
 }
 
 
 @pytest.mark.parametrize("name", list(selfcheck.ROUTES))
 def test_routes_call_kernels_where_the_reference_does(monkeypatch, name):
     """Over a grid of (hidden, heads, E, window, grid), the aggregator's
-    routes call exactly the kernel wrappers ROUTES names, those whose
-    kernel_takes refuses the call are exactly the ones ROUTES says the card
-    refuses (it raises there), and every call a kernel takes hands it a
-    layout its CUDA path takes."""
-    called, refused = set(), set()
+    routes call exactly the kernel wrappers ROUTES names; of those whose
+    kernel_takes refuses a call, the ones whose wrapper routes it plain
+    (the reference's gate fails) are exactly the ones ROUTES says run plain
+    on the card, and the rest exactly the ones it says raise there; every
+    call a kernel takes hands it a layout its CUDA path takes."""
+    called, raises, plain = set(), set(), set()
 
     def recorder(attr):
-        kernel, takes, laid_out = WRAPPER_TAKES[attr]
+        kernel, takes, laid_out, runs_plain = WRAPPER_TAKES[attr]
         wrapper = getattr(tagg, attr)
 
         def call(*a):
             called.add(kernel)
-            if not takes(*a):
-                refused.add(kernel)
-            else:
+            if takes(*a):
                 assert laid_out(*a), f"{attr} handed a layout its kernel refuses at {name}"
+            else:
+                (plain if runs_plain(*a) else raises).add(kernel)
             return wrapper(*a)
         return call
 
@@ -358,15 +368,78 @@ def test_routes_call_kernels_where_the_reference_does(monkeypatch, name):
     with torch.no_grad():
         out = tagg.aggregator_forward(agg, img, txt, guid, cfg)
     assert out.shape == (1, 3, 4 * img.shape[1], 4 * img.shape[2]) and torch.isfinite(out).all()
-    assert (called, refused) == selfcheck.ROUTES[name][-2:], (called, refused)
+    assert (called, raises, plain) == selfcheck.ROUTES[name][-3:], (called, raises, plain)
 
 
-@pytest.mark.parametrize("kw", [dict(hidden_dim=256), dict(num_heads=1)], ids=["hidden256", "heads1"])
+# (C, H, Co, M) -> the MLP's decision: the port's kernel takes C % 16 up to
+# 256, H % 128 and Co in (32, 64, 128, 256); the reference's gate C % 128, H %
+# 128, M >= 1024 rows, C * H <= 2^20
+MLP_ROUTES = [
+    ((128, 512, 128, 10), "kernel"), ((32, 128, 32, 4608), "kernel"), ((256, 1024, 256, 1024), "kernel"),
+    ((192, 768, 192, 4608), "plain"), ((96, 384, 96, 4608), "plain"), ((128, 512, 96, 1023), "plain"),
+    ((128, 512, 96, 1024), "raise"), ((512, 2048, 512, 1023), "plain"), ((512, 2048, 512, 1024), "raise"),
+    ((512, 4096, 512, 4608), "plain"), ((384, 1536, 384, 4608), "raise"), ((256, 1000, 256, 4608), "plain"),
+]
+# (C, heads, S) -> linear attention's: the port's kernel takes head dims 8-64
+# at C <= 128 or C % 128; the reference's gate C % 128, S % 8
+LINEAR_ROUTES = [
+    ((128, 4, 8), "kernel"), ((128, 4, 13), "kernel"), ((256, 4, 8), "kernel"), ((96, 3, 8), "kernel"),
+    ((128, 1, 8), "raise"), ((128, 1, 13), "plain"), ((512, 4, 256), "raise"), ((512, 4, 150), "plain"),
+    ((192, 3, 8), "plain"), ((96, 4, 8), "plain"), ((8, 1, 16), "plain"), ((384, 3, 16), "raise"),
+]
+
+
+@pytest.mark.parametrize("geometry,want", MLP_ROUTES + LINEAR_ROUTES,
+                         ids=[f"mlp{g}" for g, _ in MLP_ROUTES] + [f"linear{g}" for g, _ in LINEAR_ROUTES])
+def test_kernel_plain_or_raise_by_geometry(geometry, want):
+    """#11 and #12 decide a CUDA call by geometry alone: "kernel" where the
+    port's kernel takes it, "plain" where it does not and the reference's
+    Pallas gate fails (the reference runs its ``_reference`` there), "raise"
+    where it does not and that gate holds.  The gates are read off
+    catseg_tpu's wrappers: the MLP's at a geometry the table marks plain or
+    raise sends catseg_tpu's call to its reference exactly where the table
+    says plain."""
+    mod = tmlp if len(geometry) == 4 else tla
+    assert mod.route(*geometry) == want
+    takes = tmlp.kernel_takes(*geometry[:3]) if mod is tmlp else tla.kernel_takes(*geometry[:2])
+    gate = tmlp.reference_gate(geometry[0], geometry[1], geometry[3]) if mod is tmlp else \
+        tla.reference_gate(geometry[0], geometry[2])
+    assert want == ("kernel" if takes else "raise" if gate else "plain")
+    if want == "kernel":
+        return
+    # catseg_tpu's own wrapper runs its Pallas kernel where the gate holds
+    # and its _reference where it fails: trace it with the kernel's entry
+    # replaced by a recorder returning zeros of the output's shape
+    traced = []
+    jmod = jmlp if mod is tmlp else jla
+    real = jmod._pallas
+    out_shape = (lambda x, w1, b1, w2, *_: (x.shape[0], w2.shape[1])) if mod is tmlp else (lambda q, *_: q.shape)
+    try:
+        jmod._pallas = lambda *a, **k: (traced.append(1), jnp.zeros(out_shape(*a), a[0].dtype))[1]
+        if mod is tmlp:
+            C, H, Co, M = geometry
+            jax.eval_shape(lambda x, w1, b1, w2, b2: jmlp.fused_mlp(x, w1, b1, w2, b2, "gelu"),
+                           *(jax.ShapeDtypeStruct(s, jnp.float32) for s in ((M, C), (C, H), (H,), (H, Co), (Co,))))
+        else:
+            C, heads, S = geometry
+            sd = jax.ShapeDtypeStruct((2, S, C), jnp.float32)
+            jax.eval_shape(lambda q, k, v: jla.fused_linear_attention(q, k, v, heads), sd, sd, sd)
+    finally:
+        jmod._pallas = real
+    assert bool(traced) == (want == "raise"), (geometry, traced)
+
+
+@pytest.mark.parametrize("kw", [dict(hidden_dim=256), dict(num_heads=1), dict(hidden_dim=192, num_heads=3)],
+                         ids=["hidden256", "heads1", "hidden192-heads3"])
 def test_mini_aggregator_outside_kernel_limits_matches_jax(kw):
-    """The mini vitb384 at hidden 256 (corr embed, Swin and class layer
-    outside the port's kernels; window attention, MLP and linear attention
-    take it) and at one head of 128 (window and linear attention outside
-    theirs) against catseg_tpu's aggregator."""
+    """The mini vitb384 at hidden 256 (Swin and class layer outside the
+    port's fused kernels; corr embed, window attention, MLP and linear
+    attention take it), at one head of 128 (window and linear attention
+    outside theirs) and at hidden 192 with 3 heads of 64 (window attention
+    takes it; the MLP and linear attention run plain, as the reference's
+    gates send them to its plain composition; the corr embed and the
+    decoder are outside the reference's gates) against catseg_tpu's
+    aggregator."""
     cfg, tcfg = mini_cfg(**kw), mini_cfg_port(**kw)
     agg = init_catseg_(CATSeg(tcfg), 0).agg
     params = convert_aggregator_state_dict({k: t.numpy() for k, t in agg.state_dict().items()},
