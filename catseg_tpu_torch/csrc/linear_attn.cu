@@ -16,18 +16,27 @@
 // spec (phi and / S make them so even from bf16 input), so every operand goes
 // in as a bf16 pair hi = bf16(x), lo = bf16(x - hi) (bwd_common.cuh's
 // convention) and each product is hi.hi + hi.lo + lo.hi in fp32 accumulators.
-// Rows arrive in 32-row tiles by 16-byte cp.async in a ring of 3 (bf16) or 2
-// (fp32) stages; phi, / S and the split are applied as the fragments are
-// built from the raw tile.
+// Rows arrive in 32-row tiles by 16-byte cp.async in a ring of 3 (bf16 at
+// head dims up to 64) or 2 stages; phi, / S and the split are applied as the
+// fragments are built from the raw tile.
 //  - Pass 1 (K, V tiles): warp w forms KV for its 16 channels' rows against
 //    their head's D columns, plus a ones column of B whose sums are Ksum;
 //    then scatters KV, masked to its head, and the per-head Ksum columns
 //    into shared memory as the B fragments (hi and lo) of pass 2.  A column
 //    group is one head, or two heads of D = 8 (block-diagonal mask).
 //  - Pass 2 (Q tiles): out = Q [KV | Ksum] with N = G + 8, so the normalizer
-//    rides the same product once per row.  A warp overwrites its part of the
-//    Q tile with the rounded output; the tile's whole rows are then stored
-//    16 bytes a thread.
+//    rides the same product once per row: a task forms that last n8 tile
+//    first, then each output tile in turn, each scaled and stored as it
+//    completes.  A task is (16 rows, column group) and, at head dim 128 (one
+//    group a CTA), a quarter of the group's output tiles, so that all eight
+//    warps have one (each forms the normalizer itself).  A warp overwrites
+//    its part of the Q tile with the rounded output (after the whole block
+//    has read its Q fragments where warps share rows); the tile's whole rows
+//    are then stored 16 bytes a thread.
+//
+// Head dim 128: KV's B fragments take 68 KB (hi and lo, 128 x 136); with a
+// ring of 2 stages a bf16 CTA takes 102 KB, so two share an SM (fp32: 136
+// KB, one).
 // No atomics: two runs are bit-equal.
 #include "attn_common.cuh"
 #include "common.cuh"
@@ -40,7 +49,7 @@ constexpr int kThreads = 256;   // 8 warps for the 128 channels of a CTA
 constexpr int kTR = 32;         // rows per ring tile
 constexpr int kChunk = 128;     // channels per CTA
 
-template <typename T> struct Ring { static constexpr int kStages = sizeof(T) == 2 ? 3 : 2; };
+template <typename T, int D> struct Ring { static constexpr int kStages = sizeof(T) == 2 && D < 128 ? 3 : 2; };
 
 // e^x by the SFU (ex2.approx: ~2 ulp; results below 2^-126 flushed to 0)
 __device__ __forceinline__ float phi(float x) { return x > 0.f ? x + 1.f : fast_exp2(x * kLog2e); }
@@ -67,7 +76,8 @@ __device__ __forceinline__ void mma3(float (&d)[4], const unsigned (&ah)[4], con
 }
 
 // at D <= 32 three bf16 CTAs share an SM (their shared memory fits; <= 80
-// registers): faster than two on the H100 at the selfcheck shape
+// registers): faster than two on the H100 at the selfcheck shape.  Two
+// elsewhere (128 registers): at D = 128 two bf16 CTAs fit with the ring of 2
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && D <= 32 ? 3 : 2)
 linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -75,7 +85,8 @@ linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   constexpr int G = D < 16 ? 16 : D;   // channels of a column group
   constexpr int NB = G / 8;            // n8 tiles of a group's KV columns
   constexpr int KK = G / 16;           // k16 steps of a group in pass 2
-  constexpr int kStages = Ring<T>::kStages;
+  constexpr int NS = G == 128 ? 4 : 1;  // tasks sharing a (row tile, group): each forms NB / NS output tiles
+  constexpr int kStages = Ring<T, D>::kStages;
   constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
   extern __shared__ __align__(16) unsigned char smem[];
   const int Cc = blockDim.x / 2;       // channels of this CTA (16 a warp)
@@ -171,46 +182,54 @@ linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   }
   __syncthreads();
 
-  // ---- pass 2: task (m-tile mt of the tile, group gj) per warp in turn
-  const int ngroups = Cc / G;
+  // ---- pass 2: task (m-tile of the tile, group gj, output tiles part) per warp in turn
+  const int ngroups = Cc / G, ntask = (kTR / 16) * ngroups * NS;
   for (int i = 0; i < nt; ++i) {
     cp_async_wait<kStages - 2>();
     __syncthreads();
     load_tile(nt + i + kStages - 1);
     T* Qt = ring + (size_t)((nt + i) % kStages) * 2 * kTR * P;
-    for (int task = warp; task < (kTR / 16) * ngroups; task += NW) {
-      const int r0 = 16 * (task % (kTR / 16)), gj = task / (kTR / 16), qc = gj * G;
+    for (int t0 = 0; t0 < ntask; t0 += NW) {   // the same trip count in every warp
+      const int task = t0 + warp, part = task % NS, mg = task / NS;
+      const int r0 = 16 * (mg % (kTR / 16)), gj = mg / (kTR / 16), qc = gj * G;
+      const bool live = task < ntask;
       unsigned ah[KK][4], al[KK][4];
+      if (live) {
 #pragma unroll
-      for (int kq = 0; kq < KK; ++kq)
+        for (int kq = 0; kq < KK; ++kq)
 #pragma unroll
-        for (int f = 0; f < 4; ++f) {
-          // a0 (row g, channels 2t, 2t + 1), a1 row g + 8, a2 / a3 channels + 8
-          const float2 x = ld2(Qt + (r0 + g + 8 * (f & 1)) * P + qc + 16 * kq + 2 * t + 8 * (f >> 1));
-          split2(phi(x.x), phi(x.y), ah[kq][f], al[kq][f]);
-        }
-      __syncwarp();   // every lane's Q reads are done before the tile is overwritten
-      float o[NB + 1][4];
+          for (int f = 0; f < 4; ++f) {
+            // a0 (row g, channels 2t, 2t + 1), a1 row g + 8, a2 / a3 channels + 8
+            const float2 x = ld2(Qt + (r0 + g + 8 * (f & 1)) * P + qc + 16 * kq + 2 * t + 8 * (f >> 1));
+            split2(phi(x.x), phi(x.y), ah[kq][f], al[kq][f]);
+          }
+      }
+      // every lane's Q reads are done before the tile is overwritten: the
+      // warp's, or the block's where warps share the rows
+      if (NS > 1) __syncthreads(); else __syncwarp();
+      if (!live) continue;
+      // the last tile first: Q . Ksum of head hd sits in its column hd, lane
+      // 4 g; then the part's output tiles, each stored as it completes
+      float z[2][2];
 #pragma unroll
-      for (int j = 0; j <= NB; ++j) {
-        o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+      for (int jj = -1; jj < NB / NS; ++jj) {
+        const int j = jj < 0 ? NB : part * (NB / NS) + jj;
+        float o[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int kq = 0; kq < KK; ++kq) {
           const uint4 bb = Bp[((size_t)(gj * KK + kq) * (NB + 1) + j) * 32 + lane];
-          mma3(o[j], ah[kq], al[kq], bb.x, bb.y, bb.z, bb.w);
+          mma3(o, ah[kq], al[kq], bb.x, bb.y, bb.z, bb.w);
         }
-      }
-      // Q . Ksum of head hd sits in column hd of the last tile, lane 4 g
-      float z[2][2];
+        if (jj < 0) {
 #pragma unroll
-      for (int f = 0; f < 4; ++f) z[f >> 1][f & 1] = __shfl_sync(0xffffffffu, o[NB][f], lane & ~3);
+          for (int f = 0; f < 4; ++f) z[f >> 1][f & 1] = __shfl_sync(0xffffffffu, o[f], lane & ~3);
+        } else {
+          const int hd = D == 8 ? j : 0;   // the tile's head within the group
 #pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        const int hd = 8 * j / D;   // 0 but for D = 8 (j)
-#pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const float rz = 1.f / (z[rr][hd] + eps);
-          st2(Qt + (r0 + g + 8 * rr) * P + qc + 8 * j + 2 * t, o[j][2 * rr] * rz * fS, o[j][2 * rr + 1] * rz * fS);
+          for (int rr = 0; rr < 2; ++rr) {
+            const float rz = 1.f / (z[rr][hd] + eps);
+            st2(Qt + (r0 + g + 8 * rr) * P + qc + 8 * j + 2 * t, o[2 * rr] * rz * fS, o[2 * rr + 1] * rz * fS);
+          }
         }
       }
     }
@@ -225,7 +244,7 @@ template <typename T, int D>
 int run(const void* q, const void* k, const void* v, void* out, int N, int S, int C, float eps, cudaStream_t st) {
   constexpr int G = D < 16 ? 16 : D;
   const int Cc = C < kChunk ? C : kChunk;
-  const size_t smem = (size_t)Ring<T>::kStages * 2 * kTR * (Cc + 8) * sizeof(T) +
+  const size_t smem = (size_t)Ring<T, D>::kStages * 2 * kTR * (Cc + 8) * sizeof(T) +
                       (size_t)(Cc / 16) * (G / 8 + 1) * 32 * sizeof(uint4);
   auto kern = linear_attention_kernel<T, D>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -243,8 +262,8 @@ int run_dt(const void* q, const void* k, const void* v, void* out, int N, int S,
 
 }  // namespace
 
-// Takes head dims 8, 16, 32 or 64; C a multiple of 16 (and of the head dim)
-// up to 128, or a multiple of 128; q, k, v, out 16-byte aligned.
+// Takes head dims 8, 16, 32, 64 or 128; C a multiple of 16 (and of the head
+// dim) up to 128, or a multiple of 128; q, k, v, out 16-byte aligned.
 extern "C" int catseg_linear_attention(const void* q, const void* k, const void* v, void* out, int N, int S,
                                        int C, int heads, float eps, int is_bf16, void* stream) {
   if (N <= 0 || S <= 0 || heads <= 0 || C % heads) return (int)cudaErrorInvalidValue;
@@ -256,6 +275,7 @@ extern "C" int catseg_linear_attention(const void* q, const void* k, const void*
     case 16: return run_dt<16>(q, k, v, out, N, S, C, eps, is_bf16, st);
     case 32: return run_dt<32>(q, k, v, out, N, S, C, eps, is_bf16, st);
     case 64: return run_dt<64>(q, k, v, out, N, S, C, eps, is_bf16, st);
+    case 128: return run_dt<128>(q, k, v, out, N, S, C, eps, is_bf16, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

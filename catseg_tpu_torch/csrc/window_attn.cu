@@ -15,35 +15,43 @@
 // Bound on the card: bytes in bf16 (0.89 GB at 6000 windows of 144 x 128,
 // 0.26 ms; the 64 GFLOP take 0.06 ms on tensor cores), operations in fp32.
 //
-// bf16 with N % 16 == 0 and head dims 16, 32, 64, where the window's K and V
-// fit in shared memory (the Swin geometry, 144 tokens x 128, and window 16,
-// 256 tokens): tensor cores, one block per window with all its heads.  The
-// window's whole K and V rows come in by 16-byte cp.async (rows XOR-swizzled
-// in 16-byte chunks, so ldmatrix is conflict-free): 72 KB at 144 x 128, so
-// three 4-warp blocks share an SM and one block's loads overlap another's
-// math (registers allow no more: 155 a thread at D = 32).  A warp takes
-// (16 query rows, head) tasks in turn, the heads of a row block one after
-// another; its Q fragments come straight from device memory, the next
-// task's while this one computes.  S = Q K^T by mma.sync m16n8k16 stays in
-// fp32 registers, 16 x 144 = 72 a thread; logits = S * scale + mask, the
-// task's mask values (L2-resident: shared memory leaves L1 28 KB) all
-// requested into those registers before the products start, so their
-// latency overlaps Q K^T; exponentials on the SFU (ex2.approx) with the
-// log2 e factor folded into one FMA; the row max and sum over the quad;
-// P = e / l rounded to bf16 goes from the accumulators into A fragments;
-// O = P V with V by ldmatrix.trans; O stored as bf16x2.  Rows of more than
-// 144 keys (window 16: 256) do not fit the registers: they run as two
-// 128-key halves in FlashAttention's order (O rescaled when the max moves,
-// P rounded unnormalised, O / l at the end), the dense kernel's trade; a
-// second pass recomputing the logits to normalise P first took 1.8x SDPA's
-// time there (PERF.md).
+// bf16 with N % 16 == 0 and head dims 16, 32, 64, 128, where the window's K
+// and V fit in shared memory (the Swin geometry, 144 tokens x 128, at 4 heads
+// or one, and window 16, 256 tokens): tensor cores, one block per window
+// with all its heads.  The window's whole K and V rows come in by 16-byte
+// cp.async (rows XOR-swizzled in 16-byte chunks, so ldmatrix is
+// conflict-free): 72 KB at 144 x 128, so three 4-warp blocks share an SM and
+// one block's loads overlap another's math (registers allow no more: 156 a
+// thread at D = 32).  A warp takes (16 query rows, head) tasks in turn, the
+// heads of a row block one after another; its Q fragments come straight
+// from device memory, at head dims up to 64 the next task's while this one
+// computes.  S = Q K^T by mma.sync m16n8k16 stays in fp32 registers,
+// 16 x 144 = 72 a thread; logits = S * scale + mask, the task's mask values
+// (L2-resident: shared memory leaves L1 28 KB) all requested into those
+// registers before the products start, so their latency overlaps Q K^T;
+// exponentials on the SFU (ex2.approx) with the log2 e factor folded into
+// one FMA; the row max and sum over the quad; P = e / l rounded to bf16 goes
+// from the accumulators into A fragments; O = P V with V by ldmatrix.trans;
+// O stored as bf16x2.  O is formed in blocks of at most 64 columns, each
+// stored before the next: at head dim 128 S (72), one O block (32) and Q
+// (32) fit the registers where a whole O row (64) beside a prefetched Q
+// would not.  Rows of more than 144 keys (window 16: 256) do not fit the
+// registers: they run as two 128-key halves in FlashAttention's order (O
+// rescaled when the max moves, P rounded unnormalised, O / l at the end),
+// the dense kernel's trade; a second pass recomputing the logits to
+// normalise P first took 1.8x SDPA's time there (PERF.md).  At head dim 128
+// such a row runs the key halves once for each 64-column O block.
 //
-// Otherwise (fp32, other geometries) CUDA cores: one block per (window,
-// head), the head's K and V as fp32 rows padded to D + 1 (conflict-free
-// column reads); each warp takes query rows in turn, holds its q row in
-// registers, keeps its N scores spread over the lanes' registers
-// (N <= 256), writes P to a per-warp shared row and forms P.V with lanes
-// over the head's channels.
+// Otherwise (fp32, other geometries; bf16 at 4 heads of 128, whose K and V
+// exceed the shared memory) CUDA cores: one block per (window, head), the
+// head's K and V as fp32 rows padded to D + 1 (conflict-free column reads);
+// each warp takes query rows in turn, holds its q row in registers, keeps
+// its N scores spread over the lanes' registers (N <= 256), writes P to a
+// per-warp shared row and forms P.V with lanes over the head's channels.
+// Where K and V of a head exceed the shared memory (head dim 128 beyond 218
+// tokens: 272 KB at 256), two blocks share the (window, head), each with the
+// whole K and half of V's columns, and each forms its half of the output: the
+// logits are computed twice, the softmax order is unchanged.
 #include "attn_common.cuh"
 #include "common.cuh"
 
@@ -66,26 +74,33 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// nsplit blocks per (window, head), block part p forming output columns
+// p dv .. (p + 1) dv - 1, dv = D / nsplit, from V's same columns
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                         const float* __restrict__ mask, T* __restrict__ out, int N, int C, int heads, int nW,
-                        int ldq, int ldk, int ldv, float scale) {
+                        int ldq, int ldk, int ldv, int nsplit, float scale) {
   constexpr int ld = D + 1;
+  const int dv = D / nsplit, lds = dv + 1;
   extern __shared__ float sm[];
-  float* ks = sm;            // (N, ld)
-  float* vs = ks + N * ld;   // (N, ld)
-  float* ps = vs + N * ld;   // (kWarps, N)
-  const size_t win = blockIdx.x / heads;
-  const int h = blockIdx.x % heads;
+  float* ks = sm;             // (N, ld)
+  float* vs = ks + N * ld;    // (N, lds)
+  float* ps = vs + N * lds;   // (kWarps, N)
+  const int part = blockIdx.x % nsplit;
+  const size_t wh = blockIdx.x / nsplit, win = wh / heads;
+  const int h = wh % heads;
   const T* qw = q + win * N * ldq + h * D;
   const T* kw = k + win * N * ldk + h * D;
-  const T* vw = v + win * N * ldv + h * D;
-  T* ow = out + win * N * C + h * D;
+  const T* vw = v + win * N * ldv + h * D + part * dv;
+  T* ow = out + win * N * C + h * D + part * dv;
   for (int e = threadIdx.x; e < N * D; e += kThreads) {
     const int n = e / D, d = e % D;
     ks[n * ld + d] = to_f(kw[(size_t)n * ldk + d]);
-    vs[n * ld + d] = to_f(vw[(size_t)n * ldv + d]);
+  }
+  for (int e = threadIdx.x; e < N * dv; e += kThreads) {
+    const int n = e / dv, d = e % dv;
+    vs[n * lds + d] = to_f(vw[(size_t)n * ldv + d]);
   }
   __syncthreads();
   const float* mw = mask ? mask + (win % nW) * N * N : nullptr;
@@ -126,9 +141,9 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
       if (j < N) p[j] = rnd<T>(s[jj] / sum);
     }
     __syncwarp();
-    for (int d = lane; d < D; d += 32) {
+    for (int d = lane; d < dv; d += 32) {
       float acc = 0.f;
-      for (int j = 0; j < N; ++j) acc = fmaf(p[j], vs[j * ld + d], acc);
+      for (int j = 0; j < N; ++j) acc = fmaf(p[j], vs[j * lds + d], acc);
       ow[(size_t)i * C + d] = from_f<T>(acc);
     }
     __syncwarp();  // p is rewritten by the warp's next row
@@ -205,10 +220,11 @@ __device__ __forceinline__ void logits(float (&s)[2 * kMaxPairs][4], const unsig
   }
 }
 
-// O += P V over keys 16 p0 .. 16 (p0 + np) - 1, P = e (rows g, g + 8 times
-// f0, f1) rounded to bf16 from the accumulators straight into A fragments
-template <int D>
-__device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&s)[2 * kMaxPairs][4], int p0, int np,
+// O += P V over keys 16 p0 .. 16 (p0 + np) - 1 for the OW columns from
+// 16-byte chunk hc, P = e (rows g, g + 8 times f0, f1) rounded to bf16 from
+// the accumulators straight into A fragments
+template <int OW>
+__device__ __forceinline__ void pv(float (&o)[OW / 8][4], const float (&s)[2 * kMaxPairs][4], int p0, int np,
                                    float f0, float f1, const bf16* vs, const TileLayout& L, int hc, int lane) {
   const int mi = lane >> 3, mr = lane & 7;
 #pragma unroll
@@ -220,7 +236,7 @@ __device__ __forceinline__ void pv(float (&o)[D / 8][4], const float (&s)[2 * kM
       unsigned pa[4];
       c_to_a(pa, lo, hi);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < OW / 16; ++dp) {
         unsigned b[4];
         ldmatrix_x4_trans(b, vs + L.at(16 * (p0 + kk) + mr + (mi & 1) * 8, hc + 2 * dp + (mi >> 1)));
         mma_bf16(o[2 * dp], pa, b[0], b[1]);
@@ -262,104 +278,128 @@ window_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const int cpairs = (npairs + nchunk - 1) / nchunk;   // pairs per chunk, the last may hold fewer
   const float* mw = mask ? mask + (win % nW) * N * N : nullptr;
 
+  // at head dim 128 Q is loaded at the start of its task: a prefetched
+  // second copy would not fit beside S and the O block
+  constexpr bool kPrefetch = D <= 64;
+  constexpr int OW = D < 64 ? D : 64;   // columns of an O block
   unsigned qa[D / 16][4], qn[D / 16][4];
-  if (first < last) load_q<D>(qn, qw + (first % heads) * D, ldq, (first / heads) * 16, g, t4);
+  if (kPrefetch && first < last) load_q<D>(qn, qw + (first % heads) * D, ldq, (first / heads) * 16, g, t4);
   cp_async_wait<0>();
   __syncthreads();
 
   for (int task = first; task < last; ++task) {
     const int rb = task / heads, h = task - rb * heads, hc = h * D / 8;
+    if constexpr (kPrefetch) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) qa[kk][e] = qn[kk][e];
-    if (task + 1 < last) load_q<D>(qn, qw + ((task + 1) % heads) * D, ldq, ((task + 1) / heads) * 16, g, t4);
+        for (int e = 0; e < 4; ++e) qa[kk][e] = qn[kk][e];
+      if (task + 1 < last) load_q<D>(qn, qw + ((task + 1) % heads) * D, ldq, ((task + 1) / heads) * 16, g, t4);
+    } else {
+      load_q<D>(qa, qw + h * D, ldq, rb * 16, g, t4);
+    }
     const float* m0 = mw ? mw + (size_t)(rb * 16 + g) * N : nullptr;
     const float* m1 = mw ? m0 + (size_t)8 * N : nullptr;
+    bf16* o0 = ow + (size_t)(rb * 16 + g) * C + h * D + 2 * t4;
+    bf16* o1 = o0 + (size_t)8 * C;
 
     // one pass over the key chunks: logits, the running row max and sum.  A
     // row in one chunk (N <= 144) is normalised before P is rounded, the
     // reference's order; a longer row takes FlashAttention's, chunk by
     // chunk: O rescaled as the max moves, P = e rounded unnormalised, O / l
-    // at the end
-    float s[2 * kMaxPairs][4], o[D / 8][4];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    // at the end.  O is formed one block of OW columns at a time: a row in
+    // one chunk keeps its P for every block, a longer one runs its chunks
+    // again
+    float s[2 * kMaxPairs][4];
     float mx0 = -INFINITY, mx1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-    for (int c = 0; c < nchunk; ++c) {
-      const int p0 = c * cpairs, np = min(cpairs, npairs - p0);
-      logits<D>(s, qa, ks, L, hc, p0, np, m0, m1, scale, lane);
-      float t0 = -INFINITY, t1 = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 2 * kMaxPairs; ++j) {
-        if (j < 2 * np) {
-          t0 = fmaxf(t0, fmaxf(s[j][0], s[j][1]));
-          t1 = fmaxf(t1, fmaxf(s[j][2], s[j][3]));
+    for (int ob = 0; ob < D / OW; ++ob) {
+      const int oc = hc + ob * OW / 8;
+      float o[OW / 8][4];
+#pragma unroll
+      for (int j = 0; j < OW / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+      if (ob == 0 || nchunk > 1) {
+        mx0 = mx1 = -INFINITY;
+        l0 = l1 = 0.f;
+        for (int c = 0; c < nchunk; ++c) {
+          const int p0 = c * cpairs, np = min(cpairs, npairs - p0);
+          logits<D>(s, qa, ks, L, hc, p0, np, m0, m1, scale, lane);
+          float t0 = -INFINITY, t1 = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 2 * kMaxPairs; ++j) {
+            if (j < 2 * np) {
+              t0 = fmaxf(t0, fmaxf(s[j][0], s[j][1]));
+              t1 = fmaxf(t1, fmaxf(s[j][2], s[j][3]));
+            }
+          }
+          // row maxima in log2 units: e = 2^(logit log2e - max log2e)
+          const float n0 = fmaxf(mx0, quad_max(t0) * kLog2e), n1 = fmaxf(mx1, quad_max(t1) * kLog2e);
+          const float c0 = fast_exp2(mx0 - n0), c1 = fast_exp2(mx1 - n1);
+          l0 *= c0;
+          l1 *= c1;
+          mx0 = n0;
+          mx1 = n1;
+#pragma unroll
+          for (int j = 0; j < 2 * kMaxPairs; ++j) {
+            if (j < 2 * np) {
+              s[j][0] = fast_exp2(fmaf(s[j][0], kLog2e, -mx0));
+              s[j][1] = fast_exp2(fmaf(s[j][1], kLog2e, -mx0));
+              s[j][2] = fast_exp2(fmaf(s[j][2], kLog2e, -mx1));
+              s[j][3] = fast_exp2(fmaf(s[j][3], kLog2e, -mx1));
+              l0 += s[j][0] + s[j][1];
+              l1 += s[j][2] + s[j][3];
+            }
+          }
+          if (nchunk > 1) {
+#pragma unroll
+            for (int j = 0; j < OW / 8; ++j) {
+              o[j][0] *= c0;
+              o[j][1] *= c0;
+              o[j][2] *= c1;
+              o[j][3] *= c1;
+            }
+            pv<OW>(o, s, p0, np, 1.f, 1.f, vs, L, oc, lane);
+          }
         }
       }
-      // row maxima in log2 units: e = 2^(logit log2e - max log2e)
-      const float n0 = fmaxf(mx0, quad_max(t0) * kLog2e), n1 = fmaxf(mx1, quad_max(t1) * kLog2e);
-      const float c0 = fast_exp2(mx0 - n0), c1 = fast_exp2(mx1 - n1);
-      l0 *= c0;
-      l1 *= c1;
-      mx0 = n0;
-      mx1 = n1;
+      const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+      if (nchunk == 1) {
+        pv<OW>(o, s, 0, npairs, inv0, inv1, vs, L, oc, lane);
+      } else {
 #pragma unroll
-      for (int j = 0; j < 2 * kMaxPairs; ++j) {
-        if (j < 2 * np) {
-          s[j][0] = fast_exp2(fmaf(s[j][0], kLog2e, -mx0));
-          s[j][1] = fast_exp2(fmaf(s[j][1], kLog2e, -mx0));
-          s[j][2] = fast_exp2(fmaf(s[j][2], kLog2e, -mx1));
-          s[j][3] = fast_exp2(fmaf(s[j][3], kLog2e, -mx1));
-          l0 += s[j][0] + s[j][1];
-          l1 += s[j][2] + s[j][3];
+        for (int j = 0; j < OW / 8; ++j) {
+          o[j][0] *= inv0;
+          o[j][1] *= inv0;
+          o[j][2] *= inv1;
+          o[j][3] *= inv1;
         }
       }
-      if (nchunk > 1) {
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          o[j][0] *= c0;
-          o[j][1] *= c0;
-          o[j][2] *= c1;
-          o[j][3] *= c1;
-        }
-        pv<D>(o, s, p0, np, 1.f, 1.f, vs, L, hc, lane);
+      for (int j = 0; j < OW / 8; ++j) {
+        *reinterpret_cast<unsigned*>(o0 + ob * OW + 8 * j) = pack_bf16(o[j][0], o[j][1]);
+        *reinterpret_cast<unsigned*>(o1 + ob * OW + 8 * j) = pack_bf16(o[j][2], o[j][3]);
       }
-    }
-    const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
-    if (nchunk == 1) {
-      pv<D>(o, s, 0, npairs, inv0, inv1, vs, L, hc, lane);
-    } else {
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[j][0] *= inv0;
-        o[j][1] *= inv0;
-        o[j][2] *= inv1;
-        o[j][3] *= inv1;
-      }
-    }
-    bf16* o0 = ow + (size_t)(rb * 16 + g) * C + h * D + 2 * t4;
-    bf16* o1 = o0 + (size_t)8 * C;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<unsigned*>(o0 + 8 * j) = pack_bf16(o[j][0], o[j][1]);
-      *reinterpret_cast<unsigned*>(o1 + 8 * j) = pack_bf16(o[j][2], o[j][3]);
     }
   }
 }
 
 size_t tc_smem(int N, int C) { return (size_t)2 * N * TileLayout(C).ldc * 16; }
 
-// whether bf16 at this geometry takes the tensor-core kernel: N % 16 == 0,
-// head dim 16 / 32 / 64 and K, V within the device's opt-in shared memory
-bool tc_path(int N, int C, int heads, int is_bf16) {
-  const int D = C / heads;
-  if (!is_bf16 || N % 16 || C % heads || (D != 16 && D != 32 && D != 64)) return false;
+// the current device's opt-in shared memory a block (0 if unreadable)
+size_t smem_optin() {
   int dev = 0, limit = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return false;
-  return tc_smem(N, C) <= (size_t)limit;
+    return 0;
+  return (size_t)limit;
+}
+
+// whether bf16 at this geometry takes the tensor-core kernel: N % 16 == 0,
+// head dim 16 / 32 / 64 / 128 and K, V within the device's opt-in shared memory
+bool tc_path(int N, int C, int heads, int is_bf16) {
+  const int D = C / heads;
+  if (!is_bf16 || N % 16 || C % heads || (D != 16 && D != 32 && D != 64 && D != 128)) return false;
+  return tc_smem(N, C) <= smem_optin();
 }
 
 template <int D>
@@ -381,16 +421,26 @@ int run_tc(const void* q, const void* k, const void* v, const void* mask, void* 
   return (int)cudaGetLastError();
 }
 
+// the CUDA-core kernel's shared memory: K (N, D + 1), V (N, D / nsplit + 1), P rows
+size_t cc_smem(int N, int D, int nsplit) {
+  return (size_t)(N * (D + 1) + N * (D / nsplit + 1) + kWarps * N) * sizeof(float);
+}
+
 template <typename T, int D>
 int run_cc(const void* q, const void* k, const void* v, const void* mask, void* out, int Bw, int N, int C,
            int heads, int nW, int ldq, int ldk, int ldv, float scale, cudaStream_t st) {
-  const size_t smem = (size_t)(2 * N * (D + 1) + kWarps * N) * sizeof(float);
+  // V's columns in two blocks where the whole head's K and V exceed the opt-in
+  // shared memory (head dim 128 beyond 218 tokens)
+  const size_t limit = smem_optin();
+  const int nsplit = cc_smem(N, D, 1) <= limit ? 1 : 2;
+  const size_t smem = cc_smem(N, D, nsplit);
+  if (smem > limit) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(window_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
-  window_attention_kernel<T, D><<<Bw * heads, kThreads, smem, st>>>(
+  window_attention_kernel<T, D><<<Bw * heads * nsplit, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(mask), static_cast<T*>(out), N, C, heads, nW, ldq, ldk, ldv, scale);
+      static_cast<const float*>(mask), static_cast<T*>(out), N, C, heads, nW, ldq, ldk, ldv, nsplit, scale);
   return (int)cudaGetLastError();
 }
 
@@ -407,7 +457,7 @@ extern "C" int catseg_window_attention_tensor_cores(int N, int C, int heads, int
   return tc_path(N, C, heads, is_bf16) ? 1 : 0;
 }
 
-// Takes N <= 256 tokens per window and head dims 8, 16, 32 or 64; row
+// Takes N <= 256 tokens per window and head dims 8, 16, 32, 64 or 128; row
 // strides ldq, ldk, ldv >= C and multiples of 8; mask null or (nW, N, N).
 extern "C" int catseg_window_attention(const void* q, const void* k, const void* v, const void* mask, void* out,
                                        int Bw, int N, int C, int heads, int nW, int ldq, int ldk, int ldv,
@@ -420,7 +470,8 @@ extern "C" int catseg_window_attention(const void* q, const void* k, const void*
     switch (C / heads) {
       case 16: return run_tc<16>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
       case 32: return run_tc<32>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
-      default: return run_tc<64>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
+      case 64: return run_tc<64>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
+      default: return run_tc<128>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
     }
   }
   switch (C / heads) {
@@ -428,6 +479,7 @@ extern "C" int catseg_window_attention(const void* q, const void* k, const void*
     case 16: return run<16>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, is_bf16, st);
     case 32: return run<32>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, is_bf16, st);
     case 64: return run<64>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, is_bf16, st);
+    case 128: return run<128>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, is_bf16, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

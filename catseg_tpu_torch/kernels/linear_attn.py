@@ -7,8 +7,8 @@ _kernel), which the unfused linear class stage (core/aggregator.py
 each sequence's per-head KV and K-sum on chip; its note there says what
 bounds it on the card.
 
-The kernel takes any S and the head dims and widths :func:`kernel_takes`
-names.  A call is routed by geometry alone, before any launch
+The kernel takes any S and the head dims (8-128) and widths
+:func:`kernel_takes` names.  A call is routed by geometry alone, before any launch
 (:func:`route`): on a CUDA tensor the kernel runs where it takes the
 geometry; elsewhere the plain version runs where the reference's own Pallas
 gate fails (:func:`reference_gate`: C % 128 == 0 and S % 8 == 0), as the
@@ -31,7 +31,7 @@ from .ops import records_grad, register, serve
 from .class_layer import _elu1
 
 _EPS = 1e-6
-HEAD_DIMS = (8, 16, 32, 64)
+HEAD_DIMS = (8, 16, 32, 64, 128)
 
 
 def linear_attention_plain(q, k, v, heads: int) -> torch.Tensor:
@@ -49,8 +49,9 @@ def linear_attention_plain(q, k, v, heads: int) -> torch.Tensor:
 
 
 def kernel_takes(C: int, heads: int) -> bool:
-    """The kernel's geometry: head dims 8-64; a CTA takes 128 channels (or all
-    of a narrower C) in column groups of max(head dim, 16)."""
+    """The kernel's geometry: head dims 8-128; a CTA takes 128 channels (or
+    all of a narrower C) in column groups of max(head dim, 16), so head dim
+    128 is one head at C = 128 or any multiple of 128."""
     if C % heads or C // heads not in HEAD_DIMS:
         return False
     return C % max(C // heads, 16) == 0 and (C <= 128 or C % 128 == 0)

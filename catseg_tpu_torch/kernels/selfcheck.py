@@ -8,11 +8,13 @@ kernels of the train step at its shapes (4 images, T = 171, pad_len 256; the
 class layer on the 12x12 pooled grid; 684 decoder slabs), and for the three
 kernels of the aggregator's unfused stages at the serving slab's (window
 attention over its 6000 windows, also as ``window_attention@qkv`` on the strided
-views of one qkv projection with no mask and as ``window_attention@w16``
-over 1500 windows of 256 tokens; the ReLU class MLP of
+views of one qkv projection with no mask, as ``window_attention@w16``
+over 1500 windows of 256 tokens and as ``window_attention@D128`` at one head
+of 128, the one-head aggregator's serving shape; the ReLU class MLP of
 ``attention_type="full"`` at 10 x 576 positions x 256 padded classes, and
 the GELU Swin MLP at its 864,000 tokens as ``mlp@swin``; linear attention
-over 5760 sequences of 256 classes), and for the three forward kernels
+over 5760 sequences of 256 classes, at 4 heads and as
+``linear_attention@D128`` at one), and for the three forward kernels
 whose shapes the larger encoder tiers change (LayerNorm rows of 1024, 1280
 and 1664, dense attention at 16 heads of 64, corr embed at E 768, 1024 and
 1280; ``name@shape``), for the corr embed at the widths the hidden-256
@@ -43,8 +45,9 @@ kernel's wrapper while a path runs (and, asked, to a backward kernel's),
 and :func:`check_calls` holds each recorded call's kernel against its plain
 version (``FORWARD_PAIRS``, ``BACKWARD_PAIRS``) on the same inputs:
 chip_smoke.py [15] checks the whole-image branch's kernels at the very
-shapes and values that path hands them, [31] a train step's, [46] those of
-hidden-256 serving (the unfused stages' kernels among them).
+shapes and values that path hands them, [31] a train step's, [46] / [47]
+those of hidden-256 / one-head serving (the unfused stages' kernels among
+them).
 
 A backward case's thunks return a dict of every gradient it produces (dx,
 the guidance or pad cotangents, each parameter's); the plain version there is
@@ -351,15 +354,19 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
     out["mlp@swin"] = mlp_case(1024 if small else B * T * 576, "gelu")
 
     Nl, Sl = (16, 16) if small else (B * 576, 256)
-    ql, kl, vl = (rn(Nl, Sl, C).to(dtype) for _ in range(3))
-    # the spec's fp32 operations, Q.KV and KV at D = 32, in both dtypes (the
-    # kernel runs them as three bf16 products on the tensor cores); bytes bind
-    out["linear_attention"] = Case(lambda: linear_attn.fused_linear_attention(ql, kl, vl, 4),
-                                   lambda: linear_attn.linear_attention_plain(ql, kl, vl, 4), None,
-                                   4.0 * Nl * Sl * C * 32, 4 * _nbytes(ql), "fp32")
 
+    def linear_case(heads):
+        ql, kl, vl = (rn(Nl, Sl, C).to(dtype) for _ in range(3))
+        # Q.KV and KV at head dim D, in both dtypes as the kernel does them:
+        # three bf16 products each on the tensor cores (the hi + lo split of
+        # the spec's fp32 operands); bytes bind
+        return Case(lambda: linear_attn.fused_linear_attention(ql, kl, vl, heads),
+                    lambda: linear_attn.linear_attention_plain(ql, kl, vl, heads), None,
+                    3 * 4.0 * Nl * Sl * C * (C // heads), 4 * _nbytes(ql), "bf16_tc")
+
+    out["linear_attention"] = linear_case(4)
     # the larger encoder tiers' shapes: ViT-L/14 (L), ViT-H-14 (H), ViT-bigG-14
-    # (G); drawn last, so the cases above keep their inputs
+    # (G); drawn after the slice's cases, so those keep their inputs
     if not small:
         for width in (1024, 1280, 1664):   # visual rows of L, H, G; text rows 768 / 1024 / 1280
             out[f"layer_norm@{width}"] = ln_case(width)
@@ -370,6 +377,16 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
         out["corr_embed@C256"] = corr_case(512, C=256)
         for E in (40, 48):
             out[f"corr_embed@E{E}"] = corr_case(E)
+    # one head of 128, as the aggregator of vitb384(num_heads=1) calls #12 and
+    # #10 (the Swin stage at its serving shape; bf16 on the tensor cores)
+    out["linear_attention@D128"] = linear_case(1)
+    q1, k1, v1 = (rn(Bw, 144, 128).to(dtype) for _ in range(3))
+    out["window_attention@D128"] = Case(
+        lambda: window_attn.fused_window_attention(q1, k1, v1, mask, 1, 128 ** -0.5),
+        lambda: window_attn.window_attention_plain(q1, k1, v1, mask, 1, 128 ** -0.5),
+        lambda: F.scaled_dot_product_attention(q1[:, None], k1[:, None], v1[:, None], attn_mask=lib_mask,
+                                               scale=128 ** -0.5),
+        4.0 * Bw * 144 * 144 * 128, 4 * _nbytes(q1) + _nbytes(mask), mm)
     return out
 
 
@@ -391,12 +408,11 @@ ROUTES = {
                  set(), set()),
     "E48 pool2": (128, 4, 48, 12, 24, (2, 2), "linear", {"corr_embed", "swin_block", "class_layer", "decoder"},
                   set(), set()),
-    "heads1": (128, 1, 64, 12, 24, (1, 1), "linear", {"corr_embed", "decoder"} | _UNFUSED,
-               {"window_attention", "linear_attention"}, set()),
+    "heads1": (128, 1, 64, 12, 24, (1, 1), "linear", {"corr_embed", "decoder"} | _UNFUSED, set(), set()),
     "hidden256": (256, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, set(), set()),
     "hidden256 E40 full": (256, 4, 40, 12, 24, (2, 2), "full", {"corr_embed", "window_attention", "mlp"},
                            set(), set()),
-    "hidden512": (512, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, _UNFUSED, set()),
+    "hidden512": (512, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, {"mlp"}, set()),
     "hidden96": (96, 4, 64, 12, 24, (1, 1), "linear", _UNFUSED, {"window_attention"},
                  {"mlp", "linear_attention"}),
     "hidden192 heads3": (192, 3, 64, 12, 24, (1, 1), "linear", _UNFUSED, set(), {"mlp", "linear_attention"}),

@@ -6,7 +6,8 @@ _kernel), which the unfused Swin block (core/aggregator.py ``_swin_block``)
 runs.  The kernel (csrc/window_attn.cu) keeps each window's (N, N) logits
 on chip; its note there says what bounds it on the card.  The reference has
 no shape gate here: every call on a CUDA tensor launches the kernel, or
-raises outside :func:`kernel_takes`.
+raises outside :func:`kernel_takes` (head dims 8-128, at most 256 tokens a
+window).
 
 Arithmetic, in both dtypes as the reference's kernel: fp32 logits scaled
 after the q.k product, the additive fp32 mask (none for an unshifted block:
@@ -32,7 +33,7 @@ from .autograd import plain_vjp
 from .ops import records_grad, register, serve
 
 MAX_TOKENS = 256           # tokens per window the kernel takes (kMaxN in csrc/window_attn.cu)
-HEAD_DIMS = (8, 16, 32, 64)
+HEAD_DIMS = (8, 16, 32, 64, 128)
 
 
 def window_attention_plain(q, k, v, mask, heads: int, scale: float) -> torch.Tensor:
@@ -51,8 +52,10 @@ def window_attention_plain(q, k, v, mask, heads: int, scale: float) -> torch.Ten
 
 
 def kernel_takes(N: int, C: int, heads: int) -> bool:
-    """The geometry the CUDA kernel takes: head dims 8-64, at most MAX_TOKENS
-    tokens a window.  Its rows must also be evenly strided by a multiple of 8
+    """The geometry the CUDA kernel takes: head dims 8-128, at most MAX_TOKENS
+    tokens a window, in both dtypes.  (At head dim 128 beyond 218 tokens the
+    kernel splits a head's value columns over two blocks to fit its shared
+    memory: csrc/window_attn.cu.)  Its rows must also be evenly strided by a multiple of 8
     elements and start 16-byte aligned: a layout, not a geometry (the wrapper
     copies rows that are not evenly strided and raises for the rest)."""
     return C % heads == 0 and C // heads in HEAD_DIMS and N <= MAX_TOKENS
@@ -89,8 +92,9 @@ def _window_attention_cuda(q, k, v, mask, heads: int, scale: float) -> torch.Ten
 
 def takes_tensor_cores(N: int, C: int, heads: int, dtype: torch.dtype) -> bool:
     """Whether the kernel runs this geometry on the tensor-core path (bf16,
-    N % 16 == 0, head dim 16 / 32 / 64, the window's K and V within the
-    current device's shared memory)."""
+    N % 16 == 0, head dim 16 / 32 / 64 / 128, the window's K and V within
+    the current device's shared memory: not at 4 heads of 128, whose 144
+    tokens' K and V take 295 KB; those take the CUDA-core path)."""
     return bool(_build.library().catseg_window_attention_tensor_cores(N, C, heads, int(dtype == torch.bfloat16)))
 
 

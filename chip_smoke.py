@@ -20,7 +20,10 @@ Phases (any failure raises and the script exits non-zero):
    at 1,474,560 rows and the Swin MLP at 864,000; linear attention over 5760
    sequences of 256 classes; window attention also on the strided views
    of a fused qkv projection with no mask, as the unfused Swin block's
-   unshifted half calls it, and at window 16, 1500 windows of 256 tokens):
+   unshifted half calls it, and at window 16, 1500 windows of 256 tokens;
+   window attention (6000 windows of 144 x 128, the shift mask) and linear
+   attention (5760 x 256 x 128) at one head of 128, vitb384(num_heads=1)'s
+   shapes, as window_attention@D128 and linear_attention@D128):
    each case's kernel call must raise its
    kernel's launch count; the error against the stated bound, kernel,
    plain and (where one PyTorch call computes the same function) library
@@ -116,7 +119,8 @@ Phases (any failure raises and the script exits non-zero):
    (kernels/selfcheck.py ROUTES: hidden 256, one head, hidden 512, hidden
    192 at 3 heads, ...), fp32, T = 8, random weights and features.  Where a
    kernel the routes call does not take the geometry and the reference's
-   own gate runs its kernel there, the card must raise NotImplementedError
+   own gate runs its kernel there (the MLP at hidden 512, window attention
+   at hidden 96: head dim 24), the card must raise NotImplementedError
    naming it; where that gate fails (the MLP and linear attention at hidden
    96 and 192) the wrapper runs its plain version, as the reference runs
    its plain composition, and launches nothing; elsewhere the run launches
@@ -336,6 +340,17 @@ Phases (any failure raises and the script exits non-zero):
    (24x24, E 512, hidden 256, T = 150, one image of random features) in
    fp32 on the card against the port on the CPU, below 5e-4; and the bf16
    gate of [14] at this width (tools/bf16_gate.py, its seed and bounds).
+47. vitb384 at one aggregator head of 128 served, as phase 46 (one phase
+   function): eval_preset(vitb384(num_heads=1)), hidden 128.  The Swin and
+   class stages take the unfused route (the fused #4 / #6 take 4 heads) and
+   the decoder its kernel.  One counted run: LayerNorm, dense attention,
+   corr embed (C = 128), the decoder, window attention and linear
+   attention (head dim 128) and the MLP (128 -> 512 -> 128) launch, the
+   Swin, class-layer and backward kernels never; every kernel call of a
+   second run against its plain version at [3]'s bounds; images/s and the
+   allocator's peak; the aggregator in fp32 at full width (24x24, E 512,
+   hidden 128, one head, T = 150) on the card against the CPU, below 5e-4;
+   [14]'s gate at this width (bf16_gate.readings(num_heads=1)).
 
 Phase [3] also gives each call under 1 ms a device time: 20 calls captured
 in one CUDA graph, timed over its replays (no host launch path inside),
@@ -958,11 +973,21 @@ def bf16_gate_phase(_build) -> None:
 # launches (fused #4 / #6 take C = 128; the decoder's gate wants 128 channels)
 HIDDEN256_KERNELS = ("layer_norm", "dense_attention", "corr_embed", "window_attention", "mlp", "linear_attention")
 HIDDEN256_ABSENT = ("swin_block", "class_layer", "decoder", "swin_block_bwd", "class_layer_bwd", "decoder_bwd")
+# [47]: those of vitb384 at one aggregator head (hidden 128): the fused #4 /
+# #6 take 4 heads, so the Swin and class stages take the unfused route; the
+# decoder takes hidden 128
+HEADS1_KERNELS = ("layer_norm", "dense_attention", "corr_embed", "decoder", "window_attention", "mlp",
+                  "linear_attention")
+HEADS1_ABSENT = ("swin_block", "class_layer", "swin_block_bwd", "class_layer_bwd", "decoder_bwd")
 
 
-def hidden256_phase(dev, smi, _build, images, hws, canvas, names) -> dict:
-    """Phase 46: vitb384 at hidden 256 served on the card; returns the
-    launches of its counted run."""
+def variant_serving_phase(dev, smi, _build, images, hws, canvas, names, tag: str, arch: dict, heads: str,
+                          label: str, width: str, expect, absent) -> dict:
+    """Phases 46 and 47: ``eval_preset(vitb384(**arch))`` served on the card
+    (``heads`` says its aggregator heads, ``label`` names the variant in the
+    log, ``width`` the aggregator's in the fp32 line); ``expect`` launch and
+    ``absent`` never.
+    Returns the launches of its counted run."""
     from catseg_tpu_torch.configs import eval_preset, vitb384
     from catseg_tpu_torch.core.aggregator import aggregator_forward
     from catseg_tpu_torch.core.catseg import CATSeg, build_catseg, init_catseg_
@@ -971,31 +996,31 @@ def hidden256_phase(dev, smi, _build, images, hws, canvas, names) -> dict:
     from catseg_tpu_torch.tools import bf16_gate as gate
 
     t_phase = time.perf_counter()
-    log(f"[46] sliding-window Predictor, eval_preset(vitb384(hidden_dim=256)) (4 heads of 64), bf16, T={len(names)}")
-    cfg = eval_preset(vitb384(hidden_dim=256))
+    keys = ", ".join(f"{k}={v}" for k, v in arch.items())
+    log(f"{tag} sliding-window Predictor, eval_preset(vitb384({keys})) ({heads}), bf16, T={len(names)}")
+    cfg = eval_preset(vitb384(**arch))
     torch.cuda.reset_peak_memory_stats()
     pred = Predictor(build_catseg(cfg, seed=SEED), cfg, names)
     pred.preds_sliding_batch(images, hws, canvas)
     preds, launches = run_counted(lambda: pred.preds_sliding_batch(images, hws, canvas), _build)
     log(f"    launches in one 2-image run: {launches}")
-    check_launches(launches, HIDDEN256_KERNELS, HIDDEN256_ABSENT, "[46] hidden 256 serving")
+    check_launches(launches, expect, absent, f"{tag} {label} serving")
     preds = check_preds(preds, canvas, len(names))
     ips, med = images_per_s(pred, images, hws, canvas)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"    {ips:.3f} images/s (median of 3 2-image runs, {med * 1e3:.1f} ms), allocator peak {peak:.2f} GiB, "
         f"on {smi}; {len(np.unique(preds.numpy()))} distinct labels")
-    # each kernel on the very inputs this path hands it (#3 at C = 256, #10 at
-    # head dim 64, #11 at 256 -> 1024 -> 256, #12 at C = 256)
+    # each kernel on the very inputs this path hands it
     with selfcheck.recorded_calls() as calls:
         probs = pred.probs_sliding_batch(images)
     check_probs(probs, len(names))
     del probs
-    check_path_calls(calls, "[46] hidden 256 sliding", HIDDEN256_KERNELS)
+    check_path_calls(calls, f"{tag} {label} sliding", expect)
     del calls
     del pred
     torch.cuda.empty_cache()
 
-    cfg32 = cut_depth(eval_preset(vitb384(hidden_dim=256, compute_dtype="float32")))
+    cfg32 = cut_depth(eval_preset(vitb384(compute_dtype="float32", **arch)))
     agg = init_catseg_(CATSeg(cfg32), SEED).agg.eval()
     g = torch.Generator().manual_seed(SEED)
     T, E = len(names), cfg32.text_guidance_dim
@@ -1009,26 +1034,29 @@ def hidden256_phase(dev, smi, _build, images, hws, canvas, names) -> dict:
         got, agg_launches = run_counted(lambda: torch.sigmoid(aggregator_forward(
             agg, img.to(dev), txt.to(dev), tuple(t.to(dev) for t in guid), cfg32)).cpu(), _build)
     d = (got - want).abs().max().item()
-    log(f"    fp32 aggregator at full width (24x24, E {E}, hidden 256, T={T}, one image), GPU vs the port on the "
+    log(f"    fp32 aggregator at full width (24x24, E {E}, {width}, T={T}, one image), GPU vs the port on the "
         f"CPU: max|d prob| {d:.3e} (bound {PROB_BOUND:.0e}); launches {agg_launches}")
+    hyphened = label.replace(" ", "-")
     if not d < PROB_BOUND:
-        raise AssertionError("[46] the fp32 hidden-256 aggregator on the GPU disagrees with the CPU port")
-    check_launches(agg_launches, [k for k in HIDDEN256_KERNELS if k != "dense_attention"], HIDDEN256_ABSENT,
-                   "[46] fp32 hidden-256 aggregator")
+        raise AssertionError(f"{tag} the fp32 {hyphened} aggregator on the GPU disagrees with the CPU port")
+    check_launches(agg_launches, [k for k in expect if k != "dense_attention"], absent,
+                   f"{tag} fp32 {hyphened} aggregator")
     del agg
     torch.cuda.empty_cache()
 
-    r = gate.readings(hidden_dim=256)
+    r = gate.readings(**arch)
     log(f"    bf16 vs fp32 end to end ([14]'s gate, seed {r['seed']}): max|d prob| {r['max_abs_dprob']:.4e} (bound "
         f"{gate.BOUND_MAX:.0e})  mean {r['mean_abs_dprob']:.4e} (bound {gate.BOUND_MEAN:.0e})  argmax agreement "
         f"{r['decided_agreement']:.5f} on {r['decided_pixels']} of {r['pixels']} pixels whose fp32 top-2 gap exceeds "
         f"{gate.DECIDED_GAP} (bound {gate.BOUND_AGREE}; all pixels {r['all_agreement']:.5f})  bf16 launches "
         f"{r['bf16_launches']}")
     if not r["ok"]:
-        raise AssertionError("[46] bf16 serving at hidden 256 drifts past the reference's bounds from fp32")
-    check_launches(r["bf16_launches"], HIDDEN256_KERNELS, HIDDEN256_ABSENT, "[46] bf16 gate run")
-    log(f"    [46] took {time.perf_counter() - t_phase:.1f} s")
+        raise AssertionError(f"{tag} bf16 serving at {label} drifts past the reference's bounds from fp32")
+    check_launches(r["bf16_launches"], expect, absent, f"{tag} bf16 gate run")
+    log(f"    {tag} took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
 
 
 FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_fixtures"
@@ -2841,7 +2869,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     checks = {dt: check_kernels(dev, dt, selfcheck, _build) for dt in (torch.float32, torch.bfloat16)}
     for name in ("swin_block_bwd", "class_layer_bwd", "decoder_bwd", "mlp", "mlp@swin", "corr_embed",
-                 "corr_embed@C256", "corr_embed@E40", "corr_embed@E48", "linear_attention"):   # bf16 on the tensor cores
+                 "corr_embed@C256", "corr_embed@E40", "corr_embed@E48", "linear_attention",
+                 "linear_attention@D128", "window_attention@D128"):   # bf16 on the tensor cores
         c = checks[torch.bfloat16][name]
         what = "worst gradient" if name.endswith("_bwd") else "error"
         log(f"    {name} bf16 (tensor cores): kernel {c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms, bound "
@@ -3006,7 +3035,13 @@ def main() -> int:
     tile_shard_phase(smi, _build, images[1])
     mamba_phase(smi, _build)
     class_axis_phases(smi)
-    hidden256_phase(dev, smi, _build, images, hws, canvas, names)
+    # [46] hidden 256 (#3 at C = 256, #10 at head dim 64, #11 at 256 -> 1024 ->
+    # 256, #12 at C = 256); [47] one head of 128 (#3 at C = 128, #8, #10 and
+    # #12 at head dim 128, #11 at 128 -> 512 -> 128)
+    variant_serving_phase(dev, smi, _build, images, hws, canvas, names, "[46]", dict(hidden_dim=256),
+                          "4 heads of 64", "hidden 256", "hidden 256", HIDDEN256_KERNELS, HIDDEN256_ABSENT)
+    variant_serving_phase(dev, smi, _build, images, hws, canvas, names, "[47]", dict(num_heads=1),
+                          "one head of 128", "one head", "hidden 128, one head", HEADS1_KERNELS, HEADS1_ABSENT)
 
     kernels = []
     for name, route, source, replaces in selfcheck.KERNELS:

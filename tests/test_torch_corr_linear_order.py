@@ -15,7 +15,7 @@ of each order, kept in this file, is held to catseg_tpu: the corr embed in
 bf16 to ``_reference`` and to the Pallas kernel in interpret mode (2^-6 max,
 1e-3 mean: tests/test_torch_kernels.py's bounds for the same comparison),
 the linear attention to ``fused_linear_attention`` (the Pallas kernel at
-S = 16, its reference at S = 13) within fp32 1e-4 and bf16 2^-5 of
+S = 16, its reference at S = 13; head dims 32 and 128) within fp32 1e-4 and bf16 2^-5 of
 max(1, |ref|), the bounds chip_smoke [3] holds the kernels to.  The same
 mirror with the lo halves dropped fails the fp32 bound: the test sees the
 split.  Also here: the bf16 taps as the wrapper packs them, read back
@@ -152,11 +152,13 @@ def _linear_inputs(S, dt):
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S", [16, 13], ids=["pallas", "reference"])
-def test_linear_kernel_order_matches_jax(S, dt):
+@pytest.mark.parametrize("S,heads", [(16, 4), (13, 4), (16, 1)], ids=["pallas", "reference", "pallas-heads1"])
+def test_linear_kernel_order_matches_jax(S, heads, dt):
+    """Head dim 32, and 128 (one head: eight 16-channel k-steps in the
+    output product)."""
     js, ts, tdt = _linear_inputs(S, dt)
-    want = np.asarray(jla.fused_linear_attention(*js, 4), np.float32)
-    got = linear_kernel_order(*ts, 4).to(tdt).float().numpy()
+    want = np.asarray(jla.fused_linear_attention(*js, heads), np.float32)
+    got = linear_kernel_order(*ts, heads).to(tdt).float().numpy()
     bound = 1e-4 if dt == "float32" else 2 ** -5
     assert np.abs(got - want).max() <= bound * max(1.0, np.abs(want).max())
 

@@ -269,13 +269,13 @@ def _window_case(cuda, N, D, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 @pytest.mark.parametrize("N", [144, 256])
 def test_window_attention_masks(cuda, N, D, dtype):
-    """Windows 12 and 16 at head dims 16, 32, 64 (C = 128; bf16 on tensor
-    cores): the shift mask, a zero mask and no mask each launch the kernel
-    within the bound; no mask is bit-equal to the zero mask, and two runs
-    are bit-equal."""
+    """Windows 12 and 16 at head dims 16, 32, 64 and 128 (C = 128, so 128
+    is one head; bf16 on tensor cores): the shift mask, a zero mask and no
+    mask each launch the kernel within the bound; no mask is bit-equal to
+    the zero mask, and two runs are bit-equal."""
     from catseg_tpu_torch.kernels import window_attn
 
     q, k, v, shifted, heads = _window_case(cuda, N, D, dtype, seed=N + D)
@@ -291,6 +291,30 @@ def test_window_attention_masks(cuda, N, D, dtype):
         assert selfcheck.rel_err(out[name], want)[1] <= selfcheck.BOUND[dtype], name
     assert torch.equal(out["zeros"], out["none"])
     assert torch.equal(out["shifted"], window_attn.fused_window_attention(q, k, v, shifted, heads, scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("N", [144, 256])
+def test_window_attention_four_heads_of_128(cuda, N, dtype):
+    """Hidden 512 at 4 heads of 128: K and V of a window exceed the shared
+    memory (295 KB at 144 tokens), so both dtypes take the CUDA-core path
+    (at 256 tokens with each head's value columns over two blocks); the
+    shift mask launches the kernel once within the bound, two runs
+    bit-equal."""
+    from catseg_tpu_torch.kernels import swin_block, window_attn
+
+    win = int(N ** 0.5)
+    g = torch.Generator().manual_seed(N + 512)
+    q, k, v = (torch.randn(8, N, 512, generator=g).to(cuda, dtype) for _ in range(3))
+    mask = swin_block.shift_mask(2 * win, 2 * win, win, win // 2).to(cuda)
+    assert window_attn.kernel_takes(N, 512, 4) and not window_attn.takes_tensor_cores(N, 512, 4, dtype)
+    before = _build.LAUNCHES["window_attention"]
+    got = window_attn.fused_window_attention(q, k, v, mask, 4, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["window_attention"] == before + 1
+    want = window_attn.window_attention_plain(q, k, v, mask, 4, 128 ** -0.5)
+    assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype]
+    assert torch.equal(got, window_attn.fused_window_attention(q, k, v, mask, 4, 128 ** -0.5))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -937,7 +961,7 @@ def test_corr_embed_refuses_what_it_cannot_take(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("D", [8, 16, 32, 64])
+@pytest.mark.parametrize("D", [8, 16, 32, 64, 128])
 @pytest.mark.parametrize("S", [13, 150, 256])
 def test_linear_attention_geometries(cuda, S, D, dtype):
     """Every head dim at C = 128, ragged and whole 32-row tiles, an odd
@@ -958,10 +982,10 @@ def test_linear_attention_geometries(cuda, S, D, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("C,heads", [(16, 2), (32, 4), (96, 3), (256, 4), (512, 8)])
+@pytest.mark.parametrize("C,heads", [(16, 2), (32, 4), (96, 3), (256, 4), (512, 8), (512, 4)])
 def test_linear_attention_widths(cuda, C, heads, dtype):
     """Widths below one CTA's 128 channels (one to six warps) and above it
-    (two and four CTAs a sequence)."""
+    (two and four CTAs a sequence; hidden 512 at head dims 64 and 128)."""
     from catseg_tpu_torch.kernels import linear_attn
 
     g = torch.Generator().manual_seed(C)
@@ -972,22 +996,24 @@ def test_linear_attention_widths(cuda, C, heads, dtype):
 
 
 def test_linear_attention_refuses_what_it_cannot_take(cuda):
-    """A head dim of 128 at C = 128 and S = 16 (where the reference's gate
+    """A head dim of 256 at C = 256 and S = 16 (where the reference's gate
     runs its kernel) raises NotImplementedError, a view not 16-byte aligned a
     ValueError, before any launch."""
     from catseg_tpu_torch.kernels import linear_attn
 
     before = _build.LAUNCHES["linear_attention"]
     y = torch.zeros(2, 16, 128, device=cuda)
+    wide = torch.zeros(2, 16, 256, device=cuda)
+    assert linear_attn.route(256, 1, 16) == "raise"
     with pytest.raises(NotImplementedError):
-        linear_attn.fused_linear_attention(y, y, y, 1)
+        linear_attn.fused_linear_attention(wide, wide, wide, 1)
     with pytest.raises(ValueError, match="16-byte"):
         linear_attn.fused_linear_attention(_misaligned(y), y, y, 4)
     assert _build.LAUNCHES["linear_attention"] == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("C,heads,S", [(8, 1, 16), (192, 3, 16), (128, 1, 13)])
+@pytest.mark.parametrize("C,heads,S", [(8, 1, 16), (192, 3, 16), (256, 1, 13)])
 def test_linear_attention_runs_plain_outside_the_reference_gate(cuda, C, heads, S, dtype):
     """Outside the kernel's geometry and the reference's gate (C % 128, S %
     8), the card runs the plain version, as the reference runs its own

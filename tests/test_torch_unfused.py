@@ -120,17 +120,20 @@ def _window_inputs(H, win, C, seed=1):
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("H,win,C", [(8, 4, 32), (24, 12, 128)], ids=["win4-C32", "win12-C128"])
+@pytest.mark.parametrize("H,win,C,heads", [(8, 4, 32, 4), (24, 12, 128, 4), (24, 12, 128, 1)],
+                         ids=["win4-C32", "win12-C128", "win12-C128-heads1"])
 @pytest.mark.parametrize("shifted", [False, True], ids=["plain", "shifted"])
-def test_window_attention_plain_matches_jax(dt, H, win, C, shifted):
+def test_window_attention_plain_matches_jax(dt, H, win, C, heads, shifted):
+    """Head dims 8, 32 and (one head of 128) 128."""
     q, k, v = _window_inputs(H, win, C)
     N = win * win
     mask = (np.array(jagg._shift_mask(H, H, win, win // 2)) if shifted
             else np.zeros(((H // win) ** 2, N, N), np.float32))
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dt) for a in (q, k, v))
-    scale = (C // 4) ** -0.5
-    want = jwa.fused_window_attention(jq, jk, jv, jnp.asarray(mask), 4, scale)
-    got = twa.fused_window_attention(tq, tk, tv, torch.from_numpy(mask), 4, scale)
+    scale = (C // heads) ** -0.5
+    assert twa.kernel_takes(N, C, heads)
+    want = jwa.fused_window_attention(jq, jk, jv, jnp.asarray(mask), heads, scale)
+    got = twa.fused_window_attention(tq, tk, tv, torch.from_numpy(mask), heads, scale)
     _check(got, want, dt)
 
 
@@ -143,13 +146,16 @@ def test_shift_mask_matches_jax():
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S", [16, 13], ids=["pallas", "reference"])
-def test_linear_attention_plain_matches_jax(dt, S):
+@pytest.mark.parametrize("S,heads", [(16, 4), (13, 4), (16, 1)], ids=["pallas", "reference", "pallas-heads1"])
+def test_linear_attention_plain_matches_jax(dt, S, heads):
+    """Head dim 32, and 128 (one head of C = 128: the port's kernel takes
+    it, and the reference runs its Pallas kernel at S = 16)."""
     rng = np.random.RandomState(2)
     q, k, v = (rng.randn(6, S, 128).astype(np.float32) for _ in range(3))
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dt) for a in (q, k, v))
-    want = jla.fused_linear_attention(jq, jk, jv, 4)
-    got = tla.fused_linear_attention(tq, tk, tv, 4)
+    assert tla.route(128, heads, S) == "kernel"
+    want = jla.fused_linear_attention(jq, jk, jv, heads)
+    got = tla.fused_linear_attention(tq, tk, tv, heads)
     _check(got, want, dt)
 
 
@@ -380,12 +386,13 @@ MLP_ROUTES = [
     ((128, 512, 96, 1024), "raise"), ((512, 2048, 512, 1023), "plain"), ((512, 2048, 512, 1024), "raise"),
     ((512, 4096, 512, 4608), "plain"), ((384, 1536, 384, 4608), "raise"), ((256, 1000, 256, 4608), "plain"),
 ]
-# (C, heads, S) -> linear attention's: the port's kernel takes head dims 8-64
+# (C, heads, S) -> linear attention's: the port's kernel takes head dims 8-128
 # at C <= 128 or C % 128; the reference's gate C % 128, S % 8
 LINEAR_ROUTES = [
     ((128, 4, 8), "kernel"), ((128, 4, 13), "kernel"), ((256, 4, 8), "kernel"), ((96, 3, 8), "kernel"),
-    ((128, 1, 8), "raise"), ((128, 1, 13), "plain"), ((512, 4, 256), "raise"), ((512, 4, 150), "plain"),
-    ((192, 3, 8), "plain"), ((96, 4, 8), "plain"), ((8, 1, 16), "plain"), ((384, 3, 16), "raise"),
+    ((128, 1, 8), "kernel"), ((128, 1, 13), "kernel"), ((512, 4, 256), "kernel"), ((512, 4, 150), "kernel"),
+    ((192, 3, 8), "plain"), ((96, 4, 8), "plain"), ((8, 1, 16), "plain"), ((384, 3, 16), "kernel"),
+    ((256, 1, 16), "raise"), ((256, 1, 13), "plain"),
 ]
 
 
@@ -434,11 +441,12 @@ def test_kernel_plain_or_raise_by_geometry(geometry, want):
 def test_mini_aggregator_outside_kernel_limits_matches_jax(kw):
     """The mini vitb384 at hidden 256 (Swin and class layer outside the
     port's fused kernels; corr embed, window attention, MLP and linear
-    attention take it), at one head of 128 (window and linear attention
-    outside theirs) and at hidden 192 with 3 heads of 64 (window attention
-    takes it; the MLP and linear attention run plain, as the reference's
-    gates send them to its plain composition; the corr embed and the
-    decoder are outside the reference's gates) against catseg_tpu's
+    attention take it), at one head of 128 (Swin and class layer outside
+    the fused kernels, which take 4 heads; window and linear attention
+    take head dim 128) and at hidden 192 with 3 heads of 64 (window
+    attention takes it; the MLP and linear attention run plain, as the
+    reference's gates send them to its plain composition; the corr embed
+    and the decoder are outside the reference's gates) against catseg_tpu's
     aggregator."""
     cfg, tcfg = mini_cfg(**kw), mini_cfg_port(**kw)
     agg = init_catseg_(CATSeg(tcfg), 0).agg
