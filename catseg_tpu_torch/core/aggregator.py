@@ -21,8 +21,9 @@ otherwise it runs the reference's unfused stage under the reference's names
 function; ``attention_type="full"`` always takes the unfused class stage.
 A kernel's wrapper is called wherever the reference calls its kernel.  On
 the card a geometry outside that kernel's ``kernel_takes`` raises where the
-reference's own gate would run its kernel (the MLP at hidden 512, window
-attention at a head dim of 24: ROADMAP B9), and runs the plain composition
+reference's own gate would run its kernel (window attention and linear
+attention at head dims outside 8-128, such as 24, 48, 96 or 256; the MLP
+past 512 channels: ROADMAP B9), and runs the plain composition
 where that gate fails, as the reference does: outside the corr embed's and
 the decoder's gates (decided here), and outside the MLP's and the linear
 attention's (decided in their wrappers, ``mlp.route``, ``linear_attn.route``).

@@ -3,16 +3,20 @@
 Replaces catseg_tpu/kernels/mlp.py:fused_mlp (Pallas _kernel).  The kernel
 (csrc/mlp.cu) walks the hidden width in chunks per row tile, so the 4x
 hidden never reaches device memory.  In bf16 it runs both products on
-mma.sync tensor cores, 256 rows a CTA, the weight chunks streaming through
-a cp.async ring and each hidden chunk going from the first product's
-accumulators to the second's A fragments in registers; its note there says
-what bounds it on the card.  Weights use the reference's (in, out) layout,
-read as they are (no packing).  GELU takes the tanh form in bf16 and erf in
-fp32 (the reference's dtype predicate); the hidden is rounded to x's dtype
-before the second product.
+mma.sync tensor cores, the weight chunks streaming through a cp.async ring:
+up to 256 channels in and out, 256 rows a CTA, each hidden chunk going from
+the first product's accumulators to the second's A fragments in registers;
+past 256 (the aggregator's MLPs at hidden 384 and 512), 64 rows a CTA, the
+output columns split over the warps and each hidden chunk shared through
+shared memory.  Its note there says what bounds it on the card.  Weights
+use the reference's (in, out) layout, read as they are (no packing).  GELU
+takes the tanh form in bf16 and erf in fp32 (the reference's dtype
+predicate); the hidden is rounded to x's dtype before the second product.
 
-The kernel takes C a multiple of 16 up to 256, H a multiple of 128 and 32,
-64, 128 or 256 outputs, any row count (:func:`kernel_takes`).  A call is
+The kernel takes C a multiple of 16 up to 512, H a multiple of 128 and 32,
+64, 128, 256, 384 or 512 outputs, any row count (:func:`kernel_takes`), so
+every C -> 4C -> C MLP the reference runs on its kernel (C 128, 256, 384,
+512) runs on the port's.  A call is
 routed by geometry alone, before any launch (:func:`route`): on a CUDA
 tensor the kernel runs where it takes the geometry; elsewhere the plain
 version runs where the reference's own Pallas gate fails
@@ -48,10 +52,13 @@ def mlp_plain(x: torch.Tensor, w1, b1, w2, b2, act: str) -> torch.Tensor:
     return (h.float() @ w2.to(dt).float() + b2.float()).to(dt)
 
 
+OUT_WIDTHS = (32, 64, 128, 256, 384, 512)
+
+
 def kernel_takes(C: int, H: int, Co: int) -> bool:
-    """The geometry the CUDA kernel takes: C a multiple of 16 up to 256 in, a
-    hidden width H a multiple of 128, 32, 64, 128 or 256 outputs."""
-    return C % 16 == 0 and 0 < C <= 256 and H % 128 == 0 and Co in (32, 64, 128, 256)
+    """The geometry the CUDA kernel takes: C a multiple of 16 up to 512 in, a
+    hidden width H a multiple of 128, Co in ``OUT_WIDTHS`` outputs."""
+    return C % 16 == 0 and 0 < C <= 512 and H % 128 == 0 and Co in OUT_WIDTHS
 
 
 def reference_gate(C: int, H: int, M: int) -> bool:
@@ -83,9 +90,9 @@ def _mlp_cuda(x, w1, b1, w2, b2, act: str) -> torch.Tensor:
     if way == "plain":
         return mlp_plain(x, w1, b1, w2, b2, act)
     if way == "raise":
-        raise NotImplementedError(f"mlp kernel takes C a multiple of 16 up to 256, H a multiple of 128 and "
-                                  f"32, 64, 128 or 256 outputs; got {C}->{H}->{Co}, where the reference's "
-                                  "kernel runs")
+        raise NotImplementedError(f"mlp kernel takes C a multiple of 16 up to 512, H a multiple of 128 and "
+                                  f"{', '.join(map(str, OUT_WIDTHS))} outputs; got {C}->{H}->{Co}, where the "
+                                  "reference's kernel runs")
     x2 = x.reshape(-1, C).contiguous()
     w1, w2 = w1.to(dt).contiguous(), w2.to(dt).contiguous()
     # the bf16 kernel lands x rows and weight chunks by 16-byte cp.async

@@ -14,7 +14,9 @@ of 128, the one-head aggregator's serving shape; the ReLU class MLP of
 ``attention_type="full"`` at 10 x 576 positions x 256 padded classes, and
 the GELU Swin MLP at its 864,000 tokens as ``mlp@swin``; linear attention
 over 5760 sequences of 256 classes, at 4 heads and as
-``linear_attention@D128`` at one), and for the three forward kernels
+``linear_attention@D128`` at one; at hidden 512, ``mlp@512`` over the Swin
+MLP's 864,000 tokens and ``window_attention@C512`` at 4 heads of 128), and
+for the three forward kernels
 whose shapes the larger encoder tiers change (LayerNorm rows of 1024, 1280
 and 1664, dense attention at 16 heads of 64, corr embed at E 768, 1024 and
 1280; ``name@shape``), for the corr embed at the widths the hidden-256
@@ -45,9 +47,10 @@ kernel's wrapper while a path runs (and, asked, to a backward kernel's),
 and :func:`check_calls` holds each recorded call's kernel against its plain
 version (``FORWARD_PAIRS``, ``BACKWARD_PAIRS``) on the same inputs:
 chip_smoke.py [15] checks the whole-image branch's kernels at the very
-shapes and values that path hands them, [31] a train step's, [46] / [47]
-those of hidden-256 / one-head serving (the unfused stages' kernels among
-them).
+shapes and values that path hands them, [31] a train step's.
+:func:`checked_calls` holds each forward call against its plain version as
+it is made and keeps no inputs: [46] / [47] / [48] check hidden-256 /
+one-head / hidden-512 serving so (the unfused stages' kernels among them).
 
 A backward case's thunks return a dict of every gradient it produces (dx,
 the guidance or pad cotangents, each parameter's); the plain version there is
@@ -343,8 +346,8 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
                                                scale=32 ** -0.5),
         4.0 * Bw16 * 256 * 256 * 128, 4 * _nbytes(q16) + _nbytes(mask16), mm)
 
-    def mlp_case(M, act):
-        xm = rn(M, C).to(dtype)
+    def mlp_case(M, act, C=C, draw=rn):
+        xm = draw(M, C).to(dtype)
         w1, b1, w2, b2 = un(C, 4 * C), un(4 * C), un(4 * C, C), un(C)
         return Case(lambda: mlp.fused_mlp(xm, w1, b1, w2, b2, act),
                     lambda: mlp.mlp_plain(xm, w1, b1, w2, b2, act), None,
@@ -387,6 +390,25 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
         lambda: F.scaled_dot_product_attention(q1[:, None], k1[:, None], v1[:, None], attn_mask=lib_mask,
                                                scale=128 ** -0.5),
         4.0 * Bw * 144 * 144 * 128, 4 * _nbytes(q1) + _nbytes(mask), mm)
+    # hidden 512, as eval_preset(vitb384(hidden_dim=512)) serves: the Swin MLP
+    # (512 -> 2048 -> 512) at its 864,000 tokens, and window attention at 4
+    # heads of 128 (bf16 on the CUDA cores: the window's K and V pass the
+    # tensor-core path's shared memory).  Their activations are drawn on the
+    # device at full size (1.8 G normals took ~26 s a dtype on the host)
+    gd = torch.Generator(device="cpu" if small else device).manual_seed(1)
+
+    def rd(*shape):
+        return torch.randn(*shape, generator=gd, device=gd.device).to(device)
+
+    out["mlp@512"] = mlp_case(1024 if small else B * T * 576, "gelu", C=512, draw=rd)
+    q5, k5, v5 = (rd(Bw, 144, 512).to(dtype) for _ in range(3))
+    heads5 = lambda t: t.view(Bw, 144, 4, 128).transpose(1, 2)  # noqa: E731
+    out["window_attention@C512"] = Case(
+        lambda: window_attn.fused_window_attention(q5, k5, v5, mask, 4, 128 ** -0.5),
+        lambda: window_attn.window_attention_plain(q5, k5, v5, mask, 4, 128 ** -0.5),
+        lambda: F.scaled_dot_product_attention(heads5(q5), heads5(k5), heads5(v5), attn_mask=lib_mask,
+                                               scale=128 ** -0.5),
+        4.0 * Bw * 144 * 144 * 512, 4 * _nbytes(q5) + _nbytes(mask), mm)
     return out
 
 
@@ -412,7 +434,8 @@ ROUTES = {
     "hidden256": (256, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, set(), set()),
     "hidden256 E40 full": (256, 4, 40, 12, 24, (2, 2), "full", {"corr_embed", "window_attention", "mlp"},
                            set(), set()),
-    "hidden512": (512, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, {"mlp"}, set()),
+    "hidden512": (512, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, set(), set()),
+    "hidden384 heads3": (384, 3, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, set(), set()),
     "hidden96": (96, 4, 64, 12, 24, (1, 1), "linear", _UNFUSED, {"window_attention"},
                  {"mlp", "linear_attention"}),
     "hidden192 heads3": (192, 3, 64, 12, 24, (1, 1), "linear", _UNFUSED, set(), {"mlp", "linear_attention"}),
@@ -487,6 +510,27 @@ def _cloned(a):
 
 
 @contextlib.contextmanager
+def _wrappers_replaced(pairs: dict, make: Callable):
+    """Inside the block, every attribute of a loaded module of the port that
+    is one of ``pairs``' wrappers (name -> wrapper) is ``make(name,
+    wrapper)``; restored on exit."""
+    patched = []
+    for name, wrapper in pairs.items():
+        repl = make(name, wrapper)
+        for mod in list(sys.modules.values()):
+            if getattr(mod, "__name__", "").startswith("catseg_tpu_torch"):
+                for attr, val in list(vars(mod).items()):
+                    if val is wrapper:
+                        patched.append((mod, attr, val))
+                        setattr(mod, attr, repl)
+    try:
+        yield
+    finally:
+        for mod, attr, val in patched:
+            setattr(mod, attr, val)
+
+
+@contextlib.contextmanager
 def recorded_calls(backward: bool = False):
     """Yields a list that receives ``(name, args)`` for every call any module
     of the port makes to a ``FORWARD_PAIRS`` wrapper inside the block (and
@@ -496,22 +540,45 @@ def recorded_calls(backward: bool = False):
     pairs = {name: pair[0] for name, pair in FORWARD_PAIRS.items()}
     if backward:
         pairs.update({name: pair[0] for name, pair in BACKWARD_PAIRS.items()})
-    calls, patched = [], []
-    for name, wrapper in pairs.items():
-        def record(*a, _name=name, _wrapper=wrapper):
-            calls.append((_name, _cloned(a)))
-            return _wrapper(*a)
-        for mod in list(sys.modules.values()):
-            if getattr(mod, "__name__", "").startswith("catseg_tpu_torch"):
-                for attr, val in list(vars(mod).items()):
-                    if val is wrapper:
-                        patched.append((mod, attr, val))
-                        setattr(mod, attr, record)
-    try:
+    calls = []
+
+    def make(name, wrapper):
+        def record(*a):
+            calls.append((name, _cloned(a)))
+            return wrapper(*a)
+        return record
+
+    with _wrappers_replaced(pairs, make):
         yield calls
-    finally:
-        for mod, attr, val in patched:
-            setattr(mod, attr, val)
+
+
+@contextlib.contextmanager
+def checked_calls():
+    """Yields a dict that receives, for every call any module of the port
+    makes to a ``FORWARD_PAIRS`` wrapper inside the block, the call's output
+    held against its plain version on the same inputs as the call is made:
+    ``{(name, dtype): (calls, worst max abs error, worst judged error,
+    first input's shape, last-axis widths)}``, judged as :func:`check_calls`
+    judges a forward.  No input is kept, so a path whose calls' inputs would
+    not fit on the card together (the hidden-512 aggregator's) is checked
+    whole; the wrappers' outputs go on to the path as ever."""
+    out = {}
+
+    def make(name, wrapper):
+        plain = FORWARD_PAIRS[name][1]
+
+        def check(*a):
+            res = wrapper(*a)
+            with torch.inference_mode():
+                err, rel = rel_err(res, plain(*a))
+            x = a[0]
+            n, e0, r0, shape, widths = out.get((name, x.dtype), (0, 0.0, 0.0, tuple(x.shape), ()))
+            out[(name, x.dtype)] = (n + 1, max(e0, err), max(r0, rel), shape, tuple(sorted({*widths, x.shape[-1]})))
+            return res
+        return check
+
+    with _wrappers_replaced({name: pair[0] for name, pair in FORWARD_PAIRS.items()}, make):
+        yield out
 
 
 def check_calls(calls, dtype: torch.dtype) -> dict[str, tuple[int, float, float]]:

@@ -23,7 +23,11 @@ Phases (any failure raises and the script exits non-zero):
    unshifted half calls it, and at window 16, 1500 windows of 256 tokens;
    window attention (6000 windows of 144 x 128, the shift mask) and linear
    attention (5760 x 256 x 128) at one head of 128, vitb384(num_heads=1)'s
-   shapes, as window_attention@D128 and linear_attention@D128):
+   shapes, as window_attention@D128 and linear_attention@D128; the Swin
+   MLP at hidden 512, 512 -> 2048 -> 512 over 864,000 tokens, and window
+   attention over 6000 windows of 144 x 512 at 4 heads of 128, the shift
+   mask, vitb384(hidden_dim=512)'s shapes, as mlp@512 and
+   window_attention@C512):
    each case's kernel call must raise its
    kernel's launch count; the error against the stated bound, kernel,
    plain and (where one PyTorch call computes the same function) library
@@ -115,12 +119,13 @@ Phases (any failure raises and the script exits non-zero):
    99.9% of pixels; probs_sliding under eval_preset below 5e-4 (against
    phase 5's CPU result, the same function) and equal, exactly, to row 0 of
    probs_sliding_batch on the card.
-17. The aggregator's routes at geometries some kernels do not take
-   (kernels/selfcheck.py ROUTES: hidden 256, one head, hidden 512, hidden
-   192 at 3 heads, ...), fp32, T = 8, random weights and features.  Where a
+17. The aggregator's routes at geometries some kernels do not take, and at
+   those they were widened to (kernels/selfcheck.py ROUTES: hidden 256,
+   one head, hidden 512, hidden 384 at 3 heads, hidden 192 at 3 heads,
+   hidden 96, ...), fp32, T = 8, random weights and features.  Where a
    kernel the routes call does not take the geometry and the reference's
-   own gate runs its kernel there (the MLP at hidden 512, window attention
-   at hidden 96: head dim 24), the card must raise NotImplementedError
+   own gate runs its kernel there (window attention at hidden 96: head dim
+   24), the card must raise NotImplementedError
    naming it; where that gate fails (the MLP and linear attention at hidden
    96 and 192) the wrapper runs its plain version, as the reference runs
    its plain composition, and launches nothing; elsewhere the run launches
@@ -335,7 +340,8 @@ Phases (any failure raises and the script exits non-zero):
    backward kernels never; shapes and ranges as [4]; every kernel call of
    a second run (#1, #2, #3 at C = 256, #10 at head dim 64, #11 at 256 ->
    1024 -> 256, #12 at C = 256) against its plain version on its own
-   inputs, at [3]'s bounds; images/s (median of 3) and the allocator's
+   inputs as the call is made (selfcheck.checked_calls: no input kept), at
+   [3]'s bounds; images/s (median of 3) and the allocator's
    peak.  Then the aggregator alone at full width
    (24x24, E 512, hidden 256, T = 150, one image of random features) in
    fp32 on the card against the port on the CPU, below 5e-4; and the bf16
@@ -351,6 +357,18 @@ Phases (any failure raises and the script exits non-zero):
    allocator's peak; the aggregator in fp32 at full width (24x24, E 512,
    hidden 128, one head, T = 150) on the card against the CPU, below 5e-4;
    [14]'s gate at this width (bf16_gate.readings(num_heads=1)).
+48. vitb384 at hidden 512 (4 heads of 128) served, as phase 46 (the same
+   phase function and kernel sets): eval_preset(vitb384(hidden_dim=512)).
+   One counted run: LayerNorm, dense attention, corr embed (C = 512),
+   window attention and linear attention (head dim 128; window attention
+   in bf16 on the CUDA cores, as the window's K and V at 4 heads pass the
+   tensor-core path's shared memory) and the MLP (512 -> 2048 -> 512, the
+   wide kernel) launch, the Swin, class-layer, decoder and backward
+   kernels never; every kernel call of a second run against its plain
+   version at [3]'s bounds; images/s and the allocator's peak; the
+   aggregator in fp32 at full width (24x24, E 512, hidden 512, T = 150) on
+   the card against the CPU, below 5e-4; [14]'s gate at this width
+   (bf16_gate.readings(hidden_dim=512)).
 
 Phase [3] also gives each call under 1 ms a device time: 20 calls captured
 in one CUDA graph, timed over its replays (no host launch path inside),
@@ -969,10 +987,11 @@ def bf16_gate_phase(_build) -> None:
         raise AssertionError(f"bf16 serving drifts past the reference's bounds from fp32, or never launched {missing}")
 
 
-# [46]: the kernels vitb384 at hidden 256 serves through, and those it never
-# launches (fused #4 / #6 take C = 128; the decoder's gate wants 128 channels)
-HIDDEN256_KERNELS = ("layer_norm", "dense_attention", "corr_embed", "window_attention", "mlp", "linear_attention")
-HIDDEN256_ABSENT = ("swin_block", "class_layer", "decoder", "swin_block_bwd", "class_layer_bwd", "decoder_bwd")
+# [46] / [48]: the kernels vitb384 at hidden 256 / 512 serves through, and
+# those it never launches (fused #4 / #6 take C = 128; the decoder's gate
+# wants 128 channels)
+WIDE_KERNELS = ("layer_norm", "dense_attention", "corr_embed", "window_attention", "mlp", "linear_attention")
+WIDE_ABSENT = ("swin_block", "class_layer", "decoder", "swin_block_bwd", "class_layer_bwd", "decoder_bwd")
 # [47]: those of vitb384 at one aggregator head (hidden 128): the fused #4 /
 # #6 take 4 heads, so the Swin and class stages take the unfused route; the
 # decoder takes hidden 128
@@ -983,7 +1002,7 @@ HEADS1_ABSENT = ("swin_block", "class_layer", "swin_block_bwd", "class_layer_bwd
 
 def variant_serving_phase(dev, smi, _build, images, hws, canvas, names, tag: str, arch: dict, heads: str,
                           label: str, width: str, expect, absent) -> dict:
-    """Phases 46 and 47: ``eval_preset(vitb384(**arch))`` served on the card
+    """Phases 46, 47 and 48: ``eval_preset(vitb384(**arch))`` served on the card
     (``heads`` says its aggregator heads, ``label`` names the variant in the
     log, ``width`` the aggregator's in the fp32 line); ``expect`` launch and
     ``absent`` never.
@@ -1010,13 +1029,13 @@ def variant_serving_phase(dev, smi, _build, images, hws, canvas, names, tag: str
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"    {ips:.3f} images/s (median of 3 2-image runs, {med * 1e3:.1f} ms), allocator peak {peak:.2f} GiB, "
         f"on {smi}; {len(np.unique(preds.numpy()))} distinct labels")
-    # each kernel on the very inputs this path hands it
-    with selfcheck.recorded_calls() as calls:
+    # each kernel on the very inputs this path hands it, checked as it is
+    # called (hidden 512's calls' inputs would not fit on the card together)
+    with selfcheck.checked_calls() as checked:
         probs = pred.probs_sliding_batch(images)
     check_probs(probs, len(names))
     del probs
-    check_path_calls(calls, f"{tag} {label} sliding", expect)
-    del calls
+    check_path_calls(checked, f"{tag} {label} sliding", expect)
     del pred
     torch.cuda.empty_cache()
 
@@ -1490,22 +1509,27 @@ def check_launches(launches, expect, absent, what) -> None:
 
 
 def check_path_calls(calls, what: str, expect=()) -> None:
-    """Every kernel call recorded on a path (``selfcheck.recorded_calls``)
-    against its plain version on the same inputs, at [3]'s bound for the
-    call's dtype; fails if one disagrees or a kernel of ``expect`` was never
-    called."""
+    """Every kernel call of a path against its plain version on the same
+    inputs, at [3]'s bound for the call's dtype: ``calls`` recorded on the
+    path (``selfcheck.recorded_calls``) and checked here, or the dict of
+    ``selfcheck.checked_calls``, checked as they were made; fails if one
+    disagrees or a kernel of ``expect`` was never called."""
     from catseg_tpu_torch.kernels import selfcheck
 
-    groups = {}
-    for name, args in calls:
-        groups.setdefault((name, args[0].dtype), []).append((name, args))
-    bad = [k for k in expect if not any(name == k for name, _ in groups)]
-    for (name, dt), cs in sorted(groups.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
-        n, err, rel = selfcheck.check_calls(cs, dt)[name]
+    if isinstance(calls, dict):
+        summary = calls
+    else:
+        groups = {}
+        for name, args in calls:
+            groups.setdefault((name, args[0].dtype), []).append((name, args))
+        summary = {(name, dt): (*selfcheck.check_calls(cs, dt)[name], tuple(cs[0][1][0].shape),
+                                tuple(sorted({a[0].shape[-1] for _, a in cs})))
+                   for (name, dt), cs in groups.items()}
+    bad = [k for k in expect if not any(name == k for name, _ in summary)]
+    for (name, dt), (n, err, rel, shape, widths) in sorted(summary.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
         bound = selfcheck.bound(name, dt)
-        widths = sorted({tuple(a[0].shape)[-1] for _, a in cs})
-        log(f"    {name:16s} {str(dt)[6:]:8s} {n:4d} calls of this path, first input {tuple(cs[0][1][0].shape)}, "
-            f"last-axis widths {widths}: max_abs_err {err:.3e} rel {rel:.3e} (bound {bound:.1e})")
+        log(f"    {name:16s} {str(dt)[6:]:8s} {n:4d} calls of this path, first input {shape}, "
+            f"last-axis widths {list(widths)}: max_abs_err {err:.3e} rel {rel:.3e} (bound {bound:.1e})")
         if not rel <= bound:
             bad.append(f"{name} {dt}")
     if bad:
@@ -2868,12 +2892,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     checks = {dt: check_kernels(dev, dt, selfcheck, _build) for dt in (torch.float32, torch.bfloat16)}
-    for name in ("swin_block_bwd", "class_layer_bwd", "decoder_bwd", "mlp", "mlp@swin", "corr_embed",
+    for name in ("swin_block_bwd", "class_layer_bwd", "decoder_bwd", "mlp", "mlp@swin", "mlp@512", "corr_embed",
                  "corr_embed@C256", "corr_embed@E40", "corr_embed@E48", "linear_attention",
-                 "linear_attention@D128", "window_attention@D128"):   # bf16 on the tensor cores
+                 "linear_attention@D128", "window_attention@D128", "window_attention@C512"):
         c = checks[torch.bfloat16][name]
         what = "worst gradient" if name.endswith("_bwd") else "error"
-        log(f"    {name} bf16 (tensor cores): kernel {c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms, bound "
+        # bf16 on the tensor cores, but for window attention at 4 heads of 128
+        unit = "CUDA cores" if name == "window_attention@C512" else "tensor cores"
+        log(f"    {name} bf16 ({unit}): kernel {c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms, bound "
             f"{c['bound_ms']:.4f} ms, {what} {c['rel_err']:.2e} (bound {c['rel_bound']:.1e})")
 
     log("[4] sliding-window Predictor, default vitb384 eval preset (fused decoder), bf16, T=150")
@@ -3037,11 +3063,14 @@ def main() -> int:
     class_axis_phases(smi)
     # [46] hidden 256 (#3 at C = 256, #10 at head dim 64, #11 at 256 -> 1024 ->
     # 256, #12 at C = 256); [47] one head of 128 (#3 at C = 128, #8, #10 and
-    # #12 at head dim 128, #11 at 128 -> 512 -> 128)
+    # #12 at head dim 128, #11 at 128 -> 512 -> 128); [48] hidden 512 (#3 at
+    # C = 512, #10 and #12 at 4 heads of 128, #11 at 512 -> 2048 -> 512)
     variant_serving_phase(dev, smi, _build, images, hws, canvas, names, "[46]", dict(hidden_dim=256),
-                          "4 heads of 64", "hidden 256", "hidden 256", HIDDEN256_KERNELS, HIDDEN256_ABSENT)
+                          "4 heads of 64", "hidden 256", "hidden 256", WIDE_KERNELS, WIDE_ABSENT)
     variant_serving_phase(dev, smi, _build, images, hws, canvas, names, "[47]", dict(num_heads=1),
                           "one head of 128", "one head", "hidden 128, one head", HEADS1_KERNELS, HEADS1_ABSENT)
+    variant_serving_phase(dev, smi, _build, images, hws, canvas, names, "[48]", dict(hidden_dim=512),
+                          "4 heads of 128", "hidden 512", "hidden 512", WIDE_KERNELS, WIDE_ABSENT)
 
     kernels = []
     for name, route, source, replaces in selfcheck.KERNELS:

@@ -398,8 +398,9 @@ def test_small_geometry_runs_the_unfused_kernels(cuda, attn):
 
 @pytest.mark.parametrize("name", list(selfcheck.ROUTES))
 def test_routes_on_cuda_launch_or_raise(cuda, name):
-    """The aggregator at geometries some kernels do not take (hidden 256,
-    one head, hidden 512, ...): where a kernel the routes call refuses the
+    """The aggregator at geometries some kernels do not take (hidden 96,
+    hidden 192 at 3 heads, ...) and at the widths they were widened to
+    (hidden 256 and 512, one head, ...): where a kernel the routes call refuses the
     geometry where the reference's gate runs its kernel, the card raises
     NotImplementedError naming one of those kernels; elsewhere exactly the
     kernels the routes call and do not run plain launch (LayerNorm aside)
@@ -867,12 +868,14 @@ def test_class_layer_backward_refuses_misaligned_dout(cuda, dtype):
 
 
 @pytest.mark.parametrize("act", ["gelu", "relu"])
-@pytest.mark.parametrize("Co", [32, 64, 128, 256])
-@pytest.mark.parametrize("C", [32, 128, 256])
+@pytest.mark.parametrize("Co", [32, 64, 128, 256, 384, 512])
+@pytest.mark.parametrize("C", [32, 128, 256, 384, 512])
 def test_mlp_kernel_geometries(cuda, C, Co, act):
-    """The bf16 MLP kernel (tensor cores, 256- or 128-row tiles) at input
-    widths 32, 128 (the model's, its k loop unrolled) and 256, every output
-    width and both activations, on a ragged 1000 rows, against mlp_plain
+    """The bf16 MLP kernel at input widths 32, 128 (the model's, its k loop
+    unrolled), 256, 384 and 512 and every output width (up to 256 both: 256-
+    or 128-row tiles, the hidden in registers; past 256 either: 64-row tiles,
+    the hidden through shared memory, the k loop unrolled at C = Co = 384
+    and 512), both activations, on a ragged 1000 rows, against mlp_plain
     within 2^-5 of max(1, |plain|); the launch count rises by one."""
     from catseg_tpu_torch.kernels import mlp
 
@@ -888,6 +891,48 @@ def test_mlp_kernel_geometries(cuda, C, Co, act):
     want = mlp.mlp_plain(x, w1, b1, w2, b2, act)
     assert got.shape == want.shape and got.dtype == want.dtype
     assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dt]
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+@pytest.mark.parametrize("C", [384, 512])
+def test_mlp_fp32_at_hidden_384_and_512(cuda, C, act):
+    """The fp32 MLP kernel (CUDA cores; three or four output columns a
+    thread) at C -> 4C -> C for C = 384 and 512, on a ragged 1000 rows,
+    against mlp_plain within 1e-4 of max(1, |plain|)."""
+    from catseg_tpu_torch.kernels import mlp
+
+    H = 4 * C
+    g = torch.Generator().manual_seed(C + (act == "gelu"))
+    x = torch.randn(1000, C, generator=g).to(cuda)
+    w1, b1 = (torch.randn(C, H, generator=g) * C ** -0.5).to(cuda), (torch.randn(H, generator=g) * 0.1).to(cuda)
+    w2, b2 = (torch.randn(H, C, generator=g) * H ** -0.5).to(cuda), (torch.randn(C, generator=g) * 0.1).to(cuda)
+    before = _build.LAUNCHES["mlp"]
+    got = mlp.fused_mlp(x, w1, b1, w2, b2, act)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mlp"] == before + 1
+    want = mlp.mlp_plain(x, w1, b1, w2, b2, act)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_mlp_refuses_past_512_channels(cuda, dtype):
+    """At C = 640 (640 -> 1536 -> 640, inside the reference's gate at 1024
+    rows: C * H < 2^20) the call raises NotImplementedError naming the
+    kernel, and nothing launches."""
+    from catseg_tpu_torch.kernels import mlp
+
+    C, H = 640, 1536
+    assert mlp.route(C, H, C, 1024) == "raise"
+    g = torch.Generator().manual_seed(64)
+    x = torch.randn(1024, C, generator=g).to(cuda, dtype)
+    w1, b1 = (torch.randn(C, H, generator=g) * C ** -0.5).to(cuda), torch.zeros(H, device=cuda)
+    w2, b2 = (torch.randn(H, C, generator=g) * H ** -0.5).to(cuda), torch.zeros(C, device=cuda)
+    _build.reset_launches()
+    with pytest.raises(NotImplementedError, match="mlp kernel"):
+        mlp.fused_mlp(x, w1, b1, w2, b2, "gelu")
+    torch.cuda.synchronize()
+    assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -1032,11 +1077,11 @@ def test_linear_attention_runs_plain_outside_the_reference_gate(cuda, C, heads, 
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("C,H,Co,M", [(192, 768, 192, 2000), (128, 512, 96, 500), (512, 2048, 512, 100)])
+@pytest.mark.parametrize("C,H,Co,M", [(192, 768, 192, 2000), (128, 512, 96, 500), (640, 1536, 640, 100)])
 def test_mlp_runs_plain_outside_the_reference_gate(cuda, C, H, Co, M, dtype):
     """Outside the kernel's geometry and the reference's gate (C and H
     multiples of 128, >= 1024 rows, C * H <= 2^20), the card runs the plain
-    version: equal to mlp_plain, nothing launched; and hidden 512 at 1024
+    version: equal to mlp_plain, nothing launched; and hidden 640 at 1100
     rows (inside that gate) raises."""
     from catseg_tpu_torch.kernels import mlp
 
@@ -1050,6 +1095,6 @@ def test_mlp_runs_plain_outside_the_reference_gate(cuda, C, H, Co, M, dtype):
     torch.cuda.synchronize()
     assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
     assert torch.equal(got, mlp.mlp_plain(x, w1, b1, w2, b2, "gelu"))
-    if C == 512:
+    if C == 640:
         with pytest.raises(NotImplementedError, match="mlp kernel"):
             mlp.fused_mlp(x.repeat(11, 1), w1, b1, w2, b2, "gelu")

@@ -5,9 +5,10 @@ The window-attention, MLP and linear-attention modules' plain versions (what
 their wrappers run for CPU tensors) take the same numpy inputs as the JAX
 functions, which run as catseg_tpu's own tests run them here: the Pallas body
 in interpret mode where its gate holds (window attention always; the MLP at
-C = 128, H = 512, M >= 1024, with a ragged last tile; linear attention at
-S % 8 == 0), its ``_reference`` elsewhere.  Each Function's gradients are held
-to ``jax.vjp``, and the port's ``aggregator_forward`` to catseg_tpu's at the
+C = 128, H = 512, M >= 1024, with a ragged last tile, and at C = 512, H =
+2048, where C * H is the gate's 2^20; linear attention at S % 8 == 0), its
+``_reference`` elsewhere.  Each Function's gradients are held to
+``jax.vjp``, and the port's ``aggregator_forward`` to catseg_tpu's at the
 JAX parity test's own small configuration (hidden 32, window 4, 8x8 grid,
 pool 2, pad_len 8; tests/test_aggregator_parity.py), where every stage takes
 the unfused route, and at the mini vitb384 of test_torch_aggregator.py with
@@ -28,8 +29,9 @@ plain version instead), those outside their kernel's ``kernel_takes`` split
 exactly into the ones ROUTES says raise on the card and the ones it says run
 plain there (the MLP's and linear attention's ``route``: the reference's
 own gate fails), and every call inside hands the kernel rows laid out as
-its CUDA path takes them; and the mini model at hidden 256, at one head and
-at hidden 192 with 3 heads matches catseg_tpu's on the CPU.  The MLP's and
+its CUDA path takes them; and the mini model at hidden 256, at one head, at
+hidden 192 with 3 heads, at hidden 512 and at hidden 384 with 3 heads
+matches catseg_tpu's on the CPU.  The MLP's and
 linear attention's decision (kernel, plain or raise) is checked against a
 table of geometries at the edges of both gates.
 """
@@ -101,8 +103,9 @@ def _mlp_inputs(M, C, H, seed=0):
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("act,M,C", [("gelu", 1024, 128), ("relu", 1324, 128), ("gelu", 64, 32)],
-                         ids=["gelu-pallas", "relu-pallas-ragged", "gelu-reference"])
+@pytest.mark.parametrize("act,M,C", [("gelu", 1024, 128), ("relu", 1324, 128), ("gelu", 64, 32),
+                                     ("gelu", 1024, 512)],
+                         ids=["gelu-pallas", "relu-pallas-ragged", "gelu-reference", "gelu-pallas-512"])
 def test_mlp_plain_matches_jax(dt, act, M, C):
     x, w1, b1, w2, b2 = _mlp_inputs(M, C, 4 * C)
     jx, tx = _pair(x, dt)
@@ -377,14 +380,42 @@ def test_routes_call_kernels_where_the_reference_does(monkeypatch, name):
     assert (called, raises, plain) == selfcheck.ROUTES[name][-3:], (called, raises, plain)
 
 
+def test_checked_calls_hold_each_call_against_its_plain_version(monkeypatch):
+    """selfcheck.checked_calls (chip_smoke [46]-[48]) sees the wrapper calls
+    that recorded_calls records on the unfused routes, with the first
+    call's input shape and the last-axis widths, and holds each output
+    against the plain version as the call is made: 0 on the CPU, where each
+    wrapper is its plain version, and the offset of a plain version made
+    to differ."""
+    cfg, agg, (img, txt, guid) = selfcheck.route_aggregator("hidden32 win4", T=3)
+    with torch.no_grad():
+        with selfcheck.recorded_calls() as calls:
+            want = tagg.aggregator_forward(agg, img, txt, guid, cfg)
+        with selfcheck.checked_calls() as checked:
+            got = tagg.aggregator_forward(agg, img, txt, guid, cfg)
+        assert torch.equal(got, want)
+        expect = {}
+        for name, (x, *_) in calls:
+            n, _, _, first, widths = expect.get((name, x.dtype), (0, 0.0, 0.0, tuple(x.shape), ()))
+            expect[(name, x.dtype)] = (n + 1, 0.0, 0.0, first, tuple(sorted({*widths, x.shape[-1]})))
+        assert checked == expect
+        wrapper, plain = selfcheck.FORWARD_PAIRS["mlp"]
+        monkeypatch.setitem(selfcheck.FORWARD_PAIRS, "mlp", (wrapper, lambda *a: plain(*a) + 0.25))
+        with selfcheck.checked_calls() as checked:
+            tagg.aggregator_forward(agg, img, txt, guid, cfg)
+    assert abs(checked[("mlp", torch.float32)][1] - 0.25) < 1e-6
+    assert {k: v[1] for k, v in checked.items() if k[0] != "mlp"} == {k: 0.0 for k in expect if k[0] != "mlp"}
+
+
 # (C, H, Co, M) -> the MLP's decision: the port's kernel takes C % 16 up to
-# 256, H % 128 and Co in (32, 64, 128, 256); the reference's gate C % 128, H %
-# 128, M >= 1024 rows, C * H <= 2^20
+# 512, H % 128 and Co in (32, 64, 128, 256, 384, 512); the reference's gate C
+# % 128, H % 128, M >= 1024 rows, C * H <= 2^20
 MLP_ROUTES = [
     ((128, 512, 128, 10), "kernel"), ((32, 128, 32, 4608), "kernel"), ((256, 1024, 256, 1024), "kernel"),
     ((192, 768, 192, 4608), "plain"), ((96, 384, 96, 4608), "plain"), ((128, 512, 96, 1023), "plain"),
-    ((128, 512, 96, 1024), "raise"), ((512, 2048, 512, 1023), "plain"), ((512, 2048, 512, 1024), "raise"),
-    ((512, 4096, 512, 4608), "plain"), ((384, 1536, 384, 4608), "raise"), ((256, 1000, 256, 4608), "plain"),
+    ((128, 512, 96, 1024), "raise"), ((512, 2048, 512, 1023), "kernel"), ((512, 2048, 512, 1024), "kernel"),
+    ((512, 4096, 512, 4608), "kernel"), ((384, 1536, 384, 4608), "kernel"), ((256, 1000, 256, 4608), "plain"),
+    ((640, 1536, 640, 1024), "raise"),
 ]
 # (C, heads, S) -> linear attention's: the port's kernel takes head dims 8-128
 # at C <= 128 or C % 128; the reference's gate C % 128, S % 8
@@ -436,18 +467,21 @@ def test_kernel_plain_or_raise_by_geometry(geometry, want):
     assert bool(traced) == (want == "raise"), (geometry, traced)
 
 
-@pytest.mark.parametrize("kw", [dict(hidden_dim=256), dict(num_heads=1), dict(hidden_dim=192, num_heads=3)],
-                         ids=["hidden256", "heads1", "hidden192-heads3"])
+@pytest.mark.parametrize("kw", [dict(hidden_dim=256), dict(num_heads=1), dict(hidden_dim=192, num_heads=3),
+                                dict(hidden_dim=512), dict(hidden_dim=384, num_heads=3)],
+                         ids=["hidden256", "heads1", "hidden192-heads3", "hidden512", "hidden384-heads3"])
 def test_mini_aggregator_outside_kernel_limits_matches_jax(kw):
     """The mini vitb384 at hidden 256 (Swin and class layer outside the
     port's fused kernels; corr embed, window attention, MLP and linear
     attention take it), at one head of 128 (Swin and class layer outside
     the fused kernels, which take 4 heads; window and linear attention
-    take head dim 128) and at hidden 192 with 3 heads of 64 (window
+    take head dim 128), at hidden 192 with 3 heads of 64 (window
     attention takes it; the MLP and linear attention run plain, as the
     reference's gates send them to its plain composition; the corr embed
-    and the decoder are outside the reference's gates) against catseg_tpu's
-    aggregator."""
+    and the decoder are outside the reference's gates), and at hidden 512
+    (4 heads of 128) and 384 (3 heads of 128), where the corr embed, window
+    and linear attention and the MLP (C -> 4C -> C, the reference's Pallas
+    MLP in interpret mode) all take it, against catseg_tpu's aggregator."""
     cfg, tcfg = mini_cfg(**kw), mini_cfg_port(**kw)
     agg = init_catseg_(CATSeg(tcfg), 0).agg
     params = convert_aggregator_state_dict({k: t.numpy() for k, t in agg.state_dict().items()},
