@@ -21,12 +21,13 @@ otherwise it runs the reference's unfused stage under the reference's names
 function; ``attention_type="full"`` always takes the unfused class stage.
 A kernel's wrapper is called wherever the reference calls its kernel.  On
 the card a geometry outside that kernel's ``kernel_takes`` raises where the
-reference's own gate would run its kernel (window attention and linear
-attention at head dims outside 8-128, such as 24, 48, 96 or 256; the MLP
-past 512 channels: ROADMAP B9), and runs the plain composition
-where that gate fails, as the reference does: outside the corr embed's and
-the decoder's gates (decided here), and outside the MLP's and the linear
-attention's (decided in their wrappers, ``mlp.route``, ``linear_attn.route``).
+reference's own gate would run its kernel (window attention over more
+than 256 tokens; linear attention at a head dim outside 8-128 past 512
+channels; the MLP past 512 channels: ROADMAP B9), and runs the plain composition where that gate fails, as the
+reference does: outside the corr embed's and the decoder's gates (decided
+here), and outside the MLP's, the linear attention's and the LayerNorm's
+(decided in their wrappers, ``mlp.route``, ``linear_attn.route``,
+``layer_norm.route``).
 """
 
 from __future__ import annotations
@@ -256,10 +257,10 @@ def _swin_block(x: torch.Tensor, guid, blk: SwinBlock, cfg: CATSegConfig, shift:
         k = (k.reshape(B, T, nW, N, C) + kg[:, None]).reshape(B * T, nW, N, C)
     mask = shift_mask(H, W, win, shift, x.device) if shift > 0 else None
     # v (and q, k without guidance) stay views of qkv, rows 3C apart: the
-    # kernel takes row strides, so nothing is copied.  Rows C or 3C apart
-    # that start 0, C or 2C elements into a fresh allocation are multiples
-    # of 8 elements apart and 16-byte aligned wherever kernel_takes holds
-    # (its head dims are multiples of 8): no layout the kernel refuses
+    # kernel takes row strides of any number of elements, so nothing is
+    # copied.  Where C is a multiple of 8 they are 16-byte aligned and a
+    # multiple of 8 elements apart, as the tensor-core path reads them; other
+    # widths (hidden 100: rows 300 apart) take a CUDA-core path
     out = fused_window_attention(q.reshape(-1, N, C), k.reshape(-1, N, C), v.reshape(-1, N, C), mask,
                                  heads, (C // heads) ** -0.5)
     out = window_reverse(linear(out, a.proj.weight, a.proj.bias), win, H, W)

@@ -38,6 +38,23 @@
 // ring of 2 stages a bf16 CTA takes 102 KB, so two share an SM (fp32: 136
 // KB, one).
 // No atomics: two runs are bit-equal.
+//
+// Every other head dim at C a multiple of 128 up to 512 (1, 2, 3, 4, 6, 12,
+// 24, 48, 96, 192, 256, 384, 512: heads that straddle the 128-channel
+// chunk, or whose D x D KV exceeds a CTA), in both dtypes: fp32 on CUDA
+// cores.  One CTA per (sequence, block of output columns): 32 columns of
+// one head at D >= 32 (a head's columns over ceil(D / 32) CTAs), else the
+// floor(32 / D) whole heads that fit in 32.  Pass 1 streams 16-row tiles of
+// phi(K) (the block's heads' D channels) and V / S (its columns) through
+// shared memory; lane e holds KV column e, warp w rows w M .. w M + M - 1
+// (M = 4 ceil(D / 32)) in registers, summed over the rows in order; threads
+// also sum the K columns (Ksum, recomputed by every CTA of a head).  KV
+// goes to shared memory; pass 2 streams phi(Q) tiles of 32 rows: each
+// (row, head)'s normaliser 1 / (Q . Ksum + eps) (a warp's sum at D >= 32,
+// a lane's, d in order, below), then a warp's 4 rows of output (Q KV) *
+// that * S, d in order, rounded to T once; phi(K) and phi(Q) read 4 d at a
+// time where D % 4 == 0.  No padding: rows past S are not read (phi(0) = 1
+// would count them), channels are whole heads.
 #include "attn_common.cuh"
 #include "common.cuh"
 
@@ -240,6 +257,182 @@ linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   }
 }
 
+constexpr int kAnyCols = 32;   // output columns of an any-head-dim CTA
+constexpr int kAnyRows = 32;   // rows of a staged tile: 4 a warp in pass 2
+
+// the any-head-dim kernel's CTA: output columns c0 .. c0 + W - 1 of heads
+// h0 .. h0 + nh - 1, reading the heads' K and Q channels kc0 .. kc0 + KW - 1
+struct AnyBlock {
+  int c0, W, kc0, KW, nh;
+  __host__ __device__ static int per_seq(int C, int D) {   // CTAs a sequence
+    const int heads = C / D;
+    return D >= kAnyCols ? heads * ((D + kAnyCols - 1) / kAnyCols) : (heads + kAnyCols / D - 1) / (kAnyCols / D);
+  }
+  __device__ AnyBlock(int y, int C, int D) {
+    if (D >= kAnyCols) {
+      const int ncb = (D + kAnyCols - 1) / kAnyCols, h = y / ncb, cb = y - h * ncb;
+      kc0 = h * D;
+      KW = D;
+      c0 = kc0 + cb * kAnyCols;
+      W = min(kAnyCols, D - cb * kAnyCols);
+      nh = 1;
+    } else {
+      const int hp = kAnyCols / D, h0 = y * hp;
+      nh = min(hp, C / D - h0);
+      c0 = kc0 = h0 * D;
+      W = KW = nh * D;
+    }
+  }
+};
+
+// MM >= 4 ceil(D / 32): KV rows a thread holds in pass 1.  V4: D % 4 == 0,
+// so a thread's rows of phi(K) and phi(Q) are read as float4 (each d still
+// summed in order)
+template <typename T, int MM, bool V4>
+__global__ void __launch_bounds__(kThreads)
+linear_attention_any_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                            T* __restrict__ out, int S, int C, int D, float eps) {
+  extern __shared__ __align__(16) float sma[];
+  const AnyBlock b(blockIdx.y, C, D);
+  float* xt = sma;                          // (kAnyRows, KW): phi(K), then phi(Q)
+  float* vt = xt + kAnyRows * b.KW;         // (kAnyRows, kAnyCols): V / S
+  float* kvs = vt + kAnyRows * kAnyCols;    // (D, kAnyCols): KV
+  float* zs = kvs + D * kAnyCols;           // (kAnyRows, kAnyCols): 1 / (Q . Ksum + eps) by (row, head)
+  float* ksum = zs + kAnyRows * kAnyCols;   // (KW)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t base = (size_t)blockIdx.x * S * C;
+  const float fS = (float)S, invS = 1.f / fS;
+  const int M = 4 * ((D + kAnyCols - 1) / kAnyCols), d0 = warp * M;   // 8 M >= D
+  const int kb = D >= kAnyCols ? 0 : (lane / D) * D;   // lane's head's first channel in the block
+  const bool col = lane < b.W;
+
+  // ---- pass 1: KV rows d0 .. d0 + M - 1 of column lane; Ksum of channels tid, tid + 256
+  float acc[MM], ks0 = 0.f, ks1 = 0.f;
+#pragma unroll
+  for (int m = 0; m < MM; ++m) acc[m] = 0.f;
+  for (int s0 = 0; s0 < S; s0 += kAnyRows) {
+    const int nr = min(kAnyRows, S - s0);
+    __syncthreads();   // the previous tile is read
+    for (int e = tid; e < nr * b.KW; e += kThreads) {
+      const int r = e / b.KW, c = e - r * b.KW;
+      xt[e] = phi(to_f(k[base + (size_t)(s0 + r) * C + b.kc0 + c]));
+    }
+    for (int e = tid; e < nr * b.W; e += kThreads) {
+      const int r = e / b.W, c = e - r * b.W;
+      vt[r * kAnyCols + c] = to_f(v[base + (size_t)(s0 + r) * C + b.c0 + c]) * invS;
+    }
+    __syncthreads();
+    for (int r = 0; r < nr; ++r) {
+      if (col) {
+        const float* kr = xt + r * b.KW + kb + d0;
+        const float vv = vt[r * kAnyCols + lane];
+        if constexpr (V4) {
+#pragma unroll
+          for (int m = 0; m < MM; m += 4) {
+            if (m < M && d0 + m < D) {
+              const float4 kk = *reinterpret_cast<const float4*>(kr + m);
+              acc[m] = fmaf(kk.x, vv, acc[m]);
+              acc[m + 1] = fmaf(kk.y, vv, acc[m + 1]);
+              acc[m + 2] = fmaf(kk.z, vv, acc[m + 2]);
+              acc[m + 3] = fmaf(kk.w, vv, acc[m + 3]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int m = 0; m < MM; ++m)
+            if (m < M && d0 + m < D) acc[m] = fmaf(kr[m], vv, acc[m]);
+        }
+      }
+      if (tid < b.KW) ks0 += xt[r * b.KW + tid];
+      if (tid + kThreads < b.KW) ks1 += xt[r * b.KW + tid + kThreads];
+    }
+  }
+  if (col) {
+#pragma unroll
+    for (int m = 0; m < MM; ++m)
+      if (m < M && d0 + m < D) kvs[(d0 + m) * kAnyCols + lane] = acc[m];
+  }
+  if (tid < b.KW) ksum[tid] = ks0;
+  if (tid + kThreads < b.KW) ksum[tid + kThreads] = ks1;
+
+  // ---- pass 2: phi(Q) tiles; the normalisers, then the warp's 4 rows of output
+  for (int s0 = 0; s0 < S; s0 += kAnyRows) {
+    const int nr = min(kAnyRows, S - s0);
+    __syncthreads();   // KV / Ksum written, the previous tile and its normalisers read
+    for (int e = tid; e < nr * b.KW; e += kThreads) {
+      const int r = e / b.KW, c = e - r * b.KW;
+      xt[e] = phi(to_f(q[base + (size_t)(s0 + r) * C + b.kc0 + c]));
+    }
+    __syncthreads();
+    // Q . Ksum: a warp's lanes over d (then the warp's sum) for a head of
+    // D >= 32, a lane a head below
+    for (int r = warp; r < nr; r += kThreads / 32) {
+      const float* qr = xt + r * b.KW;
+      if (D >= kAnyCols) {
+        float z = 0.f;
+        for (int d = lane; d < D; d += 32) z = fmaf(qr[d], ksum[d], z);
+        z = warp_sum(z);
+        if (lane == 0) zs[r * kAnyCols] = 1.f / (z + eps);
+      } else if (lane < b.nh) {
+        float z = 0.f;
+        for (int d = 0; d < D; ++d) z = fmaf(qr[lane * D + d], ksum[lane * D + d], z);
+        zs[r * kAnyCols + lane] = 1.f / (z + eps);
+      }
+    }
+    __syncthreads();
+    const int r0 = 4 * warp;
+    if (col && r0 < nr) {
+      const float* qr = xt + r0 * b.KW + kb;
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (V4) {
+        for (int d = 0; d < D; d += 4) {
+          const float k0 = kvs[d * kAnyCols + lane], k1 = kvs[(d + 1) * kAnyCols + lane];
+          const float k2 = kvs[(d + 2) * kAnyCols + lane], k3 = kvs[(d + 3) * kAnyCols + lane];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4 qq = *reinterpret_cast<const float4*>(qr + i * b.KW + d);
+            o[i] = fmaf(qq.w, k3, fmaf(qq.z, k2, fmaf(qq.y, k1, fmaf(qq.x, k0, o[i]))));
+          }
+        }
+      } else {
+        for (int d = 0; d < D; ++d) {
+          const float kv = kvs[d * kAnyCols + lane];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o[i] = fmaf(qr[i * b.KW + d], kv, o[i]);
+        }
+      }
+      const int j = D >= kAnyCols ? 0 : lane / D;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (r0 + i < nr)
+          out[base + (size_t)(s0 + r0 + i) * C + b.c0 + lane] = from_f<T>(o[i] * zs[(r0 + i) * kAnyCols + j] * fS);
+    }
+  }
+}
+
+template <typename T, int MM, bool V4>
+int run_any(const void* q, const void* k, const void* v, void* out, int N, int S, int C, int D, float eps,
+            cudaStream_t st) {
+  const int KW = D >= kAnyCols ? D : (kAnyCols / D) * D;
+  const size_t smem = (size_t)(kAnyRows * KW + 2 * kAnyRows * kAnyCols + D * kAnyCols + KW) * sizeof(float);
+  auto kern = linear_attention_any_kernel<T, MM, V4>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(N, AnyBlock::per_seq(C, D)), kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out), S, C, D,
+      eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_any_dt(const void* q, const void* k, const void* v, void* out, int N, int S, int C, int D, float eps,
+               cudaStream_t st) {
+  if (D % 4) return run_any<T, 4, false>(q, k, v, out, N, S, C, D, eps, st);   // D = 1, 2, 3, 6 (< 32)
+  if (D <= 32) return run_any<T, 4, true>(q, k, v, out, N, S, C, D, eps, st);
+  if (D <= 128) return run_any<T, 16, true>(q, k, v, out, N, S, C, D, eps, st);
+  return run_any<T, 64, true>(q, k, v, out, N, S, C, D, eps, st);
+}
+
 template <typename T, int D>
 int run(const void* q, const void* k, const void* v, void* out, int N, int S, int C, float eps, cudaStream_t st) {
   constexpr int G = D < 16 ? 16 : D;
@@ -262,20 +455,26 @@ int run_dt(const void* q, const void* k, const void* v, void* out, int N, int S,
 
 }  // namespace
 
-// Takes head dims 8, 16, 32, 64 or 128; C a multiple of 16 (and of the head
-// dim) up to 128, or a multiple of 128; q, k, v, out 16-byte aligned.
+// Takes head dims 8, 16, 32, 64 or 128 with C a multiple of 16 (and of the
+// head dim) up to 128, or a multiple of 128, on the tensor cores (q, k, v,
+// out 16-byte aligned); and every other head dim at C a multiple of 128 up
+// to 512 on the any-head-dim kernel.
 extern "C" int catseg_linear_attention(const void* q, const void* k, const void* v, void* out, int N, int S,
                                        int C, int heads, float eps, int is_bf16, void* stream) {
   if (N <= 0 || S <= 0 || heads <= 0 || C % heads) return (int)cudaErrorInvalidValue;
   const int D = C / heads, G = D < 16 ? 16 : D;
-  if (C % 16 || C % G || (C > kChunk && C % kChunk)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 8: return run_dt<8>(q, k, v, out, N, S, C, eps, is_bf16, st);
-    case 16: return run_dt<16>(q, k, v, out, N, S, C, eps, is_bf16, st);
-    case 32: return run_dt<32>(q, k, v, out, N, S, C, eps, is_bf16, st);
-    case 64: return run_dt<64>(q, k, v, out, N, S, C, eps, is_bf16, st);
-    case 128: return run_dt<128>(q, k, v, out, N, S, C, eps, is_bf16, st);
-    default: return (int)cudaErrorInvalidValue;
+  if (C % 16 == 0 && C % G == 0 && (C <= kChunk || C % kChunk == 0)) {
+    switch (D) {
+      case 8: return run_dt<8>(q, k, v, out, N, S, C, eps, is_bf16, st);
+      case 16: return run_dt<16>(q, k, v, out, N, S, C, eps, is_bf16, st);
+      case 32: return run_dt<32>(q, k, v, out, N, S, C, eps, is_bf16, st);
+      case 64: return run_dt<64>(q, k, v, out, N, S, C, eps, is_bf16, st);
+      case 128: return run_dt<128>(q, k, v, out, N, S, C, eps, is_bf16, st);
+      default: break;
+    }
   }
+  if (C % kChunk || C > 4 * kChunk) return (int)cudaErrorInvalidValue;
+  return is_bf16 ? run_any_dt<bf16>(q, k, v, out, N, S, C, D, eps, st)
+                 : run_any_dt<float>(q, k, v, out, N, S, C, D, eps, st);
 }

@@ -42,16 +42,27 @@
 // normalise P first took 1.8x SDPA's time there (PERF.md).  At head dim 128
 // such a row runs the key halves once for each 64-column O block.
 //
-// Otherwise (fp32, other geometries; bf16 at 4 heads of 128, whose K and V
-// exceed the shared memory) CUDA cores: one block per (window, head), the
-// head's K and V as fp32 rows padded to D + 1 (conflict-free column reads);
-// each warp takes query rows in turn, holds its q row in registers, keeps
-// its N scores spread over the lanes' registers (N <= 256), writes P to a
-// per-warp shared row and forms P.V with lanes over the head's channels.
-// Where K and V of a head exceed the shared memory (head dim 128 beyond 218
-// tokens: 272 KB at 256), two blocks share the (window, head), each with the
-// whole K and half of V's columns, and each forms its half of the output: the
-// logits are computed twice, the softmax order is unchanged.
+// Head dims 48 and 96 take the same tensor-core path (O in blocks of 48
+// columns at 96); it wants rows 16-byte aligned and a multiple of 8 elements
+// apart (cp.async), else the call takes a CUDA-core path below.
+//
+// Otherwise (fp32; bf16 at other head dims, at 4 heads of 128, whose K and
+// V exceed the shared memory, or with rows off the 16-byte grid) CUDA
+// cores, at any head dim (1 to 512 and beyond; the reference's lane-masked
+// heads take any) and any row stride: one block per (window, head, 32
+// query rows), nothing held per head dim.  Q and K come in 32 head-dim
+// columns at a time as fp32 rows padded to 33 (conflict-free column
+// reads); a warp's 4 rows of S (N <= 256 keys over the lanes, 8 a lane) sum
+// in registers over the column chunks, d in order; scale, mask, the exact
+// softmax (row max and sum over the warp) and P normalised, then rounded
+// to T, in a shared row per query row; then O in 32-column chunks of V,
+// each lane a column of the warp's 4 rows, keys in order (P read 4 keys at
+// a time).  It replaced a kernel per head dim 8-128 that held a head's
+// whole K and V in shared memory and a q row in registers: the same sums
+// in the same order, bitwise equal; this one takes 0.6-0.9x its time but
+// at 4 heads of 32 with a mask in fp32 (1.07x; PERF.md).
+#include <cstdint>
+
 #include "attn_common.cuh"
 #include "common.cuh"
 
@@ -60,7 +71,6 @@ using namespace catseg;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxN = 256;
 constexpr int kMaxJ = kMaxN / 32;
 constexpr int kMaxPairs = 9;   // 16-key column pairs of S a warp keeps in registers (144 keys)
@@ -74,79 +84,131 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// nsplit blocks per (window, head), block part p forming output columns
-// p dv .. (p + 1) dv - 1, dv = D / nsplit, from V's same columns
-template <typename T, int D>
+constexpr int kAnyRows = 32;    // query rows of an any-head-dim block, 4 a warp
+constexpr int kAnyCols = 32;    // head-dim columns of Q, K or V staged at a time
+constexpr int kAnyLd = kAnyCols + 1;
+static_assert(kAnyCols == 32, "a full chunk's row is e >> 5");
+
+// any head dim D, any row strides: block (window, head, row block rb) forms
+// output rows 32 rb .. 32 rb + 31 of the head
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                        const float* __restrict__ mask, T* __restrict__ out, int N, int C, int heads, int nW,
-                        int ldq, int ldk, int ldv, int nsplit, float scale) {
-  constexpr int ld = D + 1;
-  const int dv = D / nsplit, lds = dv + 1;
-  extern __shared__ float sm[];
-  float* ks = sm;             // (N, ld)
-  float* vs = ks + N * ld;    // (N, lds)
-  float* ps = vs + N * lds;   // (kWarps, N)
-  const int part = blockIdx.x % nsplit;
-  const size_t wh = blockIdx.x / nsplit, win = wh / heads;
-  const int h = wh % heads;
-  const T* qw = q + win * N * ldq + h * D;
-  const T* kw = k + win * N * ldk + h * D;
-  const T* vw = v + win * N * ldv + h * D + part * dv;
-  T* ow = out + win * N * C + h * D + part * dv;
-  for (int e = threadIdx.x; e < N * D; e += kThreads) {
-    const int n = e / D, d = e % D;
-    ks[n * ld + d] = to_f(kw[(size_t)n * ldk + d]);
-  }
-  for (int e = threadIdx.x; e < N * dv; e += kThreads) {
-    const int n = e / dv, d = e % dv;
-    vs[n * lds + d] = to_f(vw[(size_t)n * ldv + d]);
-  }
-  __syncthreads();
-  const float* mw = mask ? mask + (win % nW) * N * N : nullptr;
+window_attention_any_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                            const float* __restrict__ mask, T* __restrict__ out, int N, int C, int D, int heads,
+                            int nW, int ldq, int ldk, int ldv, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int NP = (N + 3) & ~3;             // P's row pitch: rows 16-byte aligned
+  float* ps = sm;                          // (kAnyRows, NP): P
+  float* qs = ps + kAnyRows * NP;          // (kAnyRows, kAnyLd): a Q column chunk
+  float* cs = qs + kAnyRows * kAnyLd;      // (N, kAnyLd): a K, then a V, column chunk
+  const int nrb = (N + kAnyRows - 1) / kAnyRows, rb = blockIdx.x % nrb;
+  const size_t wh = blockIdx.x / nrb, win = wh / heads;
+  const int h = wh % heads, r0 = rb * kAnyRows, nr = min(kAnyRows, N - r0);
+  const T* qw = q + (win * N + r0) * ldq + (size_t)h * D;
+  const T* kw = k + win * N * ldk + (size_t)h * D;
+  const T* vw = v + win * N * ldv + (size_t)h * D;
+  T* ow = out + (win * N + r0) * C + (size_t)h * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* p = ps + warp * N;
-  for (int i = warp; i < N; i += kWarps) {
-    float qr[D];
+
+  // S = Q K^T for the warp's rows 4 warp .. 4 warp + 3, key lane + 32 jj
+  float acc[4][kMaxJ];
 #pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = to_f(qw[(size_t)i * ldq + d]);
-    float s[kMaxJ];
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < kMaxJ; ++jj) acc[i][jj] = 0.f;
+  for (int d0 = 0; d0 < D; d0 += kAnyCols) {
+    const int dc = min(kAnyCols, D - d0);
+    __syncthreads();   // the previous chunk is read
+    for (int e = threadIdx.x; e < nr * dc; e += kThreads) {
+      const int r = dc == kAnyCols ? e >> 5 : e / dc, d = e - r * dc;
+      qs[r * kAnyLd + d] = to_f(qw[(size_t)r * ldq + d0 + d]);
+    }
+    for (int e = threadIdx.x; e < N * dc; e += kThreads) {
+      const int n = dc == kAnyCols ? e >> 5 : e / dc, d = e - n * dc;
+      cs[n * kAnyLd + d] = to_f(kw[(size_t)n * ldk + d0 + d]);
+    }
+    __syncthreads();
+    for (int d = 0; d < dc; ++d) {
+      float qv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = qs[(4 * warp + i) * kAnyLd + d];
+#pragma unroll
+      for (int jj = 0; jj < kMaxJ; ++jj) {
+        const int j = lane + 32 * jj;
+        if (j < N) {
+          const float kv = cs[j * kAnyLd + d];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(qv[i], kv, acc[i][jj]);
+        }
+      }
+    }
+  }
+
+  // logits, the exact softmax, P rounded to T into the row's shared P
+  const float* mw = mask ? mask + (win % nW) * N * N : nullptr;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * warp + i;
+    if (r >= nr) continue;   // warp-uniform
     float mx = -INFINITY;
 #pragma unroll
     for (int jj = 0; jj < kMaxJ; ++jj) {
       const int j = lane + 32 * jj;
       float logit = -INFINITY;
       if (j < N) {
-        float acc = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) acc = fmaf(qr[d], ks[j * ld + d], acc);
-        logit = acc * scale;
-        if (mw) logit += mw[(size_t)i * N + j];
+        logit = acc[i][jj] * scale;
+        if (mw) logit += mw[(size_t)(r0 + r) * N + j];
       }
-      s[jj] = logit;
+      acc[i][jj] = logit;
       mx = fmaxf(mx, logit);
     }
     mx = warp_max(mx);
     float sum = 0.f;
 #pragma unroll
     for (int jj = 0; jj < kMaxJ; ++jj) {
-      const float e = lane + 32 * jj < N ? expf(s[jj] - mx) : 0.f;
-      s[jj] = e;
+      const float e = lane + 32 * jj < N ? expf(acc[i][jj] - mx) : 0.f;
+      acc[i][jj] = e;
       sum += e;
     }
     sum = warp_sum(sum);
 #pragma unroll
     for (int jj = 0; jj < kMaxJ; ++jj) {
       const int j = lane + 32 * jj;
-      if (j < N) p[j] = rnd<T>(s[jj] / sum);
+      if (j < N) ps[r * NP + j] = rnd<T>(acc[i][jj] / sum);
     }
-    __syncwarp();
-    for (int d = lane; d < dv; d += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < N; ++j) acc = fmaf(p[j], vs[j * lds + d], acc);
-      ow[(size_t)i * C + d] = from_f<T>(acc);
+  }
+
+  // O = P V, 32 columns of V at a time, a lane a column
+  for (int d0 = 0; d0 < D; d0 += kAnyCols) {
+    const int dc = min(kAnyCols, D - d0);
+    __syncthreads();   // K (or the previous V chunk) is read, P is written
+    for (int e = threadIdx.x; e < N * dc; e += kThreads) {
+      const int n = dc == kAnyCols ? e >> 5 : e / dc, d = e - n * dc;
+      cs[n * kAnyLd + d] = to_f(vw[(size_t)n * ldv + d0 + d]);
     }
-    __syncwarp();  // p is rewritten by the warp's next row
+    __syncthreads();
+    if (lane < dc) {
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+      const float* p = ps + 4 * warp * NP;
+      int j = 0;
+      for (; j + 4 <= N; j += 4) {   // 4 keys of the 4 rows' P at a time, keys in order
+        const float v0 = cs[j * kAnyLd + lane], v1 = cs[(j + 1) * kAnyLd + lane];
+        const float v2 = cs[(j + 2) * kAnyLd + lane], v3 = cs[(j + 3) * kAnyLd + lane];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 pp = *reinterpret_cast<const float4*>(p + i * NP + j);
+          o[i] = fmaf(pp.w, v3, fmaf(pp.z, v2, fmaf(pp.y, v1, fmaf(pp.x, v0, o[i]))));
+        }
+      }
+      for (; j < N; ++j) {
+        const float vv = cs[j * kAnyLd + lane];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[i] = fmaf(p[i * NP + j], vv, o[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * warp + i < nr) ow[(size_t)(4 * warp + i) * C + d0 + lane] = from_f<T>(o[i]);
+    }
   }
 }
 
@@ -281,7 +343,7 @@ window_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   // at head dim 128 Q is loaded at the start of its task: a prefetched
   // second copy would not fit beside S and the O block
   constexpr bool kPrefetch = D <= 64;
-  constexpr int OW = D < 64 ? D : 64;   // columns of an O block
+  constexpr int OW = D <= 64 ? D : D % 64 ? D / 2 : 64;   // columns of an O block (48 at D = 96)
   unsigned qa[D / 16][4], qn[D / 16][4];
   if (kPrefetch && first < last) load_q<D>(qn, qw + (first % heads) * D, ldq, (first / heads) * 16, g, t4);
   cp_async_wait<0>();
@@ -395,11 +457,20 @@ size_t smem_optin() {
 }
 
 // whether bf16 at this geometry takes the tensor-core kernel: N % 16 == 0,
-// head dim 16 / 32 / 64 / 128 and K, V within the device's opt-in shared memory
+// head dim 16 / 32 / 48 / 64 / 96 / 128 and K, V within the device's opt-in
+// shared memory
 bool tc_path(int N, int C, int heads, int is_bf16) {
+  if (!is_bf16 || N % 16 || C % heads) return false;
   const int D = C / heads;
-  if (!is_bf16 || N % 16 || C % heads || (D != 16 && D != 32 && D != 64 && D != 128)) return false;
+  if (D != 16 && D != 32 && D != 48 && D != 64 && D != 96 && D != 128) return false;
   return tc_smem(N, C) <= smem_optin();
+}
+
+// whether the rows are laid out as the tensor-core kernel reads them: 16-byte
+// aligned starts, strides a multiple of 8 elements (cp.async of 16 bytes)
+bool tc_layout(const void* q, const void* k, const void* v, int ldq, int ldk, int ldv) {
+  const auto a = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
+  return a % 16 == 0 && ldq % 8 == 0 && ldk % 8 == 0 && ldv % 8 == 0;
 }
 
 template <int D>
@@ -421,34 +492,18 @@ int run_tc(const void* q, const void* k, const void* v, const void* mask, void* 
   return (int)cudaGetLastError();
 }
 
-// the CUDA-core kernel's shared memory: K (N, D + 1), V (N, D / nsplit + 1), P rows
-size_t cc_smem(int N, int D, int nsplit) {
-  return (size_t)(N * (D + 1) + N * (D / nsplit + 1) + kWarps * N) * sizeof(float);
-}
-
-template <typename T, int D>
-int run_cc(const void* q, const void* k, const void* v, const void* mask, void* out, int Bw, int N, int C,
-           int heads, int nW, int ldq, int ldk, int ldv, float scale, cudaStream_t st) {
-  // V's columns in two blocks where the whole head's K and V exceed the opt-in
-  // shared memory (head dim 128 beyond 218 tokens)
-  const size_t limit = smem_optin();
-  const int nsplit = cc_smem(N, D, 1) <= limit ? 1 : 2;
-  const size_t smem = cc_smem(N, D, nsplit);
-  if (smem > limit) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(window_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <typename T>
+int run_any(const void* q, const void* k, const void* v, const void* mask, void* out, int Bw, int N, int C,
+            int heads, int nW, int ldq, int ldk, int ldv, float scale, cudaStream_t st) {
+  const size_t smem = (size_t)(kAnyRows * ((N + 3) & ~3) + kAnyRows * kAnyLd + N * kAnyLd) * sizeof(float);
+  const int nrb = (N + kAnyRows - 1) / kAnyRows;
+  cudaError_t e = cudaFuncSetAttribute(window_attention_any_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
-  window_attention_kernel<T, D><<<Bw * heads * nsplit, kThreads, smem, st>>>(
+  window_attention_any_kernel<T><<<(unsigned)((size_t)Bw * heads * nrb), kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(mask), static_cast<T*>(out), N, C, heads, nW, ldq, ldk, ldv, nsplit, scale);
+      static_cast<const float*>(mask), static_cast<T*>(out), N, C, C / heads, heads, nW, ldq, ldk, ldv, scale);
   return (int)cudaGetLastError();
-}
-
-template <int D>
-int run(const void* q, const void* k, const void* v, const void* mask, void* out, int Bw, int N, int C,
-        int heads, int nW, int ldq, int ldk, int ldv, float scale, int is_bf16, cudaStream_t st) {
-  if (is_bf16) return run_cc<bf16, D>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
-  return run_cc<float, D>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
 }
 
 }  // namespace
@@ -457,29 +512,27 @@ extern "C" int catseg_window_attention_tensor_cores(int N, int C, int heads, int
   return tc_path(N, C, heads, is_bf16) ? 1 : 0;
 }
 
-// Takes N <= 256 tokens per window and head dims 8, 16, 32, 64 or 128; row
-// strides ldq, ldk, ldv >= C and multiples of 8; mask null or (nW, N, N).
+// Takes N <= 256 tokens per window, any width, any head dim and any row
+// strides ldq, ldk, ldv >= C; mask null or (nW, N, N).  Head dims 16-128 of
+// the tensor-core list with rows as tc_layout reads them run on the tensor
+// cores (bf16), everything else on the CUDA-core kernel.
 extern "C" int catseg_window_attention(const void* q, const void* k, const void* v, const void* mask, void* out,
                                        int Bw, int N, int C, int heads, int nW, int ldq, int ldk, int ldv,
                                        float scale, int is_bf16, void* stream) {
   if (Bw <= 0 || N <= 0 || N > kMaxN || heads <= 0 || C % heads || nW <= 0 || Bw % nW)
     return (int)cudaErrorInvalidValue;
-  if (ldq < C || ldk < C || ldv < C || ldq % 8 || ldk % 8 || ldv % 8) return (int)cudaErrorInvalidValue;
+  if (ldq < C || ldk < C || ldv < C) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (tc_path(N, C, heads, is_bf16)) {
+  if (tc_path(N, C, heads, is_bf16) && tc_layout(q, k, v, ldq, ldk, ldv)) {
     switch (C / heads) {
       case 16: return run_tc<16>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
       case 32: return run_tc<32>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
+      case 48: return run_tc<48>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
       case 64: return run_tc<64>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
+      case 96: return run_tc<96>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
       default: return run_tc<128>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
     }
   }
-  switch (C / heads) {
-    case 8: return run<8>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, is_bf16, st);
-    case 16: return run<16>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, is_bf16, st);
-    case 32: return run<32>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, is_bf16, st);
-    case 64: return run<64>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, is_bf16, st);
-    case 128: return run<128>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, is_bf16, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (is_bf16) return run_any<bf16>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
+  return run_any<float>(q, k, v, mask, out, Bw, N, C, heads, nW, ldq, ldk, ldv, scale, st);
 }

@@ -5,10 +5,13 @@ The kernel, csrc/layer_norm.cu, is bound by device-memory bytes (one read
 and one write of every element); its note says how it keeps them in
 flight.  Any row count and any row width that is a multiple of 8 (bf16) or
 4 (fp32) up to 4096 / 2048 elements goes in whole, with no padding to a
-power of two (:func:`kernel_takes`).  The reference's TPU tile gate (C a
-multiple of 128, at least 512 rows) is not repeated: a CUDA tensor always
-takes the kernel, or raises for a width it does not take; only a CPU tensor
-takes the plain version.
+power of two (:func:`kernel_takes`).  A CUDA call is routed by geometry
+before any launch (:func:`route`): the kernel wherever it takes the width,
+whatever the reference's TPU tile gate (C a multiple of 128, at least 512
+rows) says; elsewhere the plain version where that gate fails, as the
+reference runs its ``_reference_ln`` there (bf16 rows of 100, say), and a
+raise where it holds (a width the reference's kernel takes and the port's
+does not: past 4096 / 2048).  A CPU tensor always takes the plain version.
 
 Variance follows the reference's dtype gate: single-pass E[x^2] - mu^2 when
 the input is bf16, two-pass when it is fp32.  The output keeps the input
@@ -55,6 +58,21 @@ def kernel_takes(C: int, dtype: torch.dtype) -> bool:
     return dtype == torch.float32 and 0 < C <= 2048 and C % 4 == 0
 
 
+def reference_gate(C: int, M: int) -> bool:
+    """Where the reference runs its Pallas kernel (catseg_tpu/kernels/
+    layer_norm.py ``fused_layer_norm``): C % 128 == 0 and M >= 512 rows."""
+    return C % 128 == 0 and M >= 512
+
+
+def route(C: int, M: int, dtype: torch.dtype) -> str:
+    """What a CUDA call of M rows of C runs: "kernel" where the kernel takes
+    the width, else "plain" where the reference runs its plain composition,
+    else "raise" (the reference's kernel takes it, the port's does not)."""
+    if kernel_takes(C, dtype):
+        return "kernel"
+    return "raise" if reference_gate(C, M) else "plain"
+
+
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
 
@@ -63,9 +81,12 @@ def _layer_norm_cuda(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: flo
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"layer_norm kernel takes fp32 or bf16, got {x.dtype}")
     C = x.shape[-1]
-    if not kernel_takes(C, x.dtype):
+    way = route(C, x.numel() // max(C, 1), x.dtype)
+    if way == "plain":
+        return layer_norm_plain(x, g, b, eps)
+    if way == "raise":
         raise NotImplementedError(f"layer_norm kernel takes rows of a multiple of 8 bf16 (up to 4096) or 4 fp32 "
-                                  f"(up to 2048) elements; got {C} {x.dtype}")
+                                  f"(up to 2048) elements; got {C} {x.dtype}, where the reference's kernel runs")
     x, g, b = x.contiguous(), _f32(g), _f32(b)
     # rows, gamma and beta are read as 16-byte vectors
     if any(t.data_ptr() % 16 for t in (x, g, b)):
@@ -117,8 +138,8 @@ layer_norm_op = register("layer_norm", "(Tensor x, Tensor g, Tensor b, float eps
 
 
 def fused_layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis, fp32 statistics, any leading shape: the
-    kernel on a CUDA tensor, the plain version on a CPU one."""
+    """LayerNorm over the last axis, fp32 statistics, any leading shape: on a
+    CUDA tensor what :func:`route` says, the plain version on a CPU one."""
     if records_grad(x, g, b):
         return _LayerNormFn.apply(x, g, b, eps)
     return serve(layer_norm_op, "layer_norm", x, g, b, eps)

@@ -7,9 +7,12 @@ _kernel), which the unfused linear class stage (core/aggregator.py
 each sequence's per-head KV and K-sum on chip; its note there says what
 bounds it on the card.
 
-The kernel takes any S and the head dims (8-128) and widths
-:func:`kernel_takes` names.  A call is routed by geometry alone, before any launch
-(:func:`route`): on a CUDA tensor the kernel runs where it takes the
+The kernel takes any S and the head dims and widths :func:`kernel_takes`
+names: the HEAD_DIMS 8, 16, 32, 64, 128 on the tensor cores, and every
+head dim at C a multiple of 128 up to 512 (so everywhere the reference's
+gate holds up to that width) on an fp32 CUDA-core path
+(csrc/linear_attn.cu).  A call is routed by geometry alone, before any
+launch (:func:`route`): on a CUDA tensor the kernel runs where it takes the
 geometry; elsewhere the plain version runs where the reference's own Pallas
 gate fails (:func:`reference_gate`: C % 128 == 0 and S % 8 == 0), as the
 reference runs its ``_reference`` there, and the call raises where that gate
@@ -31,7 +34,8 @@ from .ops import records_grad, register, serve
 from .class_layer import _elu1
 
 _EPS = 1e-6
-HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128)   # the tensor-core path's
+MAX_WIDTH = 512   # every head dim is taken at C % 128 == 0 up to this width
 
 
 def linear_attention_plain(q, k, v, heads: int) -> torch.Tensor:
@@ -49,12 +53,17 @@ def linear_attention_plain(q, k, v, heads: int) -> torch.Tensor:
 
 
 def kernel_takes(C: int, heads: int) -> bool:
-    """The kernel's geometry: head dims 8-128; a CTA takes 128 channels (or
-    all of a narrower C) in column groups of max(head dim, 16), so head dim
-    128 is one head at C = 128 or any multiple of 128."""
-    if C % heads or C // heads not in HEAD_DIMS:
+    """The kernel's geometry: HEAD_DIMS on the tensor cores, where a
+    CTA takes 128 channels (or all of a narrower C) in column groups of
+    max(head dim, 16), so head dim 128 is one head at C = 128 or any
+    multiple of 128; and every head dim at C a multiple of 128 up to
+    MAX_WIDTH (the CUDA-core path: 1, 3, 24, 48, 96, 256, ...)."""
+    if C % heads:
         return False
-    return C % max(C // heads, 16) == 0 and (C <= 128 or C % 128 == 0)
+    D = C // heads
+    if D in HEAD_DIMS and C % max(D, 16) == 0 and (C <= 128 or C % 128 == 0):
+        return True
+    return C % 128 == 0 and C <= MAX_WIDTH
 
 
 def reference_gate(C: int, S: int) -> bool:
@@ -82,9 +91,10 @@ def _linear_attention_cuda(q, k, v, heads: int) -> torch.Tensor:
     if way == "plain":
         return linear_attention_plain(q, k, v, heads)
     if way == "raise":
-        raise NotImplementedError(f"linear attention kernel takes head dims {HEAD_DIMS} and C a multiple of 16 "
-                                  f"and of the head dim up to 128, or a multiple of 128; got C={C}, heads={heads}, "
-                                  "where the reference's kernel runs")
+        raise NotImplementedError(f"linear attention kernel takes every head dim at C a multiple of 128 up to "
+                                  f"{MAX_WIDTH}, and head dims {HEAD_DIMS} at C a multiple of 16 and of the head "
+                                  f"dim up to 128 or a multiple of 128; got C={C}, heads={heads}, where the "
+                                  "reference's kernel runs")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("linear attention kernel reads rows by 16-byte cp.async: q, k and v must start 16-byte "

@@ -15,7 +15,10 @@ of 128, the one-head aggregator's serving shape; the ReLU class MLP of
 the GELU Swin MLP at its 864,000 tokens as ``mlp@swin``; linear attention
 over 5760 sequences of 256 classes, at 4 heads and as
 ``linear_attention@D128`` at one; at hidden 512, ``mlp@512`` over the Swin
-MLP's 864,000 tokens and ``window_attention@C512`` at 4 heads of 128), and
+MLP's 864,000 tokens and ``window_attention@C512`` at 4 heads of 128; at
+hidden 384's 4 heads of 96 and at one head of 256, window attention as
+``window_attention@D96`` / ``@D256`` and linear attention as
+``linear_attention@D96`` / ``@D256``), and
 for the three forward kernels
 whose shapes the larger encoder tiers change (LayerNorm rows of 1024, 1280
 and 1664, dense attention at 16 heads of 64, corr embed at E 768, 1024 and
@@ -49,8 +52,9 @@ version (``FORWARD_PAIRS``, ``BACKWARD_PAIRS``) on the same inputs:
 chip_smoke.py [15] checks the whole-image branch's kernels at the very
 shapes and values that path hands them, [31] a train step's.
 :func:`checked_calls` holds each forward call against its plain version as
-it is made and keeps no inputs: [46] / [47] / [48] check hidden-256 /
-one-head / hidden-512 serving so (the unfused stages' kernels among them).
+it is made and keeps no inputs: [46]-[50] check hidden-256 / one-head /
+hidden-512 / hidden-384 / one-head-of-256 serving so (the unfused stages'
+kernels among them).
 
 A backward case's thunks return a dict of every gradient it produces (dx,
 the guidance or pad cotangents, each parameter's); the plain version there is
@@ -358,14 +362,15 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
 
     Nl, Sl = (16, 16) if small else (B * 576, 256)
 
-    def linear_case(heads):
-        ql, kl, vl = (rn(Nl, Sl, C).to(dtype) for _ in range(3))
-        # Q.KV and KV at head dim D, in both dtypes as the kernel does them:
-        # three bf16 products each on the tensor cores (the hi + lo split of
-        # the spec's fp32 operands); bytes bind
+    def linear_case(heads, width=C, draw=rn):
+        ql, kl, vl = (draw(Nl, Sl, width).to(dtype) for _ in range(3))
+        # Q.KV and KV at head dim D, in both dtypes as the tensor-core path
+        # does them: three bf16 products each (the hi + lo split of the
+        # spec's fp32 operands), the least the card needs for them at any
+        # head dim; bytes bind
         return Case(lambda: linear_attn.fused_linear_attention(ql, kl, vl, heads),
                     lambda: linear_attn.linear_attention_plain(ql, kl, vl, heads), None,
-                    3 * 4.0 * Nl * Sl * C * (C // heads), 4 * _nbytes(ql), "bf16_tc")
+                    3 * 4.0 * Nl * Sl * width * (width // heads), 4 * _nbytes(ql), "bf16_tc")
 
     out["linear_attention"] = linear_case(4)
     # the larger encoder tiers' shapes: ViT-L/14 (L), ViT-H-14 (H), ViT-bigG-14
@@ -409,6 +414,27 @@ def cases(device, dtype: torch.dtype, small: bool = False) -> dict[str, Case]:
         lambda: F.scaled_dot_product_attention(heads5(q5), heads5(k5), heads5(v5), attn_mask=lib_mask,
                                                scale=128 ** -0.5),
         4.0 * Bw * 144 * 144 * 512, 4 * _nbytes(q5) + _nbytes(mask), mm)
+
+    # hidden 384 at 4 heads of 96 and hidden 256 at one head of 256, as
+    # eval_preset(vitb384(hidden_dim=384)) and (hidden_dim=256, num_heads=1)
+    # serve: window attention at the Swin stage's serving shape (head dim
+    # 96 in bf16 on the tensor cores; 256 on the CUDA-core path) and linear
+    # attention at the class stage's (the fp32 CUDA-core path; its bound
+    # counts the operations as the tensor-core path does them)
+    def window_case(width, n_heads):
+        qd, kd, vd = (rd(Bw, 144, width).to(dtype) for _ in range(3))
+        sc = (width // n_heads) ** -0.5
+        split = lambda t: t.view(Bw, 144, n_heads, width // n_heads).transpose(1, 2)  # noqa: E731
+        return Case(lambda: window_attn.fused_window_attention(qd, kd, vd, mask, n_heads, sc),
+                    lambda: window_attn.window_attention_plain(qd, kd, vd, mask, n_heads, sc),
+                    lambda: F.scaled_dot_product_attention(split(qd), split(kd), split(vd), attn_mask=lib_mask,
+                                                           scale=sc),
+                    4.0 * Bw * 144 * 144 * width, 4 * _nbytes(qd) + _nbytes(mask), mm)
+
+    out["window_attention@D96"] = window_case(384, 4)
+    out["window_attention@D256"] = window_case(256, 1)
+    out["linear_attention@D96"] = linear_case(4, 384, rd)
+    out["linear_attention@D256"] = linear_case(1, 256, rd)
     return out
 
 
@@ -436,9 +462,17 @@ ROUTES = {
                            set(), set()),
     "hidden512": (512, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, set(), set()),
     "hidden384 heads3": (384, 3, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, set(), set()),
-    "hidden96": (96, 4, 64, 12, 24, (1, 1), "linear", _UNFUSED, {"window_attention"},
-                 {"mlp", "linear_attention"}),
+    "hidden96": (96, 4, 64, 12, 24, (1, 1), "linear", _UNFUSED, set(), {"mlp", "linear_attention"}),
     "hidden192 heads3": (192, 3, 64, 12, 24, (1, 1), "linear", _UNFUSED, set(), {"mlp", "linear_attention"}),
+    "hidden384": (384, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, set(), set()),
+    "hidden256 heads1": (256, 1, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, set(), set()),
+    "hidden192": (192, 4, 64, 12, 24, (1, 1), "linear", _UNFUSED, set(), {"mlp", "linear_attention"}),
+    "hidden384 heads16": (384, 16, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, set(), set()),
+    "hidden100": (100, 4, 64, 12, 24, (1, 1), "linear", _UNFUSED, set(), {"mlp", "linear_attention"}),
+    # past the widths the kernels were widened to: #12 refuses C = 640 where
+    # the reference's gate runs its kernel; the MLP's gate fails (C H > 2^20)
+    "hidden640": (640, 4, 64, 12, 24, (1, 1), "linear", {"corr_embed"} | _UNFUSED, {"linear_attention"},
+                  {"mlp"}),
     "hidden32 win4": (32, 4, 48, 4, 8, (2, 2), "linear", _UNFUSED, set(), set()),
     "hidden64 heads8 E24": (64, 8, 24, 4, 8, (1, 1), "linear", _UNFUSED, set(), set()),
 }

@@ -6,8 +6,11 @@ _kernel), which the unfused Swin block (core/aggregator.py ``_swin_block``)
 runs.  The kernel (csrc/window_attn.cu) keeps each window's (N, N) logits
 on chip; its note there says what bounds it on the card.  The reference has
 no shape gate here: every call on a CUDA tensor launches the kernel, or
-raises outside :func:`kernel_takes` (head dims 8-128, at most 256 tokens a
-window).
+raises outside :func:`kernel_takes` (at most 256 tokens a window, at any
+width and head dim).  Head dims 16, 32, 48, 64, 96 and 128 in bf16 run on
+the tensor cores where the window fits (:func:`takes_tensor_cores`),
+everything else (fp32, and bf16 at any other head dim: 3, 24, 25, 192,
+256, 512, ...) on a CUDA-core path with the same arithmetic.
 
 Arithmetic, in both dtypes as the reference's kernel: fp32 logits scaled
 after the q.k product, the additive fp32 mask (none for an unshifted block:
@@ -17,7 +20,9 @@ before the fp32 value product (on the bf16 tensor cores, rows of more than
 144 keys take FlashAttention's order: P rounded before it is normalised,
 within the same 2^-5 bound; csrc/window_attn.cu says why).  q, k and v may be views whose rows are
 evenly strided (the unfused Swin block's split of its fused qkv
-projection): the kernel takes each one's row stride, so nothing is copied.
+projection): the kernel takes each one's row stride, any number of
+elements, so nothing is copied (rows off the 16-byte grid, e.g. hidden
+100's 300 apart, leave the tensor cores for a CUDA-core path).
 
 Gradients: the kernel call sits in a ``torch.autograd.Function`` whose
 backward is autograd through the plain version on every device (the
@@ -33,7 +38,6 @@ from .autograd import plain_vjp
 from .ops import records_grad, register, serve
 
 MAX_TOKENS = 256           # tokens per window the kernel takes (kMaxN in csrc/window_attn.cu)
-HEAD_DIMS = (8, 16, 32, 64, 128)
 
 
 def window_attention_plain(q, k, v, mask, heads: int, scale: float) -> torch.Tensor:
@@ -52,13 +56,10 @@ def window_attention_plain(q, k, v, mask, heads: int, scale: float) -> torch.Ten
 
 
 def kernel_takes(N: int, C: int, heads: int) -> bool:
-    """The geometry the CUDA kernel takes: head dims 8-128, at most MAX_TOKENS
-    tokens a window, in both dtypes.  (At head dim 128 beyond 218 tokens the
-    kernel splits a head's value columns over two blocks to fit its shared
-    memory: csrc/window_attn.cu.)  Its rows must also be evenly strided by a multiple of 8
-    elements and start 16-byte aligned: a layout, not a geometry (the wrapper
-    copies rows that are not evenly strided and raises for the rest)."""
-    return C % heads == 0 and C // heads in HEAD_DIMS and N <= MAX_TOKENS
+    """The geometry the CUDA kernel takes, in both dtypes and at any row
+    stride: at most MAX_TOKENS tokens a window, any width and head dim.
+    Rows that are not evenly strided are copied by the wrapper first."""
+    return C % heads == 0 and N <= MAX_TOKENS
 
 
 def _window_attention_cuda(q, k, v, mask, heads: int, scale: float) -> torch.Tensor:
@@ -74,15 +75,11 @@ def _window_attention_cuda(q, k, v, mask, heads: int, scale: float) -> torch.Ten
             raise ValueError(f"mask {tuple(mask.shape)} does not fit {Bw} windows of {N} tokens")
         mask = mask.float().contiguous()
     if not kernel_takes(N, C, heads):
-        raise NotImplementedError(f"window attention kernel takes head dims {HEAD_DIMS} and at most "
-                                  f"{MAX_TOKENS} tokens; got C={C}, heads={heads}, N={N}")
-    # rows may be strided (views of a fused qkv projection); the kernel reads
-    # them by 16-byte copies, so each row must start 16-byte aligned
+        raise NotImplementedError(f"window attention kernel takes at most {MAX_TOKENS} tokens a window and C a "
+                                  f"multiple of the heads; got C={C}, heads={heads}, N={N}")
+    # rows may be strided (views of a fused qkv projection), by any number of
+    # elements: the kernel takes each tensor's row stride
     q, k, v = (t if _build.rows_evenly_strided(t) else t.contiguous() for t in (q, k, v))
-    if any(t.stride(1) % 8 or t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("window attention kernel reads q, k, v rows in 16-byte pieces: row strides must be "
-                         f"multiples of 8 elements and rows 16-byte aligned; got strides "
-                         f"{[t.stride(1) for t in (q, k, v)]}")
     out = torch.empty((Bw, N, C), dtype=q.dtype, device=q.device)
     _build.launch("catseg_window_attention", q, k, v, mask, out, Bw, N, C, heads, nW,
                   q.stride(1), k.stride(1), v.stride(1), float(scale), int(q.dtype == torch.bfloat16))
@@ -92,9 +89,10 @@ def _window_attention_cuda(q, k, v, mask, heads: int, scale: float) -> torch.Ten
 
 def takes_tensor_cores(N: int, C: int, heads: int, dtype: torch.dtype) -> bool:
     """Whether the kernel runs this geometry on the tensor-core path (bf16,
-    N % 16 == 0, head dim 16 / 32 / 64 / 128, the window's K and V within
-    the current device's shared memory: not at 4 heads of 128, whose 144
-    tokens' K and V take 295 KB; those take the CUDA-core path)."""
+    N % 16 == 0, head dim 16 / 32 / 48 / 64 / 96 / 128, the window's K and V
+    within the current device's shared memory: not at 4 heads of 128, whose
+    144 tokens' K and V take 295 KB; those take the CUDA-core path), given rows
+    16-byte aligned and a multiple of 8 elements apart."""
     return bool(_build.library().catseg_window_attention_tensor_cores(N, C, heads, int(dtype == torch.bfloat16)))
 
 

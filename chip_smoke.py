@@ -27,7 +27,12 @@ Phases (any failure raises and the script exits non-zero):
    MLP at hidden 512, 512 -> 2048 -> 512 over 864,000 tokens, and window
    attention over 6000 windows of 144 x 512 at 4 heads of 128, the shift
    mask, vitb384(hidden_dim=512)'s shapes, as mlp@512 and
-   window_attention@C512):
+   window_attention@C512; window attention over 6000 windows of 144 x 384
+   at 4 heads of 96 and of 144 x 256 at one head, linear attention over
+   5760 x 256 x 384 at 4 heads of 96 and 5760 x 256 x 256 at one head,
+   vitb384(hidden_dim=384)'s and vitb384(hidden_dim=256, num_heads=1)'s
+   shapes, as window_attention@D96 / @D256 and linear_attention@D96 /
+   @D256, drawn on the device after every other case):
    each case's kernel call must raise its
    kernel's launch count; the error against the stated bound, kernel,
    plain and (where one PyTorch call computes the same function) library
@@ -121,13 +126,14 @@ Phases (any failure raises and the script exits non-zero):
    probs_sliding_batch on the card.
 17. The aggregator's routes at geometries some kernels do not take, and at
    those they were widened to (kernels/selfcheck.py ROUTES: hidden 256,
-   one head, hidden 512, hidden 384 at 3 heads, hidden 192 at 3 heads,
-   hidden 96, ...), fp32, T = 8, random weights and features.  Where a
-   kernel the routes call does not take the geometry and the reference's
-   own gate runs its kernel there (window attention at hidden 96: head dim
-   24), the card must raise NotImplementedError
+   one head, hidden 512, hidden 384 at 3, 4 and 16 heads, hidden 256 at
+   one head, hidden 192 at 3 and 4 heads, hidden 96, hidden 100 (head dim
+   25, rows 100 elements apart), hidden 640, ...), fp32, T = 8, random
+   weights and features.  Where a kernel the routes call does not take the
+   geometry and the reference's own gate runs its kernel there (linear
+   attention at hidden 640), the card must raise NotImplementedError
    naming it; where that gate fails (the MLP and linear attention at hidden
-   96 and 192) the wrapper runs its plain version, as the reference runs
+   96, 100 and 192, the MLP at 640) the wrapper runs its plain version, as the reference runs
    its plain composition, and launches nothing; elsewhere the run launches
    exactly the kernels the routes call and do not run plain (LayerNorm
    aside), and its sigmoid probabilities match the port on the CPU below
@@ -369,6 +375,20 @@ Phases (any failure raises and the script exits non-zero):
    aggregator in fp32 at full width (24x24, E 512, hidden 512, T = 150) on
    the card against the CPU, below 5e-4; [14]'s gate at this width
    (bf16_gate.readings(hidden_dim=512)).
+49. vitb384 at hidden 384 (4 heads of 96) served, as phase 46 (the same
+   phase function and kernel sets): eval_preset(vitb384(hidden_dim=384)).
+   One counted run: LayerNorm, dense attention, corr embed (C = 384),
+   window attention (head dim 96, bf16 on the tensor cores), the MLP (384
+   -> 1536 -> 384, the wide kernel) and linear attention (head dim 96, its
+   CUDA-core path) launch, the Swin, class-layer, decoder and backward
+   kernels never; every kernel call of a second run against its plain
+   version at [3]'s bounds; images/s and the allocator's peak; the
+   aggregator in fp32 at full width (hidden 384, T = 150) on the card
+   against the CPU, below 5e-4; [14]'s gate at this width.
+50. vitb384 at one aggregator head of 256 served, as phase 46:
+   eval_preset(vitb384(hidden_dim=256, num_heads=1)).  As [49], with the
+   corr embed at C = 256, window and linear attention at head dim 256 (both
+   on CUDA cores) and the MLP at 256 -> 1024 -> 256.
 
 Phase [3] also gives each call under 1 ms a device time: 20 calls captured
 in one CUDA graph, timed over its replays (no host launch path inside),
@@ -987,9 +1007,9 @@ def bf16_gate_phase(_build) -> None:
         raise AssertionError(f"bf16 serving drifts past the reference's bounds from fp32, or never launched {missing}")
 
 
-# [46] / [48]: the kernels vitb384 at hidden 256 / 512 serves through, and
-# those it never launches (fused #4 / #6 take C = 128; the decoder's gate
-# wants 128 channels)
+# [46] / [48]-[50]: the kernels vitb384 at hidden 256 / 512 / 384 (and 256 at
+# one head) serves through, and those it never launches (fused #4 / #6 take
+# C = 128; the decoder's gate wants 128 channels)
 WIDE_KERNELS = ("layer_norm", "dense_attention", "corr_embed", "window_attention", "mlp", "linear_attention")
 WIDE_ABSENT = ("swin_block", "class_layer", "decoder", "swin_block_bwd", "class_layer_bwd", "decoder_bwd")
 # [47]: those of vitb384 at one aggregator head (hidden 128): the fused #4 /
@@ -1002,7 +1022,7 @@ HEADS1_ABSENT = ("swin_block", "class_layer", "swin_block_bwd", "class_layer_bwd
 
 def variant_serving_phase(dev, smi, _build, images, hws, canvas, names, tag: str, arch: dict, heads: str,
                           label: str, width: str, expect, absent) -> dict:
-    """Phases 46, 47 and 48: ``eval_preset(vitb384(**arch))`` served on the card
+    """Phases 46-50: ``eval_preset(vitb384(**arch))`` served on the card
     (``heads`` says its aggregator heads, ``label`` names the variant in the
     log, ``width`` the aggregator's in the fp32 line); ``expect`` launch and
     ``absent`` never.
@@ -1011,13 +1031,17 @@ def variant_serving_phase(dev, smi, _build, images, hws, canvas, names, tag: str
     from catseg_tpu_torch.core.aggregator import aggregator_forward
     from catseg_tpu_torch.core.catseg import CATSeg, build_catseg, init_catseg_
     from catseg_tpu_torch.infer.pipeline import Predictor
-    from catseg_tpu_torch.kernels import selfcheck
+    from catseg_tpu_torch.kernels import selfcheck, window_attn
     from catseg_tpu_torch.tools import bf16_gate as gate
 
     t_phase = time.perf_counter()
     keys = ", ".join(f"{k}={v}" for k, v in arch.items())
     log(f"{tag} sliding-window Predictor, eval_preset(vitb384({keys})) ({heads}), bf16, T={len(names)}")
     cfg = eval_preset(vitb384(**arch))
+    N = cfg.window_size ** 2
+    on_tc = window_attn.takes_tensor_cores(N, cfg.hidden_dim, cfg.num_heads, torch.bfloat16)
+    log(f"    window attention at {N} tokens, head dim {cfg.hidden_dim // cfg.num_heads}: bf16 on the "
+        f"{'tensor' if on_tc else 'CUDA'} cores")
     torch.cuda.reset_peak_memory_stats()
     pred = Predictor(build_catseg(cfg, seed=SEED), cfg, names)
     pred.preds_sliding_batch(images, hws, canvas)
@@ -2894,11 +2918,15 @@ def main() -> int:
     checks = {dt: check_kernels(dev, dt, selfcheck, _build) for dt in (torch.float32, torch.bfloat16)}
     for name in ("swin_block_bwd", "class_layer_bwd", "decoder_bwd", "mlp", "mlp@swin", "mlp@512", "corr_embed",
                  "corr_embed@C256", "corr_embed@E40", "corr_embed@E48", "linear_attention",
-                 "linear_attention@D128", "window_attention@D128", "window_attention@C512"):
+                 "linear_attention@D128", "window_attention@D128", "window_attention@C512",
+                 "window_attention@D96", "window_attention@D256", "linear_attention@D96",
+                 "linear_attention@D256"):
         c = checks[torch.bfloat16][name]
         what = "worst gradient" if name.endswith("_bwd") else "error"
         # bf16 on the tensor cores, but for window attention at 4 heads of 128
-        unit = "CUDA cores" if name == "window_attention@C512" else "tensor cores"
+        # and at head dim 256, and linear attention past the tensor-core head dims
+        unit = ("CUDA cores" if name in ("window_attention@C512", "window_attention@D256", "linear_attention@D96",
+                                         "linear_attention@D256") else "tensor cores")
         log(f"    {name} bf16 ({unit}): kernel {c['ms']:.3f} ms, plain {c['plain_ms']:.3f} ms, bound "
             f"{c['bound_ms']:.4f} ms, {what} {c['rel_err']:.2e} (bound {c['rel_bound']:.1e})")
 
@@ -3071,6 +3099,14 @@ def main() -> int:
                           "one head of 128", "one head", "hidden 128, one head", HEADS1_KERNELS, HEADS1_ABSENT)
     variant_serving_phase(dev, smi, _build, images, hws, canvas, names, "[48]", dict(hidden_dim=512),
                           "4 heads of 128", "hidden 512", "hidden 512", WIDE_KERNELS, WIDE_ABSENT)
+    # [49] hidden 384 (#3 at C = 384, #10 at head dim 96 on the tensor cores,
+    # #11 at 384 -> 1536 -> 384, #12 at head dim 96 on its CUDA-core path);
+    # [50] one head of 256 (#10 and #12 at head dim 256 on CUDA cores)
+    variant_serving_phase(dev, smi, _build, images, hws, canvas, names, "[49]", dict(hidden_dim=384),
+                          "4 heads of 96", "hidden 384", "hidden 384", WIDE_KERNELS, WIDE_ABSENT)
+    variant_serving_phase(dev, smi, _build, images, hws, canvas, names, "[50]", dict(hidden_dim=256, num_heads=1),
+                          "one head of 256", "hidden 256 one head", "hidden 256, one head", WIDE_KERNELS,
+                          WIDE_ABSENT)
 
     kernels = []
     for name, route, source, replaces in selfcheck.KERNELS:

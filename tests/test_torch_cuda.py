@@ -297,9 +297,8 @@ def test_window_attention_masks(cuda, N, D, dtype):
 @pytest.mark.parametrize("N", [144, 256])
 def test_window_attention_four_heads_of_128(cuda, N, dtype):
     """Hidden 512 at 4 heads of 128: K and V of a window exceed the shared
-    memory (295 KB at 144 tokens), so both dtypes take the CUDA-core path
-    (at 256 tokens with each head's value columns over two blocks); the
-    shift mask launches the kernel once within the bound, two runs
+    memory (295 KB at 144 tokens), so both dtypes take the CUDA-core path;
+    the shift mask launches the kernel once within the bound, two runs
     bit-equal."""
     from catseg_tpu_torch.kernels import swin_block, window_attn
 
@@ -322,8 +321,9 @@ def test_window_attention_four_heads_of_128(cuda, N, dtype):
 def test_window_attention_takes_qkv_views(cuda, dtype, guided):
     """The unfused Swin block's q, k, v are views of its fused projection
     (rows 3C apart; with guidance q and k are fresh tensors, v a view): the
-    kernel reads them in place, equal to the call on contiguous copies, and
-    a row stride off the 16-byte grid raises."""
+    kernel reads them in place, equal to the call on contiguous copies; a
+    row stride off the 16-byte grid (132 elements) leaves the tensor cores
+    for the CUDA-core path, launches once and stays within the bound."""
     from catseg_tpu_torch.kernels import swin_block, window_attn
 
     g = torch.Generator().manual_seed(8)
@@ -337,8 +337,91 @@ def test_window_attention_takes_qkv_views(cuda, dtype, guided):
     want = window_attn.fused_window_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask, 4, 32 ** -0.5)
     assert torch.equal(got, want)
     odd = torch.randn(72, 144, 132, generator=g).to(cuda, dtype)[..., :128]
-    with pytest.raises(ValueError, match="16-byte"):
-        window_attn.fused_window_attention(odd, odd, odd, mask, 4, 32 ** -0.5)
+    assert odd.stride(1) == 132
+    before = _build.LAUNCHES["window_attention"]
+    got = window_attn.fused_window_attention(odd, odd, odd, mask, 4, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["window_attention"] == before + 1
+    want = window_attn.window_attention_plain(odd, odd, odd, mask, 4, 32 ** -0.5)
+    assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype]
+
+
+# (head dim, heads) of the window-attention head-dim tests: C up to 512 at
+# the first heads of each head dim (ids the head dim alone), 48 and 96 also
+# at 1 and 3 heads (the tensor-core path's padded K / V rows, C / 8 not a
+# multiple of 8), and past 512 (640 at 4 heads of 160, 768 at 3 of 256)
+FIRST_HEADS = {3: 32, 24: 4, 25: 4, 48: 4, 96: 4, 192: 2, 256: 1, 512: 1}
+ANY_HEADS = [pytest.param(D, heads, id=str(D) if FIRST_HEADS.get(D) == heads else f"{D}x{heads}")
+             for D, heads in (*FIRST_HEADS.items(), (48, 1), (48, 3), (96, 1), (96, 3), (160, 4), (256, 3))]
+
+
+def _extra_seed(D, heads):
+    """0 at the first heads of a head dim (the seeds those cases had), a
+    seed of their own for the others."""
+    return 0 if FIRST_HEADS.get(D) == heads else 1000 * heads
+
+
+def _tc_smem(N, C):
+    """The tensor-core path's shared memory for a window (tc_smem in
+    csrc/window_attn.cu): K and V rows of C / 8 16-byte chunks, one chunk
+    of padding where that count is not a multiple of 8."""
+    chunks = C // 8 + (1 if (C // 8) % 8 else 0)
+    return 2 * N * chunks * 16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D,heads", ANY_HEADS)
+@pytest.mark.parametrize("N", [49, 144, 256])
+def test_window_attention_any_head_dim(cuda, N, D, heads, dtype):
+    """Head dims outside 8-128 (3, 24, 25, 160, 192, 256, 512: the CUDA-core
+    path) and 48 / 96 (bf16 on the tensor cores where N % 16 and the
+    window's K and V fit the 227 KB opt-in, else that path), at widths up
+    to 768 and windows 7, 12 and 16: the shift mask and no mask each launch
+    the kernel once within the bound, and a second run is bit-equal."""
+    from catseg_tpu_torch.kernels import swin_block, window_attn
+
+    C, win = heads * D, int(N ** 0.5)
+    g = torch.Generator().manual_seed(N + D + _extra_seed(D, heads))
+    q, k, v = (torch.randn(8, N, C, generator=g).to(cuda, dtype) for _ in range(3))
+    shifted = swin_block.shift_mask(2 * win, 2 * win, win, win // 2).to(cuda)
+    assert window_attn.kernel_takes(N, C, heads)
+    tc = dtype == torch.bfloat16 and D in (48, 96) and N % 16 == 0 and _tc_smem(N, C) <= 232448
+    assert window_attn.takes_tensor_cores(N, C, heads, dtype) == tc
+    for mask in (shifted, None):
+        before = _build.LAUNCHES["window_attention"]
+        got = window_attn.fused_window_attention(q, k, v, mask, heads, D ** -0.5)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["window_attention"] == before + 1
+        want = window_attn.window_attention_plain(q, k, v, mask, heads, D ** -0.5)
+        assert got.shape == want.shape and got.dtype == dtype
+        assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype], mask is None
+        assert torch.equal(got, window_attn.fused_window_attention(q, k, v, mask, heads, D ** -0.5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D,heads", ANY_HEADS)
+def test_window_attention_any_head_dim_qkv_views(cuda, D, heads, dtype):
+    """The unfused Swin block's views of one qkv projection at those head
+    dims (rows 3C apart: 300 elements at hidden 100, off the 16-byte grid):
+    read in place, equal to the call on contiguous copies (the same path),
+    one launch each, within the bound."""
+    from catseg_tpu_torch.kernels import swin_block, window_attn
+
+    C = heads * D
+    g = torch.Generator().manual_seed(D + _extra_seed(D, heads))
+    qkv = torch.randn(8, 144, 3 * C, generator=g).to(cuda, dtype)
+    q, k, v = qkv.split(C, dim=-1)
+    assert v.stride(1) == 3 * C and not v.is_contiguous()
+    mask = swin_block.shift_mask(24, 24, 12, 6).to(cuda)
+    before = _build.LAUNCHES["window_attention"]
+    got = window_attn.fused_window_attention(q, k, v, mask, heads, D ** -0.5)
+    want = window_attn.fused_window_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask, heads,
+                                              D ** -0.5)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["window_attention"] == before + 2
+    assert torch.equal(got, want)
+    assert selfcheck.rel_err(got, window_attn.window_attention_plain(q, k, v, mask, heads, D ** -0.5))[1] \
+        <= selfcheck.BOUND[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -551,15 +634,24 @@ def test_layer_norm_launches_outside_the_reference_gate(cuda, shape, dtype):
 
 
 def test_layer_norm_refuses_what_it_cannot_take(cuda):
-    """A width that is no whole number of 16-byte vectors, and rows that
-    start off a 16-byte boundary, raise before any launch; there is no
-    plain fallback on the card."""
+    """A width the kernel does not take where the reference's gate runs its
+    kernel (512 rows of 4224 in bf16, of 2176 in fp32: past 4096 / 2048),
+    and rows that start off a 16-byte boundary, raise before any launch;
+    a width the kernel does not take where that gate fails (64 rows of 6 in
+    bf16) runs the plain version, as the reference runs its plain
+    composition, and launches nothing."""
     from catseg_tpu_torch.kernels import layer_norm
 
-    w, b = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
     before = _build.LAUNCHES["layer_norm"]
-    with pytest.raises(NotImplementedError):
-        layer_norm.fused_layer_norm(torch.randn(64, 6, device=cuda, dtype=torch.bfloat16), w[:6], b[:6])
+    for C, dtype in ((4224, torch.bfloat16), (2176, torch.float32)):
+        assert layer_norm.route(C, 512, dtype) == "raise"
+        w, b = torch.ones(C, device=cuda), torch.zeros(C, device=cuda)
+        with pytest.raises(NotImplementedError, match="layer_norm kernel"):
+            layer_norm.fused_layer_norm(torch.randn(512, C, device=cuda, dtype=dtype), w, b)
+    w, b = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
+    x6 = torch.randn(64, 6, device=cuda, dtype=torch.bfloat16)
+    assert layer_norm.route(6, 64, torch.bfloat16) == "plain"
+    assert torch.equal(layer_norm.fused_layer_norm(x6, w[:6], b[:6]), layer_norm.layer_norm_plain(x6, w[:6], b[:6]))
     buf = torch.randn(8 * 768 + 8, device=cuda, dtype=torch.bfloat16)
     odd = buf[1:8 * 768 + 1].view(8, 768)
     assert odd.is_contiguous() and odd.data_ptr() % 16
@@ -568,6 +660,26 @@ def test_layer_norm_refuses_what_it_cannot_take(cuda):
     assert _build.LAUNCHES["layer_norm"] == before
     ok = buf[8:].view(8, 768)
     assert torch.equal(layer_norm.fused_layer_norm(ok, w, b), layer_norm.fused_layer_norm(ok.clone(), w, b))
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["serving", "autograd"])
+def test_layer_norm_runs_plain_outside_the_reference_gate(cuda, grad):
+    """bf16 rows of 100 (the hidden-100 aggregator's LayerNorms): the kernel
+    does not take the width and the reference's gate (C % 128) fails, so
+    the card runs layer_norm_plain, bit-equal, in serving and under
+    autograd, and launches nothing."""
+    from catseg_tpu_torch.kernels import layer_norm
+
+    g = torch.Generator().manual_seed(100)
+    x = (torch.randn(4 * 576, 100, generator=g) * 2 + 0.5).to(cuda, torch.bfloat16)
+    w, b = (1 + torch.randn(100, generator=g) * 0.1).to(cuda), (torch.randn(100, generator=g) * 0.1).to(cuda)
+    assert layer_norm.route(100, 4 * 576, torch.bfloat16) == "plain"
+    _build.reset_launches()
+    with torch.set_grad_enabled(grad):
+        got = layer_norm.fused_layer_norm(x.requires_grad_(grad), w, b)
+    torch.cuda.synchronize()
+    assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
+    assert torch.equal(got.detach(), layer_norm.layer_norm_plain(x.detach(), w, b))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -1040,16 +1152,46 @@ def test_linear_attention_widths(cuda, C, heads, dtype):
     assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype]
 
 
+# (C, heads) of the linear-attention head-dim tests: head dims 96, 24, 48,
+# 256, 512, 192, 384, 3, 1, 12, 6, 4 and 2 (the CUDA-core path)
+ANY_LINEAR = [(384, 4), (384, 16), (384, 8), (256, 1), (512, 1), (384, 2), (384, 1), (384, 128), (512, 512),
+              (384, 32), (384, 64), (512, 128), (256, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("C,heads", ANY_LINEAR, ids=[f"C{c}-h{h}" for c, h in ANY_LINEAR])
+@pytest.mark.parametrize("S", [13, 150, 256])
+def test_linear_attention_any_head_dim(cuda, S, C, heads, dtype):
+    """Every head dim at C a multiple of 128 up to 512 that the tensor-core
+    path does not take (heads straddling its 128-channel chunk, or a D x D
+    KV past a CTA): one launch a call, two runs bit-equal, the plain version
+    within the stated bound."""
+    from catseg_tpu_torch.kernels import linear_attn
+
+    assert linear_attn.route(C, heads, S) == "kernel"
+    g = torch.Generator().manual_seed(S + C + heads)
+    q, k, v = (torch.randn(5, S, C, generator=g).to(cuda, dtype) for _ in range(3))
+    before = _build.LAUNCHES["linear_attention"]
+    got = linear_attn.fused_linear_attention(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["linear_attention"] == before + 1
+    assert torch.equal(got, linear_attn.fused_linear_attention(q, k, v, heads))
+    want = linear_attn.linear_attention_plain(q, k, v, heads)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert selfcheck.rel_err(got, want)[1] <= selfcheck.BOUND[dtype]
+
+
 def test_linear_attention_refuses_what_it_cannot_take(cuda):
-    """A head dim of 256 at C = 256 and S = 16 (where the reference's gate
-    runs its kernel) raises NotImplementedError, a view not 16-byte aligned a
-    ValueError, before any launch."""
+    """A head dim of 1024 at C = 1024 and S = 16 (past the widths the kernel
+    takes at every head dim, where the reference's gate runs its kernel)
+    raises NotImplementedError, a view not 16-byte aligned a ValueError,
+    before any launch."""
     from catseg_tpu_torch.kernels import linear_attn
 
     before = _build.LAUNCHES["linear_attention"]
     y = torch.zeros(2, 16, 128, device=cuda)
-    wide = torch.zeros(2, 16, 256, device=cuda)
-    assert linear_attn.route(256, 1, 16) == "raise"
+    wide = torch.zeros(2, 16, 1024, device=cuda)
+    assert linear_attn.route(1024, 1, 16) == "raise"
     with pytest.raises(NotImplementedError):
         linear_attn.fused_linear_attention(wide, wide, wide, 1)
     with pytest.raises(ValueError, match="16-byte"):
@@ -1058,7 +1200,7 @@ def test_linear_attention_refuses_what_it_cannot_take(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("C,heads,S", [(8, 1, 16), (192, 3, 16), (256, 1, 13)])
+@pytest.mark.parametrize("C,heads,S", [(8, 1, 16), (192, 3, 16), (1024, 1, 13)])
 def test_linear_attention_runs_plain_outside_the_reference_gate(cuda, C, heads, S, dtype):
     """Outside the kernel's geometry and the reference's gate (C % 128, S %
     8), the card runs the plain version, as the reference runs its own

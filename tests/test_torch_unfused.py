@@ -30,10 +30,11 @@ exactly into the ones ROUTES says raise on the card and the ones it says run
 plain there (the MLP's and linear attention's ``route``: the reference's
 own gate fails), and every call inside hands the kernel rows laid out as
 its CUDA path takes them; and the mini model at hidden 256, at one head, at
-hidden 192 with 3 heads, at hidden 512 and at hidden 384 with 3 heads
-matches catseg_tpu's on the CPU.  The MLP's and
-linear attention's decision (kernel, plain or raise) is checked against a
-table of geometries at the edges of both gates.
+hidden 192 with 3 heads, at hidden 512, at hidden 384 with 3 and 4
+heads, at one head of 256, at hidden 96 and 100 and at window 24 matches
+catseg_tpu's on the CPU.  The MLP's, linear attention's and the LayerNorm's decision
+(kernel, plain or raise) is checked against a table of geometries at the
+edges of their gates.
 """
 
 import dataclasses
@@ -46,6 +47,7 @@ import jax
 import jax.numpy as jnp
 
 from catseg_tpu.core import aggregator as jagg
+from catseg_tpu.kernels import layer_norm as jln
 from catseg_tpu.kernels import linear_attn as jla
 from catseg_tpu.kernels import mlp as jmlp
 from catseg_tpu.kernels import window_attn as jwa
@@ -55,7 +57,8 @@ from catseg_tpu.weights.export import export_aggregator_state_dict
 from catseg_tpu_torch import configs as tconfigs
 from catseg_tpu_torch.core import aggregator as tagg
 from catseg_tpu_torch.core.catseg import CATSeg, init_catseg_
-from catseg_tpu_torch.kernels import _build, class_layer, corr_embed, decoder, selfcheck, swin_block
+from catseg_tpu_torch.kernels import class_layer, corr_embed, decoder, selfcheck, swin_block
+from catseg_tpu_torch.kernels import layer_norm as tln
 from catseg_tpu_torch.kernels import linear_attn as tla
 from catseg_tpu_torch.kernels import mlp as tmlp
 from catseg_tpu_torch.kernels import window_attn as twa
@@ -123,11 +126,16 @@ def _window_inputs(H, win, C, seed=1):
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("H,win,C,heads", [(8, 4, 32, 4), (24, 12, 128, 4), (24, 12, 128, 1)],
-                         ids=["win4-C32", "win12-C128", "win12-C128-heads1"])
+@pytest.mark.parametrize("H,win,C,heads", [(8, 4, 32, 4), (24, 12, 128, 4), (24, 12, 128, 1), (12, 12, 96, 4),
+                                           (12, 12, 192, 4), (12, 12, 384, 4), (8, 4, 256, 1), (12, 12, 100, 4)],
+                         ids=["win4-C32", "win12-C128", "win12-C128-heads1", "win12-C96", "win12-C192",
+                              "win12-C384", "win4-C256-heads1", "win12-C100"])
 @pytest.mark.parametrize("shifted", [False, True], ids=["plain", "shifted"])
 def test_window_attention_plain_matches_jax(dt, H, win, C, heads, shifted):
-    """Head dims 8, 32 and (one head of 128) 128."""
+    """Head dims 8, 32, (one head of 128) 128, and the ones the kernel took
+    last: 24, 48, 96 (hidden 96, 192 and 384 at 4 heads), one head of 256,
+    and 25 (hidden 100, rows of 100 elements); the reference's Pallas
+    kernel in interpret mode, a few windows each."""
     q, k, v = _window_inputs(H, win, C)
     N = win * win
     mask = (np.array(jagg._shift_mask(H, H, win, win // 2)) if shifted
@@ -149,14 +157,19 @@ def test_shift_mask_matches_jax():
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S,heads", [(16, 4), (13, 4), (16, 1)], ids=["pallas", "reference", "pallas-heads1"])
-def test_linear_attention_plain_matches_jax(dt, S, heads):
-    """Head dim 32, and 128 (one head of C = 128: the port's kernel takes
-    it, and the reference runs its Pallas kernel at S = 16)."""
+@pytest.mark.parametrize("C,S,heads", [(128, 16, 4), (128, 13, 4), (128, 16, 1), (384, 16, 4), (384, 16, 16),
+                                       (256, 16, 1)],
+                         ids=["pallas", "reference", "pallas-heads1", "pallas-C384", "pallas-C384-heads16",
+                              "pallas-C256-heads1"])
+def test_linear_attention_plain_matches_jax(dt, C, S, heads):
+    """Head dim 32, 128 (one head of C = 128: the port's kernel takes it,
+    and the reference runs its Pallas kernel at S = 16), and head dims 96,
+    24 and 256 at C = 384 and 256, where the reference's gate runs its
+    Pallas kernel and the port's takes them on its CUDA-core path."""
     rng = np.random.RandomState(2)
-    q, k, v = (rng.randn(6, S, 128).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.randn(6, S, C).astype(np.float32) for _ in range(3))
     (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dt) for a in (q, k, v))
-    assert tla.route(128, heads, S) == "kernel"
+    assert tla.route(C, heads, S) == "kernel"
     want = jla.fused_linear_attention(jq, jk, jv, heads)
     got = tla.fused_linear_attention(tq, tk, tv, heads)
     _check(got, want, dt)
@@ -314,13 +327,6 @@ def _aligned(*ts) -> bool:
     return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
 
 
-def _rows_as_taken(t) -> bool:
-    """Rows as the window-attention wrapper hands them to its kernel (a view
-    not evenly strided is copied): 8-element multiples apart, 16-byte aligned."""
-    t = t if _build.rows_evenly_strided(t) else t.contiguous()
-    return t.stride(1) % 8 == 0 and _aligned(t)
-
-
 # aggregator attribute: (kernel, whether its CUDA path takes the call's
 # geometry, whether it takes the call's layout after the wrapper's own copies,
 # and for a call it does not take, whether the card runs it plain)
@@ -336,8 +342,7 @@ WRAPPER_TAKES = {
     "fused_decoder": ("decoder", lambda x, g1, g2, d1, d2, head: decoder.decoder_kernel_applicable(x, d1, d2),
                       lambda *_: True, lambda *_: False),
     "fused_window_attention": ("window_attention", lambda q, k, v, mask, heads, scale: twa.kernel_takes(
-        q.shape[1], q.shape[2], heads), lambda q, k, v, *_: all(_rows_as_taken(t) for t in (q, k, v)),
-        lambda *_: False),
+        q.shape[1], q.shape[2], heads), lambda *_: True, lambda *_: False),   # any row stride
     "fused_mlp": ("mlp", lambda x, w1, b1, w2, b2, act: tmlp.kernel_takes(w1.shape[0], w1.shape[1], w2.shape[1]),
                   lambda x, w1, *_: _aligned(x.reshape(-1, w1.shape[0]).contiguous()),
                   lambda x, w1, b1, w2, b2, act: tmlp.route(*w1.shape, w2.shape[1], x.numel() // w1.shape[0])
@@ -418,12 +423,14 @@ MLP_ROUTES = [
     ((640, 1536, 640, 1024), "raise"),
 ]
 # (C, heads, S) -> linear attention's: the port's kernel takes head dims 8-128
-# at C <= 128 or C % 128; the reference's gate C % 128, S % 8
+# at C <= 128 or C % 128, and every head dim at C % 128 up to 512; the
+# reference's gate C % 128, S % 8
 LINEAR_ROUTES = [
     ((128, 4, 8), "kernel"), ((128, 4, 13), "kernel"), ((256, 4, 8), "kernel"), ((96, 3, 8), "kernel"),
     ((128, 1, 8), "kernel"), ((128, 1, 13), "kernel"), ((512, 4, 256), "kernel"), ((512, 4, 150), "kernel"),
     ((192, 3, 8), "plain"), ((96, 4, 8), "plain"), ((8, 1, 16), "plain"), ((384, 3, 16), "kernel"),
-    ((256, 1, 16), "raise"), ((256, 1, 13), "plain"),
+    ((256, 1, 16), "kernel"), ((256, 1, 13), "kernel"), ((384, 4, 16), "kernel"), ((384, 16, 8), "kernel"),
+    ((512, 1, 16), "kernel"), ((384, 128, 16), "kernel"), ((1024, 1, 16), "raise"), ((1024, 1, 13), "plain"),
 ]
 
 
@@ -467,9 +474,57 @@ def test_kernel_plain_or_raise_by_geometry(geometry, want):
     assert bool(traced) == (want == "raise"), (geometry, traced)
 
 
+# (C, M, dtype) -> the LayerNorm's decision: the port's kernel takes rows of a
+# multiple of 8 up to 4096 bf16, 4 up to 2048 fp32; the reference's gate C %
+# 128 and M >= 512 rows
+LN_ROUTES = [
+    ((768, 5770, "bfloat16"), "kernel"), ((100, 576, "float32"), "kernel"), ((96, 1, "float32"), "kernel"),
+    ((2176, 512, "bfloat16"), "kernel"), ((100, 576, "bfloat16"), "plain"), ((6, 64, "bfloat16"), "plain"),
+    ((130, 600, "bfloat16"), "plain"), ((4224, 511, "bfloat16"), "plain"), ((2560, 4, "float32"), "plain"),
+    ((4224, 512, "bfloat16"), "raise"), ((2176, 512, "float32"), "raise"),
+]
+
+
+@pytest.mark.parametrize("geometry,want", LN_ROUTES, ids=["x".join(map(str, g)) for g, _ in LN_ROUTES])
+def test_layer_norm_kernel_plain_or_raise_by_geometry(geometry, want):
+    """The LayerNorm decides a CUDA call by geometry alone, as #11 and #12
+    do: "kernel" where the port's kernel takes the width, "plain" where it
+    does not and the reference's Pallas gate fails, "raise" where that gate
+    holds; the gate is read off catseg_tpu's own wrapper, traced with its
+    kernel's entry replaced by a recorder."""
+    C, M, dt = geometry
+    tdt = DTYPES[dt][1]
+    assert tln.route(C, M, tdt) == want
+    assert want == ("kernel" if tln.kernel_takes(C, tdt) else "raise" if tln.reference_gate(C, M) else "plain")
+    traced = []
+    real = jln._pallas_ln
+    try:
+        jln._pallas_ln = lambda x2d, *a, **k: (traced.append(1), jnp.zeros(x2d.shape, x2d.dtype))[1]
+        jax.eval_shape(lambda x, g, b: jln.fused_layer_norm(x, g, b), jax.ShapeDtypeStruct((M, C), DTYPES[dt][0]),
+                       jax.ShapeDtypeStruct((C,), jnp.float32), jax.ShapeDtypeStruct((C,), jnp.float32))
+    finally:
+        jln._pallas_ln = real
+    assert bool(traced) == tln.reference_gate(C, M), (geometry, traced)
+
+
+def test_layer_norm_runs_plain_outside_the_kernel_and_the_gate():
+    """At a geometry routed "plain" (bf16 rows of 100, the hidden-100
+    aggregator's) the plain version matches catseg_tpu's LayerNorm, which
+    runs its own plain composition there."""
+    rng = np.random.RandomState(7)
+    x, g, b = (rng.randn(*s).astype(np.float32) for s in ((576, 100), (100,), (100,)))
+    jx, tx = _pair(x, "bfloat16")
+    assert tln.route(100, 576, torch.bfloat16) == "plain"
+    got = tln.fused_layer_norm(tx, torch.from_numpy(g), torch.from_numpy(b))
+    _check(got, jln.fused_layer_norm(jx, jnp.asarray(g), jnp.asarray(b)), "bfloat16")
+
+
 @pytest.mark.parametrize("kw", [dict(hidden_dim=256), dict(num_heads=1), dict(hidden_dim=192, num_heads=3),
-                                dict(hidden_dim=512), dict(hidden_dim=384, num_heads=3)],
-                         ids=["hidden256", "heads1", "hidden192-heads3", "hidden512", "hidden384-heads3"])
+                                dict(hidden_dim=512), dict(hidden_dim=384, num_heads=3), dict(hidden_dim=384),
+                                dict(hidden_dim=256, num_heads=1), dict(hidden_dim=96), dict(hidden_dim=100),
+                                dict(window_size=24)],
+                         ids=["hidden256", "heads1", "hidden192-heads3", "hidden512", "hidden384-heads3",
+                              "hidden384", "hidden256-heads1", "hidden96", "hidden100", "window24"])
 def test_mini_aggregator_outside_kernel_limits_matches_jax(kw):
     """The mini vitb384 at hidden 256 (Swin and class layer outside the
     port's fused kernels; corr embed, window attention, MLP and linear
@@ -481,7 +536,14 @@ def test_mini_aggregator_outside_kernel_limits_matches_jax(kw):
     and the decoder are outside the reference's gates), and at hidden 512
     (4 heads of 128) and 384 (3 heads of 128), where the corr embed, window
     and linear attention and the MLP (C -> 4C -> C, the reference's Pallas
-    MLP in interpret mode) all take it, against catseg_tpu's aggregator."""
+    MLP in interpret mode) all take it; at hidden 384 with 4 heads of 96
+    and hidden 256 with one head of 256 (window and linear attention at
+    those head dims, the reference's linear attention on Pallas), at hidden
+    96 (4 heads of 24; the MLP and linear attention plain) and at hidden
+    100 (4 heads of 25, rows of 100 elements: window attention takes it,
+    the LayerNorm's bf16 rows would run plain), and at window 24 (one
+    window of 576 tokens, past the window-attention kernel's 256: the card
+    raises there), against catseg_tpu's aggregator."""
     cfg, tcfg = mini_cfg(**kw), mini_cfg_port(**kw)
     agg = init_catseg_(CATSeg(tcfg), 0).agg
     params = convert_aggregator_state_dict({k: t.numpy() for k, t in agg.state_dict().items()},
